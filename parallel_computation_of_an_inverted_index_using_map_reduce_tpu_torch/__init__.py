@@ -1,0 +1,40 @@
+"""Inverted-index MapReduce on an NVIDIA GPU, in PyTorch and CUDA.
+
+A port of the JAX package
+``parallel_computation_of_an_inverted_index_using_map_reduce_tpu`` (kept
+beside it as the reference), for the one-shot device plan:
+
+- host frontend: corpus manifest + vectorized numpy tokenizer + sorted
+  vocab (reference map phase, main.c:85-124)
+- device engine: ``torch.sort`` over packed (term, doc) pairs, the
+  ``unique_mask_count`` CUDA kernel for the dedup, run-edge document
+  frequency, rank-scatter postings, emit-order sort (reference reduce
+  phase, main.c:126-242); ``--skew`` adds the ``bucket_histogram``
+  CUDA kernel
+- host emit: byte-identical ``<letter>.txt`` postings files
+  (format of main.c:227-234)
+
+It imports torch and numpy, never jax and nothing of the JAX package.
+"""
+
+__version__ = "0.1.0"
+
+from .config import IndexConfig
+from .corpus.manifest import Manifest, read_manifest, write_manifest, manifest_from_dir
+from .text.tokenizer import TokenizedCorpus, clean_token
+from .models.inverted_index import InvertedIndexModel, build_index
+from .models.oracle import oracle_index
+
+__all__ = [
+    "IndexConfig",
+    "Manifest",
+    "read_manifest",
+    "write_manifest",
+    "manifest_from_dir",
+    "TokenizedCorpus",
+    "clean_token",
+    "InvertedIndexModel",
+    "build_index",
+    "oracle_index",
+    "__version__",
+]

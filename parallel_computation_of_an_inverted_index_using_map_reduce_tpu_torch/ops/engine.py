@@ -1,0 +1,178 @@
+"""Device engine: the whole reduce phase as a few torch calls on the card.
+
+The reference's reduce phase — re-parse spill text, linear-scan dict
+dedup, qsort by (df desc, word asc), bubble-sort postings, format
+(main.c:126-242) — becomes a program over integer tensors:
+
+    sort packed (term, doc) keys          ->  torch.sort
+    per-(term, doc) dedup + unique count  ->  unique_mask_count kernel
+    document frequency                    ->  run-edge cumsum differences
+    postings lists (ascending, compact)   ->  rank scatter (ops/segment.py)
+    final emit order (letter, -df, term)  ->  one int64 key sort
+
+Padding keys sort to the tail and fall out of the run edges.  Control
+crosses host<->device twice: feed the pairs, fetch the postings.  Each
+function takes and returns tensors on one device, the card or (for
+tests) the CPU, where the kernels run their plain versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import keys as K
+from .kernels import unique_mask_count
+from .segment import compact, first_occurrence_mask, sorted_segment_counts
+
+_INT64_MAX = 2**63 - 1
+
+
+def emit_order(letter_of_term: torch.Tensor, df: torch.Tensor, vocab_size: int,
+               max_doc_id: int) -> torch.Tensor:
+    """Term ids ordered (letter asc, df desc, term asc), int64.
+
+    Within a letter file: df descending, then word ascending — term ids
+    are assigned in sorted-vocab order, so ``term id asc == word asc``
+    and no strings are needed on the card.  One int64 key holds all
+    three fields wherever the JAX package needs an int32 key or a
+    stable three-key sort; keys are distinct, so any sort gives the
+    same order.
+    """
+    stride = max_doc_id + 2
+    if 26 * stride * (vocab_size + 1) >= _INT64_MAX:
+        raise ValueError(
+            f"emit key overflows int64 (vocab {vocab_size}, max doc {max_doc_id})")
+    neg_df = (max_doc_id + 1) - df.to(torch.int64)  # df <= max_doc_id + 1
+    terms = torch.arange(vocab_size, dtype=torch.int64, device=df.device)
+    emit_key = (letter_of_term.to(torch.int64) * stride + neg_df) * vocab_size + terms
+    return torch.sort(emit_key).indices
+
+
+def host_order_offsets(letter_of_term, df) -> tuple[np.ndarray, np.ndarray]:
+    """Emit order + postings offsets computed on the host from fetched df.
+
+    Both are vocab-sized and derive from df alone, so fetching df is
+    enough.  ``np.lexsort`` is stable, so full ties fall back to term id
+    ascending == word ascending, matching main.c:55-64.
+    """
+    df64 = np.asarray(df).astype(np.int64)
+    order = np.lexsort((-df64, np.asarray(letter_of_term)))
+    offsets = np.cumsum(df64) - df64
+    return order.astype(np.int64), offsets
+
+
+def dedup_df_postings(keys_s: torch.Tensor, *, vocab_size: int, max_doc_id: int):
+    """Shared post-sort block: per-(term, doc) dedup, document frequency,
+    compacted postings — from an ascending packed-key array (may contain
+    ``K.INT32_MAX`` padding, which sorts last and is dropped).
+
+    Returns ``(first, df, postings, num_unique)``; the mask and the
+    unique count come from the ``unique_mask_count`` kernel."""
+    valid_limit = vocab_size * (max_doc_id + 2)
+    term_s, doc_s = K.unpack_pairs(keys_s, max_doc_id)
+    first, num_unique = unique_mask_count(keys_s, valid_limit)
+    df = sorted_segment_counts(term_s, first.to(torch.int32), vocab_size)
+    postings = compact(doc_s, first, keys_s.shape[0], 0)
+    return first, df, postings, num_unique
+
+
+def postings_from_sorted(keys_s: torch.Tensor, letter_of_term: torch.Tensor, *,
+                         vocab_size: int, max_doc_id: int) -> dict:
+    """Postings/df/order from an ascending packed-key array."""
+    _, df, postings, num_unique = dedup_df_postings(
+        keys_s, vocab_size=vocab_size, max_doc_id=max_doc_id)
+    return {
+        "postings": postings,
+        "df": df,
+        "order": emit_order(letter_of_term, df, vocab_size, max_doc_id),
+        "offsets": torch.cumsum(df, 0, dtype=df.dtype) - df,
+        "num_unique": num_unique,
+    }
+
+
+def index_packed(keys: torch.Tensor, letter_of_term: torch.Tensor, *,
+                 vocab_size: int, max_doc_id: int) -> dict:
+    """Index a batch of packed (term, doc) int32 keys.
+
+    ``keys`` may be padded with ``K.INT32_MAX`` (sorts after every valid
+    key since ``can_pack`` guarantees headroom).
+    """
+    return postings_from_sorted(
+        torch.sort(keys).values, letter_of_term,
+        vocab_size=vocab_size, max_doc_id=max_doc_id)
+
+
+def pack_u16_feed(terms, docs, padded: int) -> np.ndarray:
+    """Host-side encode of the half-bandwidth uint16 feed buffer:
+    ``[terms | docs]``, each half ``padded`` long, 0xFFFF padding — the
+    layout :func:`u16_feed_to_keys` decodes on the device."""
+    buf = np.full(2 * padded, 0xFFFF, dtype=np.uint16)
+    n = len(terms)
+    buf[:n] = terms
+    buf[padded : padded + n] = docs
+    return buf
+
+
+def u16_feed_tensor(buf_u16: np.ndarray, device) -> torch.Tensor:
+    """Upload a :func:`pack_u16_feed` buffer.  Torch's uint16 coverage on
+    the card is thin, so the bytes travel as an int16 view."""
+    return torch.from_numpy(buf_u16.view(np.int16)).to(device)
+
+
+def u16_feed_to_keys(feed_i16: torch.Tensor, max_doc_id: int) -> torch.Tensor:
+    """``[terms | docs]`` int16 view of the uint16 feed (0xFFFF padding)
+    -> packed int32 keys, widened on the device with ``& 0xFFFF``."""
+    stride = max_doc_id + 2
+    half = feed_i16.shape[0] // 2
+    wide = feed_i16.to(torch.int32) & 0xFFFF
+    term, doc = wide[:half], wide[half:]
+    return torch.where(term == 0xFFFF, K.INT32_MAX, term * stride + doc)
+
+
+def index_u16(feed_i16: torch.Tensor, *, vocab_size: int, max_doc_id: int) -> dict:
+    """Transfer-minimized path for corpora with vocab_size <= 65535 and
+    max_doc_id <= 65534 (the reference's whole envelope, MAX_FILES=360 at
+    main.c:8).
+
+    The input is ONE buffer: term ids in the first half, doc ids in the
+    second, 0xFFFF padding; keys are packed on the device.  The output
+    is the single int32 array ``combined = [df | postings]``, whose values
+    all fit uint16: the host narrows what it fetches (:func:`narrow_u16`)
+    and derives ``order``/``offsets``/``num_unique`` from df
+    (:func:`host_order_offsets`).
+    """
+    keys = u16_feed_to_keys(feed_i16, max_doc_id)
+    _, df, postings, _ = dedup_df_postings(
+        torch.sort(keys).values, vocab_size=vocab_size, max_doc_id=max_doc_id)
+    return {"combined": torch.cat([df, postings])}
+
+
+def narrow_u16(t: torch.Tensor) -> np.ndarray:
+    """Fetch an int32 tensor whose values fit uint16 and narrow it on the
+    host."""
+    return t.cpu().numpy().astype(np.uint16)
+
+
+def index_pairs(term_ids: torch.Tensor, doc_ids: torch.Tensor,
+                letter_of_term: torch.Tensor, *, vocab_size: int, max_doc_id: int) -> dict:
+    """General path for corpora too large to pack into one int32 key.
+
+    Sorts one int64 key ``term << 31 | doc`` (both fields are
+    nonnegative int32), otherwise identical semantics to
+    :func:`index_packed`.  Padding: term = doc = INT32_MAX.
+    """
+    key = torch.sort((term_ids.to(torch.int64) << 31) | doc_ids.to(torch.int64)).values
+    term_s = (key >> 31).to(torch.int32)
+    doc_s = (key & K.INT32_MAX).to(torch.int32)
+    valid = term_s < vocab_size
+    first = first_occurrence_mask(key) & valid
+    df = sorted_segment_counts(
+        torch.where(valid, term_s, vocab_size), first.to(torch.int32), vocab_size)
+    return {
+        "postings": compact(doc_s, first, term_s.shape[0], 0),
+        "df": df,
+        "order": emit_order(letter_of_term, df, vocab_size, max_doc_id),
+        "offsets": torch.cumsum(df, 0, dtype=df.dtype) - df,
+        "num_unique": first.sum(dtype=torch.int32),
+    }
