@@ -13,9 +13,13 @@ Phases, each failing loudly (exit 1, no result line):
    plain version and (histogram only) ``torch.bincount``, beside the
    least time the card could take (bytes over 3.35 TB/s, or operations
    over 67 T/s, whichever is larger).  Each time is the median of five
-   CUDA-event means, printed with its min and max.  Then the warm device
-   time of the engine program each path runs (index_u16, index_packed)
-   at that path's shape.
+   CUDA-event means, printed with its min and max, each taken after a
+   device spin so that the host's enqueue is not what is timed.
+   ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
+   {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
+   (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
+   Then the warm device time of the engine program each path runs
+   (index_u16, index_packed) at that path's shape.
 3. Path A — the reference envelope, u16 engine: a 355-doc,
    33,000-word-vocab Zipf corpus (~1.03 M tokens) through the CLI
    (``4 26 list.txt --stats``); letter-file md5 equal to the oracle's.
@@ -62,10 +66,15 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+HOLD_CYCLES = 100_000_000  # ~50 ms of device spin at the H100's clocks
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, repeats: int = 5
             ) -> tuple[float, float, float]:
     """Device time of one ``fn`` call in ms, by CUDA events: the mean over
-    ``iters`` calls, taken ``repeats`` times; returns (median, min, max)."""
+    ``iters`` calls, taken ``repeats`` times; returns (median, min, max).
+    The device spins first, so the host has queued every call before the
+    first starts and the time is the device's, not the enqueue's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -73,6 +82,7 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, repeats: int = 5
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         for _ in range(iters):
             fn()
@@ -171,29 +181,47 @@ def phase_kernels(torch, K, shapes) -> list[dict]:
                                    dtype=torch.int32)
     letters = letter_of_term[terms.long()]
     buckets = terms % 2
+    one_hot = torch.full((b_valid,), 5, dtype=torch.int32, device="cuda")
     cmp_hist(letters, 26, f"path B letters n={b_valid}")
     cmp_hist(buckets, 2, f"path B hash buckets n={b_valid}")
-    for nb in (1, 8, 128):
-        cmp_hist(torch.randint(-3, nb + 3, (1_000_003,), device="cuda", generator=gen,
-                               dtype=torch.int32), nb, f"out-of-range mix nb={nb}")
-    for n in (1, 8191):
-        cmp_hist(torch.randint(0, 27, (n,), device="cuda", generator=gen,
+    cmp_hist(one_hot, 26, f"one hot n={b_valid}")
+    mixed = torch.randint(-3, 128 + 3, (1_000_003,), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    for nb in (1, 2, 8, 26, 32, 33, 127, 128):
+        cmp_hist(mixed % (nb + 6) - 3, nb, f"out-of-range mix nb={nb}")
+    for offset in (1, 2, 3):  # views that start 4, 8, 12 bytes past a 16-byte boundary
+        cmp_hist(letters[offset:], 26, f"letters[{offset}:]")
+        cmp_hist(mixed[offset:offset + 4097], 33, f"mixed[{offset}:{offset + 4097}] nb=33")
+    for n in (1, 2, 3, 5, 6, 7, 8191, 8193, 8194, 8195):  # n % 4 in {1, 2, 3}
+        cmp_hist(torch.randint(-2, 28, (n,), device="cuda", generator=gen,
                                dtype=torch.int32), 26, f"ragged n={n}")
+    cmp_hist(letters[::3], 26, "strided letters[::3]")
     cmp_hist(torch.full((8192,), 26, dtype=torch.int32, device="cuda"), 26, "all padding")
     cmp_hist(torch.full((3 * 8192,), 5, dtype=torch.int32, device="cuda"), 26, "one hot bucket")
 
-    ms, lo, hi = cuda_ms(torch, lambda: K.bucket_histogram(letters, 26))
-    plain_ms = cuda_ms(torch, lambda: K.bucket_histogram_plain(letters, 26))[0]
-    library_ms = cuda_ms(torch, lambda: torch.bincount(letters, minlength=26))[0]
-    b_ms, b_by = bound(4 * b_valid + 4 * 26, 2 * b_valid)
+    # Path B's two launches (letters, hash buckets), then one-hot ids as a
+    # contention probe; each beside its plain version and torch.bincount.
+    hist_shapes = []
+    for label, values, nb in (("letters", letters, 26), ("hash_buckets", buckets, 2),
+                              ("one_hot", one_hot, 26)):
+        ms, lo, hi = cuda_ms(torch, lambda: K.bucket_histogram(values, nb))
+        shape = {"label": label, "n": b_valid, "num_buckets": nb, "ms": ms,
+                 "ms_min": lo, "ms_max": hi}
+        shape["plain_ms"] = cuda_ms(torch, lambda: K.bucket_histogram_plain(values, nb))[0]
+        shape["library_ms"] = cuda_ms(torch, lambda: torch.bincount(values, minlength=nb))[0]
+        shape["bound_ms"], shape["bound_by"] = bound(4 * b_valid + 4 * nb, 2 * b_valid)
+        hist_shapes.append(shape)
+    main_shape = hist_shapes[0]
     results.append({
         "name": "bucket_histogram", "route": "cuda",
         "source": f"{PKG}/csrc/bucket_histogram.cu",
         "replaces": f"{JAX_KERNELS}:183", "n": b_valid, "num_buckets": 26,
-        "max_abs_err": err, "parity": err == 0, "ms": ms, "kernel_ms": ms,
-        "ms_min": lo, "ms_max": hi,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms,
+        "max_abs_err": err, "parity": err == 0,
+        "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
+        "ms_min": main_shape["ms_min"], "ms_max": main_shape["ms_max"],
+        "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
+        "shapes": hist_shapes,
     })
     return results
 
@@ -320,6 +348,8 @@ def main() -> int:
                   f"(min {k['ms_min']:.4f} max {k['ms_max']:.4f}) "
                   f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
                   f"library_ms={k['library_ms']}", flush=True)
+            for shape in k.get("shapes", []):
+                print(f"  {k['name']} {json.dumps(shape)}", flush=True)
         eng = phase_engine(torch, E, shapes)
         print("phase engine: " + " ".join(
             f"{name}={t[0]:.4f} (min {t[1]:.4f} max {t[2]:.4f})" for name, t in eng.items()),

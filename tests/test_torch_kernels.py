@@ -4,20 +4,34 @@ On the CPU each wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernel in interpret mode (as tests/test_pallas.py does).
 Exact equality throughout: every value is an integer.  The ``cuda``
 tests hold the CUDA kernels against the plain versions and skip without
-a card.
+a card; they need no JAX, so on the card
+``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``
+runs them (the repo's conftest imports JAX).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.ops.pallas import (
-    kernels as jk,
-)
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
     engine as te,
     kernels as tk,
 )
+
+
+class _JaxKernels:
+    """The JAX package's Pallas kernels, imported at first use, so that
+    the ``cuda`` tests also run on a machine without JAX
+    (``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``)."""
+
+    def __getattr__(self, name):
+        from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.ops.pallas import (
+            kernels,
+        )
+        return getattr(kernels, name)
+
+
+jk = _JaxKernels()
 
 INT32_MAX = 2**31 - 1
 BLOCK = 8192
@@ -111,6 +125,49 @@ def test_bucket_histogram_ragged_matches_numpy(n):
     np.testing.assert_array_equal(got, np.bincount(vals[vals < 26], minlength=26))
 
 
+HIST_VIEWS = ["contiguous", "offset1", "offset3", "strided3"]
+
+
+def _hist_view(base, view, n):
+    """An ``n``-long view of ``base`` (at least ``3n + 3`` values).  The
+    offset views start 4 and 12 bytes past the allocation, off the
+    16-byte boundary the CUDA kernel's vector loads need."""
+    if view == "contiguous":
+        return base[:n]
+    if view == "offset1":
+        return base[1:1 + n]
+    if view == "offset3":
+        return base[3:3 + n]
+    if view == "strided3":
+        return base[::3][:n]
+    raise AssertionError(view)
+
+
+def _hist_base(n, num_buckets, seed, one_hot=False):
+    """``3n + 3`` ids with negatives and ids >= num_buckets mixed in."""
+    if one_hot:
+        return np.full(3 * n + 3, num_buckets - 1, np.int32)
+    rng = np.random.default_rng(seed)
+    return rng.integers(-3, num_buckets + 3, 3 * n + 3).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [BLOCK, 8193, 8194, 8195])
+@pytest.mark.parametrize("view", HIST_VIEWS)
+@pytest.mark.parametrize("num_buckets", [1, 32, 33, 127])
+def test_bucket_histogram_views_match_reference(num_buckets, view, n):
+    """Offset and strided views, ``n % 4`` in {0, 1, 2, 3}: against the
+    Pallas kernel where it takes the size, else against ``np.bincount``."""
+    values = _hist_view(torch.from_numpy(_hist_base(n, num_buckets, n + num_buckets)), view, n)
+    vals = np.ascontiguousarray(values.numpy())
+    if n % BLOCK == 0:
+        want = np.asarray(jk.bucket_histogram(vals, num_buckets))
+    else:
+        want = np.bincount(vals[(vals >= 0) & (vals < num_buckets)], minlength=num_buckets)
+    got = tk.bucket_histogram(values, num_buckets)
+    assert got.dtype == torch.int32 and got.shape == (num_buckets,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("num_buckets", [0, -1, 129, 1000])
 def test_bucket_histogram_validation_matches_pallas(num_buckets):
     vals = np.zeros(BLOCK, np.int32)
@@ -156,10 +213,15 @@ def test_cuda_unique_mask_count_matches_plain(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_buckets", [1, 2, 26, 128])
-def test_cuda_bucket_histogram_matches_plain(num_buckets):
+@pytest.mark.parametrize("n", [1, 8194, 1_000_003, 2**24 + 4097])
+@pytest.mark.parametrize("view", HIST_VIEWS)
+@pytest.mark.parametrize("num_buckets", [1, 2, 26, 32, 33, 127, 128])
+def test_cuda_bucket_histogram_matches_plain(num_buckets, view, n):
+    """Offset and strided views, ``n % 4`` in {1, 2, 3}, 1 to 128 buckets;
+    above 2**24 ids all in one bin, which no narrow counter survives."""
     _need_cuda()
-    vals = torch.randint(-3, num_buckets + 3, (1_000_003,), dtype=torch.int32).cuda()
+    base = _hist_base(n, num_buckets, n + num_buckets, one_hot=n > 2**24)
+    vals = _hist_view(torch.from_numpy(base).cuda(), view, n)
     before = tk.bucket_histogram.launches
     got = tk.bucket_histogram(vals, num_buckets)
     want = tk.bucket_histogram_plain(vals, num_buckets)
