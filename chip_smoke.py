@@ -5,11 +5,36 @@
 
 Phases, each failing loudly (exit 1, no result line):
 
-1. The card (``nvidia-smi`` name and power limit) and the kernels' build
-   from ``csrc/`` with nvcc (time and ptxas report).
-2. Kernels: each CUDA kernel against its plain PyTorch version on the
-   card, exact equality, at the main path's shapes, ragged sizes,
-   all-padding and dense runs; then CUDA-event times of the kernel, the
+1. The card (``nvidia-smi`` name and power limit) and the build: the
+   CUDA kernels from ``csrc/`` with nvcc (one process per source) and,
+   at the same time, the native host scan ``native/tokenizer.cc`` with
+   g++ (times and ptxas report).  A native build failure fails here.
+2. Path A — the reference envelope: a 355-doc, 33,000-word-vocab Zipf
+   corpus (~1.03 M tokens).  Two legs, each with its letter-file md5
+   equal to the oracle's:
+   - the one-shot plan over the numpy tokenizer
+     (``build_index`` with ``IndexConfig(use_native=False)``; the CLI has
+     no such flag): the ``u16`` engine, ``unique_mask_count`` launched;
+   - the default CLI run (``4 26 list.txt --stats``): the pipelined plan
+     with two uint16 windows (``upload_windows == 2``, ``tokenize_feed``
+     present).
+3. Path B — the one-shot plan fed by the native combiner at
+   BASELINE.json config 4's vocabulary (100,000 words) with 20,000 docs
+   (20 M tokens), ``--skew``: the ``packed`` engine, both kernels
+   launched; md5 equal to the same build with ``--device cpu``.
+4. Path C — the default CLI run on Path B's corpus, no ``--skew``: the
+   default build at the repo's largest size.  It takes the pipelined plan
+   (20,000 docs <= 0xFFFE) and its provisional ids outgrow uint16, so its
+   windows are int32 keys; md5 equal to Path B's and to the same build
+   with ``--device cpu``.  Its device work is one ``torch.sort``: it
+   launches neither kernel.  Then its two windows are read again, on the
+   main thread and by the reader thread alone, per window.
+   Paths B and C are recorded by torch.profiler (device activity only),
+   which gives each run's device-busy time and the idle share of its wall
+   time.
+5. Kernels: each CUDA kernel against its plain PyTorch version on the
+   card, exact equality, at the shapes Paths A and B gave it in this
+   run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
    least time the card could take (bytes over 3.35 TB/s, or operations
    over 67 T/s, whichever is larger).  Each time is the median of five
@@ -18,24 +43,21 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-   Then the warm device time of the engine program each path runs
-   (index_u16, index_packed) at that path's shape.
-3. Path A — the reference envelope, u16 engine: a 355-doc,
-   33,000-word-vocab Zipf corpus (~1.03 M tokens) through the CLI
-   (``4 26 list.txt --stats``); letter-file md5 equal to the oracle's.
-4. Path B — the packed engine at BASELINE.json config 4's vocabulary
-   (100,000 words) with 20,000 docs (20 M tokens), ``--skew``; md5 equal
-   to the same build with ``--device cpu``.  The card's run is recorded by
-   torch.profiler (device activity only), which gives the device-busy
-   time and the idle share of the run's wall time.
+6. Engine: the warm device time of each engine program a path runs, at
+   that path's shape from this run — index_u16 (Path A's numpy leg),
+   index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
+   sort_prov_chunks (Path C's two int32 windows) — and the peak device
+   memory of the last.
 
-Both paths go through ``cli.main``, the function behind
-``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``,
-in this process, so the kernels' launch counts are read around each
-run.  The last lines are the card, one ``{"kernels": [...]}`` JSON line,
-and ``{"ok": true, "device": {...}}``.  Exits non-zero without those on
-a machine with no CUDA device, or when the package is not beside this
-script.
+Every path runs through ``cli.main`` (the function behind
+``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
+or ``build_index`` in this process, with the kernels' launch counts set
+to 0 just before and read just after each; a kernel's ``launches`` in
+the ``kernels`` line is their sum, ``launches_by_path`` the parts.  The
+last lines are the card,
+one ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device":
+{...}}``.  Exits non-zero without those on a machine with no CUDA
+device, or when the package is not beside this script.
 """
 
 from __future__ import annotations
@@ -226,34 +248,77 @@ def phase_kernels(torch, K, shapes) -> list[dict]:
     return results
 
 
-def phase_engine(torch, E, shapes) -> dict:
-    """Warm device time of the engine program each path runs, at its
-    shape: index_u16 at Path A's, index_packed at Path B's."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    a_n, a_valid, a_vocab, a_docs = shapes["A"]
-    pad = torch.full((a_n - a_valid,), 0xFFFF, dtype=torch.int32, device="cuda")
-    terms = torch.cat([zipf_ids(torch, a_valid, a_vocab, gen), pad])
-    docs = torch.cat([torch.randint(1, a_docs + 1, (a_valid,), device="cuda", generator=gen,
+def random_keys(torch, n_valid: int, padded: int, vocab: int, max_doc: int, gen):
+    """Unsorted packed keys (Zipf terms, uniform docs), INT32_MAX padding."""
+    term = zipf_ids(torch, n_valid, vocab, gen)
+    doc = torch.randint(1, max_doc + 1, (n_valid,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    keys = torch.full((padded,), INT32_MAX, dtype=torch.int32, device="cuda")
+    keys[:n_valid] = term * (max_doc + 2) + doc
+    return keys
+
+
+def u16_feed(torch, n_valid: int, padded: int, vocab: int, max_doc: int, gen):
+    """The int16 view of a uint16 ``[terms | docs]`` feed, 0xFFFF padding."""
+    pad = torch.full((padded - n_valid,), 0xFFFF, dtype=torch.int32, device="cuda")
+    terms = torch.cat([zipf_ids(torch, n_valid, vocab, gen), pad])
+    docs = torch.cat([torch.randint(1, max_doc + 1, (n_valid,), device="cuda", generator=gen,
                                     dtype=torch.int32), pad])
-    feed = torch.cat([terms, docs]).to(torch.int16)  # the uint16 feed's bits
-    u16 = cuda_ms(torch, lambda: E.index_u16(feed, vocab_size=a_vocab, max_doc_id=a_docs),
-                  iters=10)
+    return torch.cat([terms, docs]).to(torch.int16)  # the uint16 feed's bits
+
+
+def round_up(n: int, m: int) -> int:
+    return ((max(n, 1) + m - 1) // m) * m
+
+
+def phase_engine(torch, E, shapes) -> dict:
+    """Warm device time of the engine program each path runs, at that
+    path's shape (padded n, valid n, vocab, docs) from this run."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    a_n, a_valid, a_vocab, a_docs = shapes["A_numpy"]
+    feed = u16_feed(torch, a_valid, a_n, a_vocab, a_docs, gen)
+    out["index_u16_ms"] = cuda_ms(
+        torch, lambda: E.index_u16(feed, vocab_size=a_vocab, max_doc_id=a_docs), iters=10)
+    d_n, d_valid, d_vocab, d_docs = shapes["A_dedup"]
+    feed = u16_feed(torch, d_valid, d_n, d_vocab, d_docs, gen)
+    nfetch = min(d_n, round_up(d_valid, 1 << 14))
+    out["index_prededuped_u16_ms"] = cuda_ms(
+        torch, lambda: E.index_prededuped_u16(feed, max_doc_id=d_docs, out_size=nfetch),
+        iters=10)
     b_n, b_valid, b_vocab, b_docs = shapes["B"]
-    keys = sorted_keys(torch, b_n, b_valid, b_vocab, b_docs, gen)
-    keys = keys[torch.randperm(b_n, device="cuda", generator=gen)]
+    keys = random_keys(torch, b_valid, b_n, b_vocab, b_docs, gen)
     letters = torch.randint(0, 26, (b_vocab,), device="cuda", generator=gen, dtype=torch.int32)
-    packed = cuda_ms(torch, lambda: E.index_packed(keys, letters, vocab_size=b_vocab,
-                                                   max_doc_id=b_docs), iters=10)
-    return {"index_u16_ms": u16, "index_packed_ms": packed}
+    out["index_packed_ms"] = cuda_ms(
+        torch, lambda: E.index_packed(keys, letters, vocab_size=b_vocab, max_doc_id=b_docs),
+        iters=10)
+    c_n, c_valid, c_vocab, c_docs = shapes["C"]
+    half = c_valid // 2
+    chunks = [random_keys(torch, v, round_up(v, 1 << 14), c_vocab, c_docs, gen)
+              for v in (half, c_valid - half)]
+    nfetch = min(sum(c.shape[0] for c in chunks), round_up(c_valid, 1 << 14))
+    del keys, feed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out["sort_prov_chunks_ms"] = cuda_ms(
+        torch, lambda: E.sort_prov_chunks(chunks, stride=c_docs + 2, out_size=nfetch), iters=10)
+    out["sort_prov_chunks_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    return out
 
 
-def device_busy_ms(trace_path: Path) -> float | None:
+def device_busy(trace_path: Path) -> dict:
     """Summed duration of the kernels, copies and fills in a
-    torch.profiler Chrome trace (None when the trace holds none)."""
+    torch.profiler Chrome trace: ``{"ms": total or None when the trace
+    holds none, "by_cat": {category: [events, ms]}}``."""
     events = json.loads(trace_path.read_text()).get("traceEvents", [])
-    durs = [e.get("dur", 0) for e in events
-            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    return sum(durs) / 1e3 if durs else None
+    by_cat: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            n, ms = by_cat.get(e["cat"], (0, 0.0))
+            by_cat[e["cat"]] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    total = sum(ms for _, ms in by_cat.values())
+    return {"ms": total if by_cat else None, "by_cat": by_cat}
 
 
 def run_cli(cli, argv: list[str]) -> tuple[int, dict | None]:
@@ -271,12 +336,12 @@ def write_corpus_dir(synthetic, manifest_mod, root: Path, docs) -> Path:
     return list_path
 
 
-def drive_path(torch, K, cli, formatter, list_path: Path, out_dir: Path, extra: list[str],
-               label: str, trace: Path | None = None) -> tuple[dict, dict]:
-    """One counted run of the main path: counts set to 0 just before,
-    read just after.  With ``trace``, the run is recorded by
-    torch.profiler (device activity only) and its device-busy time
-    summed from the trace."""
+def drive_path(torch, K, formatter, run, out_dir: Path, label: str,
+               trace: Path | None = None) -> tuple[dict, dict]:
+    """One counted run of a path: ``run()`` returns the build's stats;
+    the launch counts are set to 0 just before and read just after.
+    With ``trace``, the run is recorded by torch.profiler (device
+    activity only) and its device-busy time summed from the trace."""
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     profiler = None
@@ -285,26 +350,65 @@ def drive_path(torch, K, cli, formatter, list_path: Path, out_dir: Path, extra: 
         profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         profiler.start()
     t1 = time.perf_counter()
-    rc, stats = run_cli(cli, ["4", "26", str(list_path), "--stats",
-                              "--output-dir", str(out_dir), *extra])
+    stats = run()
     t2 = time.perf_counter()
     if profiler is not None:
         profiler.stop()
     t3 = time.perf_counter()
     launches = {"unique_mask_count": K.unique_mask_count.launches,
                 "bucket_histogram": K.bucket_histogram.launches}
-    check(rc == 0 and stats is not None, f"{label}: CLI exit {rc}")
+    check(stats is not None, f"{label}: no stats")
     stats["md5"] = formatter.letters_md5(out_dir)
     stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     stats["wall_ms"] = (t2 - t1) * 1e3
     if profiler is not None:
         stats["profiler_start_stop_ms"] = ((t1 - t0) + (t3 - t2)) * 1e3
         profiler.export_chrome_trace(str(trace))
-        stats["device_busy_ms"] = device_busy_ms(trace)
+        busy = device_busy(trace)
+        stats["device_busy_ms"], stats["device_busy_by_cat"] = busy["ms"], busy["by_cat"]
     return stats, launches
 
 
+def cli_run(cli, label: str, list_path: Path, out_dir: Path, extra: list[str]):
+    """A ``run`` for :func:`drive_path`: the CLI with ``--stats``."""
+
+    def run():
+        rc, stats = run_cli(cli, ["4", "26", str(list_path), "--stats",
+                                  "--output-dir", str(out_dir), *extra])
+        check(rc == 0, f"{label}: CLI exit {rc}")
+        return stats
+
+    return run
+
+
+def check_pipelined(stats: dict, label: str) -> None:
+    check("tokenize_feed" in stats["phases_ms"] and "finalize_vocab" in stats["phases_ms"]
+          and stats.get("upload_windows", 0) >= 1,
+          f"{label} did not take the pipelined plan: phases {sorted(stats['phases_ms'])}")
+
+
+def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
+    fields = {k: stats.get(k) for k in (
+        "tokens", "unique_pairs", "unique_terms", "engine", "host_threads", "upload_windows",
+        "window_modes", "window_plan_bytes", "window_read_ms", "window_wait_ms", "window_scan_ms", "pipelined_fallback", "letter_imbalance",
+        "bucket_imbalance") if k in stats}
+    print(f"phase {name}: {json.dumps(fields)} md5={stats['md5']} launches={launches} "
+          + " ".join(f"{k}={v}" for k, v in extra.items())
+          + f" wall_ms={stats['wall_ms']:.3f} total_ms={stats['total_ms']} "
+          f"phases_ms={json.dumps(stats['phases_ms'])} "
+          f"max_memory_allocated={stats['max_memory_allocated']}", flush=True)
+    if "device_busy_ms" in stats:
+        busy = stats["device_busy_ms"]
+        print(f"phase {name}_device: wall_ms={stats['wall_ms']:.3f} "
+              f"profiler_start_stop_ms={stats['profiler_start_stop_ms']:.3f} device_busy_ms="
+              + (f"{busy:.3f} idle_share={1 - busy / stats['wall_ms']:.6f}"
+                 if busy is not None else "not measured (no device events in the trace)")
+              + f" by_category={json.dumps(stats['device_busy_by_cat'])}", flush=True)
+
+
 def main() -> int:
+    import threading
+
     import torch
 
     if not torch.cuda.is_available():
@@ -312,9 +416,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     try:
-        from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import cli
+        from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
+            IndexConfig, build_index, cli, native)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
-            manifest as manifest_mod, synthetic)
+            manifest as manifest_mod, scheduler, synthetic)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
             engine as E, kernels as K)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.text import (
@@ -332,17 +437,124 @@ def main() -> int:
         kind = torch.cuda.get_device_name(0)
         print(f"phase card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
               f"| {kind}", flush=True)
+        # g++ for the host scan runs beside nvcc's kernel builds
+        native_build = {}
+
+        def build_native():
+            t = time.perf_counter()
+            native_build["ok"] = native.load() is not None
+            native_build["seconds"] = time.perf_counter() - t
+
+        scan_build = threading.Thread(target=build_native)
+        scan_build.start()
         built = K.build()
-        print(f"phase build: {built['seconds']:.1f} s", flush=True)
+        scan_build.join()
+        check(native_build["ok"], f"native scan build failed: {native.load_error()}")
+        print(f"phase build: kernels {built['seconds']:.1f} s, "
+              f"native scan {native_build['seconds']:.1f} s", flush=True)
         for stem, log in built["ptxas"].items():
             for line in log.splitlines():
                 if "registers" in line or "error" in line.lower():
                     print(f"  ptxas {stem}: {line.strip()}")
 
-        # main-path shapes: (padded n, valid tokens, vocab, docs)
-        shapes = {"A": (1 << 20, 355 * 2900, 33_000, 355),
-                  "B": (20_054_016, 20_000 * 1000, 100_000, 20_000)}
-        kernels = phase_kernels(torch, K, shapes)
+        launches_by_path = {}
+        with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+            tmp = Path(tmp)
+            # -- Path A: the reference envelope, two legs -------------------
+            list_a = write_corpus_dir(synthetic, manifest_mod, tmp / "A", synthetic.zipf_corpus(
+                num_docs=355, vocab_size=33_000, tokens_per_doc=2900, seed=7))
+            rc, _ = run_cli(cli, ["4", "26", str(list_a), "--backend", "oracle",
+                                  "--output-dir", str(tmp / "A_oracle")])
+            check(rc == 0, f"path A oracle: exit {rc}")
+            md5_oracle = formatter.letters_md5(tmp / "A_oracle")
+            manifest_a = manifest_mod.read_manifest(list_a)
+            stats_a1, launches_a1 = drive_path(
+                torch, K, formatter,
+                lambda: build_index(manifest_a, IndexConfig(num_mappers=4, num_reducers=26,
+                                                            use_native=False),
+                                    output_dir=str(tmp / "A1_out")),
+                tmp / "A1_out", "path A numpy leg")
+            check(stats_a1.get("engine") == "u16", f"path A numpy leg took engine "
+                  f"{stats_a1.get('engine')}")
+            check(launches_a1["unique_mask_count"] > 0,
+                  "path A numpy leg launched no unique_mask_count")
+            check(stats_a1["md5"] == md5_oracle,
+                  f"path A numpy leg md5 {stats_a1['md5']} != oracle {md5_oracle}")
+            print_path("path_a_numpy", stats_a1, launches_a1, oracle_md5=md5_oracle)
+            launches_by_path["A_numpy"] = launches_a1
+
+            stats_a2, launches_a2 = drive_path(
+                torch, K, formatter, cli_run(cli, "path A", list_a, tmp / "A2_out", []),
+                tmp / "A2_out", "path A default")
+            check_pipelined(stats_a2, "path A default")
+            check(stats_a2["upload_windows"] == 2 and stats_a2["window_modes"] == ["u16", "u16"],
+                  f"path A default: windows {stats_a2['upload_windows']} "
+                  f"modes {stats_a2['window_modes']}, want two u16 windows")
+            check(stats_a2["md5"] == md5_oracle,
+                  f"path A default md5 {stats_a2['md5']} != oracle {md5_oracle}")
+            print_path("path_a_default", stats_a2, launches_a2, oracle_md5=md5_oracle)
+            launches_by_path["A_default"] = launches_a2
+
+            # -- Path B: native combiner, one-shot packed engine, --skew ----
+            list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+                num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+            stats_b, launches_b = drive_path(
+                torch, K, formatter, cli_run(cli, "path B", list_b, tmp / "B_out", ["--skew"]),
+                tmp / "B_out", "path B", trace=tmp / "B_trace.json")
+            check(stats_b.get("engine") == "packed", f"path B took engine {stats_b.get('engine')}")
+            for name, n in launches_b.items():
+                check(n > 0, f"path B launched no {name}")
+            rc, stats_b_cpu = run_cli(cli, ["4", "26", str(list_b), "--skew", "--device", "cpu",
+                                            "--output-dir", str(tmp / "B_cpu"), "--stats"])
+            check(rc == 0, f"path B --device cpu: exit {rc}")
+            md5_b_cpu = formatter.letters_md5(tmp / "B_cpu")
+            check(stats_b["md5"] == md5_b_cpu, f"path B md5 {stats_b['md5']} != cpu {md5_b_cpu}")
+            print_path("path_b", stats_b, launches_b, cpu_md5=md5_b_cpu,
+                       cpu_phases_ms=json.dumps(stats_b_cpu["phases_ms"]))
+            launches_by_path["B"] = launches_b
+
+            # -- Path C: the default build at Path B's size ------------------
+            stats_c, launches_c = drive_path(
+                torch, K, formatter, cli_run(cli, "path C", list_b, tmp / "C_out", []),
+                tmp / "C_out", "path C", trace=tmp / "C_trace.json")
+            check_pipelined(stats_c, "path C")
+            check(stats_c["window_modes"] and set(stats_c["window_modes"]) == {"keys"},
+                  f"path C window modes {stats_c['window_modes']}, want int32 keys")
+            rc, stats_c_cpu = run_cli(cli, ["4", "26", str(list_b), "--device", "cpu",
+                                            "--output-dir", str(tmp / "C_cpu"), "--stats"])
+            check(rc == 0, f"path C --device cpu: exit {rc}")
+            md5_c_cpu = formatter.letters_md5(tmp / "C_cpu")
+            check(stats_c["md5"] == md5_c_cpu == stats_b["md5"],
+                  f"path C md5 {stats_c['md5']} != cpu {md5_c_cpu} or path B {stats_b['md5']}")
+            print_path("path_c", stats_c, launches_c, cpu_md5=md5_c_cpu, path_b_md5=stats_b["md5"],
+                       cpu_phases_ms=json.dumps(stats_c_cpu["phases_ms"]))
+            launches_by_path["C"] = launches_c
+            # Path C's two windows read again, on the main thread alone and
+            # by the reader thread with no scan beside it: says whether a
+            # window's read is slow for its files or for the scan beside it
+            manifest_b = manifest_mod.read_manifest(list_b)
+            windows = scheduler.plan_contiguous_windows(manifest_b, 2)
+            main_ms = []
+            items = manifest_mod.iter_document_ranges(manifest_b, windows)
+            for _ in windows:
+                t = time.perf_counter()
+                next(items)
+                main_ms.append(round((time.perf_counter() - t) * 1e3, 3))
+            alone_ms: list = []
+            for _ in manifest_mod.prefetch_document_ranges(manifest_b, windows, read_ms=alone_ms):
+                pass
+            print(f"phase path_c_reads: main_thread_ms={main_ms} "
+                  f"reader_thread_alone_ms={alone_ms}", flush=True)
+
+        # -- kernels against their plain versions, at this run's shapes ----
+        # (padded n, valid n, vocab, docs): Path A's numpy leg keeps every
+        # token; Path B feeds the combiner's deduped pairs
+        a_pairs = stats_a2["unique_pairs"]
+        b_pairs = stats_b["unique_pairs"]
+        kernels = phase_kernels(torch, K, {
+            "A": (round_up(stats_a1["tokens"], 1 << 16), stats_a1["tokens"],
+                  stats_a1["unique_terms"], 355),
+            "B": (round_up(b_pairs, 1 << 16), b_pairs, stats_b["unique_terms"], 20_000)})
         for k in kernels:
             print(f"phase kernels: {k['name']} exact={k['parity']} ms={k['ms']:.4f} "
                   f"(min {k['ms_min']:.4f} max {k['ms_max']:.4f}) "
@@ -350,64 +562,24 @@ def main() -> int:
                   f"library_ms={k['library_ms']}", flush=True)
             for shape in k.get("shapes", []):
                 print(f"  {k['name']} {json.dumps(shape)}", flush=True)
-        eng = phase_engine(torch, E, shapes)
+
+        # -- warm engine programs at this run's shapes ----------------------
+        eng = phase_engine(torch, E, {
+            "A_numpy": (1 << 20, stats_a1["tokens"], stats_a1["unique_terms"], 355),
+            "A_dedup": (round_up(a_pairs, 1 << 16), a_pairs, stats_a2["unique_terms"], 355),
+            "B": (round_up(b_pairs, 1 << 16), b_pairs, stats_b["unique_terms"], 20_000),
+            "C": (None, stats_c["unique_pairs"], stats_c["unique_terms"], 20_000)})
+        peak = eng.pop("sort_prov_chunks_peak_extra_bytes")
         print("phase engine: " + " ".join(
-            f"{name}={t[0]:.4f} (min {t[1]:.4f} max {t[2]:.4f})" for name, t in eng.items()),
-            flush=True)
-
-        with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
-            tmp = Path(tmp)
-            list_a = write_corpus_dir(synthetic, manifest_mod, tmp / "A", synthetic.zipf_corpus(
-                num_docs=355, vocab_size=33_000, tokens_per_doc=2900, seed=7))
-            stats_a, launches_a = drive_path(torch, K, cli, formatter, list_a, tmp / "A_out",
-                                             [], "path A")
-            check(stats_a["engine"] == "u16", f"path A took engine {stats_a['engine']}")
-            check(launches_a["unique_mask_count"] > 0, "path A launched no unique_mask_count")
-            rc, _ = run_cli(cli, ["4", "26", str(list_a), "--backend", "oracle",
-                                  "--output-dir", str(tmp / "A_oracle")])
-            check(rc == 0, f"path A oracle: exit {rc}")
-            md5_oracle = formatter.letters_md5(tmp / "A_oracle")
-            check(stats_a["md5"] == md5_oracle,
-                  f"path A md5 {stats_a['md5']} != oracle {md5_oracle}")
-            print(f"phase path_a: tokens={stats_a['tokens']} engine={stats_a['engine']} "
-                  f"wall_ms={stats_a['wall_ms']:.3f} total_ms={stats_a['total_ms']} "
-                  f"md5={stats_a['md5']} oracle_md5={md5_oracle} launches={launches_a} "
-                  f"phases_ms={json.dumps(stats_a['phases_ms'])} "
-                  f"max_memory_allocated={stats_a['max_memory_allocated']}", flush=True)
-
-            list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
-                num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
-            stats_b, launches_b = drive_path(torch, K, cli, formatter, list_b, tmp / "B_out",
-                                             ["--skew"], "path B", trace=tmp / "B_trace.json")
-            check(stats_b["engine"] == "packed", f"path B took engine {stats_b['engine']}")
-            for name, n in launches_b.items():
-                check(n > 0, f"path B launched no {name}")
-            rc, stats_cpu = run_cli(cli, ["4", "26", str(list_b), "--device", "cpu",
-                                          "--output-dir", str(tmp / "B_cpu"), "--stats"])
-            check(rc == 0, f"path B --device cpu: exit {rc}")
-            md5_cpu = formatter.letters_md5(tmp / "B_cpu")
-            check(stats_b["md5"] == md5_cpu, f"path B md5 {stats_b['md5']} != cpu {md5_cpu}")
-            print(f"phase path_b: tokens={stats_b['tokens']} engine={stats_b['engine']} "
-                  f"unique_pairs={stats_b['unique_pairs']} md5={stats_b['md5']} "
-                  f"cpu_md5={md5_cpu} launches={launches_b} "
-                  f"letter_imbalance={stats_b['letter_imbalance']} "
-                  f"bucket_imbalance={stats_b['bucket_imbalance']} "
-                  f"phases_ms={json.dumps(stats_b['phases_ms'])} "
-                  f"cpu_phases_ms={json.dumps(stats_cpu['phases_ms'])} "
-                  f"max_memory_allocated={stats_b['max_memory_allocated']}", flush=True)
-            busy = stats_b["device_busy_ms"]
-            print(f"phase path_b_device: wall_ms={stats_b['wall_ms']:.3f} "
-                  f"total_ms={stats_b['total_ms']} "
-                  f"profiler_start_stop_ms={stats_b['profiler_start_stop_ms']:.3f} device_busy_ms="
-                  + (f"{busy:.3f} idle_share={1 - busy / stats_b['wall_ms']:.6f}"
-                     if busy is not None else "not measured (no device events in the trace)"),
-                  flush=True)
+            f"{name}={t[0]:.4f} (min {t[1]:.4f} max {t[2]:.4f})" for name, t in eng.items())
+            + f" sort_prov_chunks_peak_extra_bytes={peak}", flush=True)
     except (SmokeFailure, OSError, RuntimeError, ValueError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
     for k in kernels:
-        k["launches"] = launches_b[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in launches_by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     print(f"phase done: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,17 +2,21 @@
 
 A port of the JAX package
 ``parallel_computation_of_an_inverted_index_using_map_reduce_tpu`` (kept
-beside it as the reference), for the one-shot device plan:
+beside it as the reference), for its default build on one device:
 
-- host frontend: corpus manifest + vectorized numpy tokenizer + sorted
-  vocab (reference map phase, main.c:85-124)
-- device engine: ``torch.sort`` over packed (term, doc) pairs, the
-  ``unique_mask_count`` CUDA kernel for the dedup, run-edge document
-  frequency, rank-scatter postings, emit-order sort (reference reduce
-  phase, main.c:126-242); ``--skew`` adds the ``bucket_histogram``
-  CUDA kernel
-- host emit: byte-identical ``<letter>.txt`` postings files
-  (format of main.c:227-234)
+- host frontend: corpus manifest, then the native C++ scan
+  (``native/``, the map phase with its per-(term, doc) combiner,
+  main.c:85-124) or the vectorized numpy tokenizer
+- device engine, by one of two plans (models/inverted_index.py):
+  the pipelined plan uploads provisional-key windows while the scan
+  runs and finalizes with one ``torch.sort``; the one-shot plan sorts
+  packed (term, doc) pairs, dedups through the ``unique_mask_count``
+  CUDA kernel when the feed still holds duplicates, and derives run-edge
+  document frequency, rank-scatter postings and the emit order
+  (reference reduce phase, main.c:126-242); ``--skew`` adds the
+  ``bucket_histogram`` CUDA kernel
+- host emit: byte-identical ``<letter>.txt`` postings files, native or
+  Python (format of main.c:227-234)
 
 It imports torch and numpy, never jax and nothing of the JAX package.
 """

@@ -52,6 +52,15 @@ def make_parser() -> argparse.ArgumentParser:
                    help="also measure letter vs hash-bucket partition skew on the device")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="torch device of the engine (cpu runs the kernels' plain versions)")
+    p.add_argument("--pipeline-chunk-docs", type=int, default=None,
+                   help="pipelined plan: documents per upload window "
+                        "(default: auto, two windows; 0 = one-shot engine)")
+    p.add_argument("--host-threads", type=int, default=None,
+                   help="native scan threads (default: num_mappers if > 1, "
+                        "else min(cores, 8)); output-invariant")
+    p.add_argument("--emit-backend", choices=("auto", "native", "python"), default="auto",
+                   help="letter-file writer: auto = native emit when available, "
+                        "python = the pure-Python writer; byte-identical either way")
     return p
 
 
@@ -78,6 +87,9 @@ def main(argv: list[str] | None = None) -> int:
             pad_multiple=args.pad_multiple,
             collect_skew_stats=args.skew,
             device=args.device,
+            pipeline_chunk_docs=args.pipeline_chunk_docs,
+            host_threads=args.host_threads,
+            emit_backend=args.emit_backend,
         )
         stats = build_index(manifest, config)
     except (OSError, ValueError, DeviceUnavailable) as e:

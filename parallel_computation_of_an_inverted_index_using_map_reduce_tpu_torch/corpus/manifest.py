@@ -124,28 +124,96 @@ def manifest_from_dir(corpus_dir: str | Path, pattern: str = "**/*.txt") -> Mani
     return Manifest(paths=tuple(paths), sizes=_stat_sizes(paths))
 
 
+def iter_document_ranges(manifest: Manifest, ranges,
+                         report: DegradationReport | None = None):
+    """Yield ``(contents, doc_ids)`` for each ``[lo, hi)`` doc range.
+
+    Unreadable files are skipped inside their range (reference
+    main.c:97-100) — their doc id never appears in any postings list —
+    recorded in ``report``, and summarized in one warning line per
+    range.
+    """
+    for lo, hi in ranges:
+        contents: list[bytes] = []
+        doc_ids: list[int] = []
+        skipped = 0
+        for i in range(lo, hi):
+            try:
+                data = manifest.read_doc(i)
+            except OSError as e:
+                skipped += 1
+                if report is not None:
+                    report.record_skip(doc_id=manifest.doc_id(i),
+                                       path=manifest.paths[i], reason=str(e))
+                continue
+            contents.append(data)
+            doc_ids.append(manifest.doc_id(i))
+        if skipped:
+            log.warning("skipped %d unreadable document(s) in [%d, %d)", skipped, lo, hi)
+        yield contents, doc_ids
+
+
+def prefetch_document_ranges(manifest: Manifest, ranges,
+                             report: DegradationReport | None = None, depth: int = 1,
+                             read_ms: list | None = None):
+    """:func:`iter_document_ranges` with a reader thread ``depth``
+    ranges ahead.
+
+    The native scan releases the GIL, so the next window's file reads
+    overlap the current window's scan — the reference reads and scans
+    serially per mapper (main.c:97-116).  Reader exceptions re-raise in
+    the consumer.  ``read_ms``, when given, receives each range's read
+    time on the reader thread."""
+    import queue
+    import threading
+    import time
+
+    q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+    done = object()
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        # bounded put that gives up when the consumer is gone, so an
+        # abandoned generator (a feed error mid-loop) cannot leave the
+        # reader blocked forever holding window buffers
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def reader():
+        try:
+            items = iter_document_ranges(manifest, ranges, report)
+            while True:
+                t0 = time.perf_counter()
+                item = next(items, done)
+                if read_ms is not None and item is not done:
+                    read_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+                if not _put(item) or item is done:
+                    return
+        except BaseException as e:  # surfaced on the consumer side
+            _put(e)
+
+    threading.Thread(target=reader, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
 def load_documents(manifest: Manifest, report: DegradationReport | None = None
                    ) -> tuple[list[bytes], list[int]]:
-    """Read every manifest file, preserving doc ids for readable files.
-
-    Unreadable files are skipped (reference main.c:97-100) — their doc
-    id never appears in any postings list — recorded in ``report``, and
-    summarized in one warning line.
-    """
-    contents: list[bytes] = []
-    doc_ids: list[int] = []
-    skipped = 0
-    for i in range(len(manifest)):
-        try:
-            data = manifest.read_doc(i)
-        except OSError as e:
-            skipped += 1
-            if report is not None:
-                report.record_skip(doc_id=manifest.doc_id(i),
-                                   path=manifest.paths[i], reason=str(e))
-            continue
-        contents.append(data)
-        doc_ids.append(manifest.doc_id(i))
-    if skipped:
-        log.warning("skipped %d unreadable document(s)", skipped)
+    """Read every manifest file, preserving doc ids for readable files
+    (unreadable ones are skipped and recorded, as in
+    :func:`iter_document_ranges`)."""
+    (contents, doc_ids), = iter_document_ranges(manifest, [(0, len(manifest))], report)
     return contents, doc_ids

@@ -14,6 +14,14 @@ Padding keys sort to the tail and fall out of the run edges.  Control
 crosses host<->device twice: feed the pairs, fetch the postings.  Each
 function takes and returns tensors on one device, the card or (for
 tests) the CPU, where the kernels run their plain versions.
+
+Feeds the native combiner already deduped (each (term, doc) pair once)
+need only the sort: :func:`index_prededuped_u16` (one-shot) and
+:func:`sort_prov_chunks` (the pipelined plan's provisional-key
+windows).  Their postings come back narrowed to 16 bits on the card
+(an int16 tensor holding uint16 bits, :func:`host_u16` reads it), and
+:func:`upload` / :class:`PendingFetch` move the windows and the result
+through pinned host memory so both copies overlap host work.
 """
 
 from __future__ import annotations
@@ -176,3 +184,87 @@ def index_pairs(term_ids: torch.Tensor, doc_ids: torch.Tensor,
         "offsets": torch.cumsum(df, 0, dtype=df.dtype) - df,
         "num_unique": first.sum(dtype=torch.int32),
     }
+
+
+def upload(host: np.ndarray, device: torch.device, keep: list) -> torch.Tensor:
+    """Start copying one feed buffer to ``device`` and return the device
+    tensor.  On the card the bytes are staged in pinned memory so the
+    copy runs asynchronously, overlapping the host's next window; the
+    pinned tensor goes into ``keep``, which the caller holds until the
+    copy has been consumed.  On the CPU the buffer is used in place."""
+    t = torch.from_numpy(host)
+    if device.type != "cuda":
+        return t
+    pinned = t.pin_memory()
+    keep.append(pinned)
+    return pinned.to(device, non_blocking=True)
+
+
+class PendingFetch:
+    """A device->host copy in flight: on the card a ``non_blocking`` copy
+    into pinned memory plus a CUDA event, so the host works meanwhile;
+    :meth:`wait` blocks on the event and returns the numpy array (never
+    read the buffer before that — the bytes are not there yet)."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def host_u16(a: np.ndarray) -> np.ndarray:
+    """The uint16 values of a fetched int16 tensor (the bits are the
+    same; torch has no uint16 arithmetic on the card)."""
+    return a.view(np.uint16)
+
+
+def index_prededuped_u16(feed_i16: torch.Tensor, *, max_doc_id: int,
+                         out_size: int | None = None) -> torch.Tensor:
+    """Minimal device program for a combiner-deduped one-shot feed.
+
+    When the host map phase already emitted each (term, doc) pair once,
+    the reduce phase is exactly one sort: postings = doc component of
+    the ascending pair keys.  df, order and offsets derive from the
+    deduped term ids on the host (vocab-sized).  ``out_size`` limits the
+    result to the valid prefix, so the fetch carries no padding beyond
+    the rounding granule.  Returns int16 holding uint16 doc ids.
+    """
+    keys = u16_feed_to_keys(feed_i16, max_doc_id)
+    docs = torch.sort(keys).values
+    if out_size is not None:
+        docs = docs[:out_size]
+    return (docs % (max_doc_id + 2)).to(torch.int16)
+
+
+def sort_prov_chunks(chunks, *, stride: int, out_size: int) -> torch.Tensor:
+    """Pipelined plan: sort packed *provisional*-id keys fed per window.
+
+    Each element of ``chunks`` is one upload window, copied while the
+    host was still scanning later documents — provisional ids are
+    first-occurrence ids, stable the moment a window is scanned, so this
+    program never depends on the final sorted vocab.  A window is either
+    int32 ``prov_id * stride + doc`` keys (INT32_MAX padding) or, while
+    its prov ids still fit, the int16 view of a uint16 ``[terms | docs]``
+    buffer (0xFFFF padding) packed into the same keys here.  Postings
+    only need *grouping* by term and docs ascending, which the key sort
+    gives; the host resolves emit order and offsets in prov space.
+
+    Combiner-deduped feeds only.  Returns the doc component of the first
+    ``out_size`` ascending keys — the concatenated postings lists in
+    prov-id order — as int16 holding uint16 (callers guarantee
+    ``stride <= 0x10000``).
+    """
+    as_keys = [u16_feed_to_keys(c, stride - 2) if c.dtype == torch.int16 else c
+               for c in chunks]
+    keys = as_keys[0] if len(as_keys) == 1 else torch.cat(as_keys)
+    return (torch.sort(keys).values[:out_size] % stride).to(torch.int16)

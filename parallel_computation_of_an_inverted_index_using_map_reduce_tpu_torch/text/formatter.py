@@ -45,10 +45,31 @@ def emit_index(
     offsets: np.ndarray,          # (V,) exclusive start of term's postings
     postings: np.ndarray,         # (>=num pairs,) compacted ascending doc ids
     max_doc_id: int,
+    backend: str = "python",
 ) -> dict:
-    """Write the 26 letter files from the device engine's output arrays."""
+    """Write the 26 letter files from the device engine's output arrays.
+
+    ``backend`` selects the writer: ``"native"`` requires the C++ emit
+    (native/tokenizer.cc), ``"auto"`` uses it when the library loads,
+    and ``"python"`` is this module's pure-Python writer.  All three are
+    byte-identical; the Python writer stays authoritative.
+    """
     output_dir = Path(output_dir)
     os.makedirs(output_dir, exist_ok=True)
+    if backend not in ("python", "auto", "native"):
+        raise ValueError(f"unknown emit backend {backend!r}")
+    if backend in ("auto", "native"):
+        from .. import native
+
+        if native.load() is not None:
+            bytes_written = native.emit_native(output_dir, np.asarray(vocab), order, df,
+                                               offsets, postings)
+            return {"lines_written": int(np.asarray(order).shape[0]),
+                    "bytes_written": bytes_written, "emit_backend": "native"}
+        if backend == "native":
+            raise RuntimeError(
+                f"emit_backend='native' but the native library is "
+                f"unavailable: {native.load_error()}")
     id_strs = _doc_id_str_table(max_doc_id)
     vocab_py = vocab.tolist()  # list[bytes]; plain indexing beats np scalar access
     df = np.asarray(df)
@@ -68,7 +89,7 @@ def emit_index(
             out += b" ".join(id_strs[postings[start : start + n]])
             out += b"]\n"
         _write_letter_atomic(output_dir / letter_filename(letter), bytes(out))
-    return {"lines_written": int(bounds[-1] - bounds[0])}
+    return {"lines_written": int(bounds[-1] - bounds[0]), "emit_backend": "python"}
 
 
 def emit_grouped(output_dir: str | Path,

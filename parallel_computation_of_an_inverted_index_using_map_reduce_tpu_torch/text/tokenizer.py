@@ -17,6 +17,8 @@ the device == strcmp order on the host, and the final (df desc, word
 asc) output ordering (main.c:55-64) needs no strings on the card.
 Every (term, doc) occurrence is kept: the device engine folds the
 duplicates (the reference reducer's dedup, main.c:172-187).
+:func:`tokenize` dispatches to the native scan (native/), which can
+apply that dedup in the map phase instead.
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ class TokenizedCorpus:
     doc_ids: np.ndarray       # int32 (num_tokens,)
     vocab: np.ndarray         # (vocab_size,) numpy bytes (S) array, sorted
     letter_of_term: np.ndarray  # int32 (vocab_size,), first letter - 'a'
+    # combiner applied: each (term, doc) pair appears exactly once (the
+    # reducer dedup of main.c:176-184 pulled into the map phase)
+    pairs_deduped: bool = False
+    raw_tokens: int | None = None  # tokens scanned before the combiner
 
     @property
     def num_tokens(self) -> int:
@@ -225,3 +231,24 @@ def tokenize_documents(contents: list[bytes], doc_ids: list[int]) -> TokenizedCo
         vocab=vocab,
         letter_of_term=letter_of_term,
     )
+
+
+def tokenize(contents: list[bytes], doc_ids: list[int],
+             use_native: bool = True, dedup_pairs: bool = False,
+             num_threads: int = 1) -> TokenizedCorpus:
+    """Dispatch to the native scan when it builds, else the numpy path.
+
+    Both implement the identical contract.  ``dedup_pairs`` applies the
+    map-side combiner (native path only; the numpy path leaves
+    duplicates for the device engine to fold, which is output-invariant).
+    ``num_threads`` parallelizes the native scan over contiguous doc
+    ranges (the reference's mapper threads, main.c:348-365); output is
+    identical for every thread count.
+    """
+    if use_native:
+        from .. import native
+
+        if native.available():
+            return native.tokenize_native(
+                contents, doc_ids, dedup_pairs=dedup_pairs, num_threads=num_threads)
+    return tokenize_documents(contents, doc_ids)

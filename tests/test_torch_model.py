@@ -58,6 +58,10 @@ PORT_DIR = REPO_ROOT / PORT_PKG
 
 
 def _port_cfg(**kw):
+    """The port's one-shot plan over the numpy tokenizer, the counterpart
+    of :func:`_jax_cfg` (the default build takes the pipelined plan,
+    tests/test_torch_pipelined.py)."""
+    kw.setdefault("use_native", False)
     return tpkg.IndexConfig(device="cpu", **kw)
 
 
@@ -161,7 +165,8 @@ def test_cli_smoke_fixture_golden(smoke_fixture, tmp_path, monkeypatch, capsys):
                     "--output-dir", str(tmp_path)])
     assert rc == 0
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert stats["engine"] == "u16" and stats["degradation"]["skipped_docs"] == []
+    # --skew keeps the one-shot plan; the native combiner dedups its feed
+    assert stats["engine"] == "u16_prededuped" and stats["degradation"]["skipped_docs"] == []
     assert read_letter_files(tmp_path) == read_letter_files(smoke_fixture / "golden")
 
 
