@@ -32,7 +32,19 @@ Phases, each failing loudly (exit 1, no result line):
    Paths B and C are recorded by torch.profiler (device activity only),
    which gives each run's device-busy time and the idle share of its wall
    time.
-5. Kernels: each CUDA kernel against its plain PyTorch version on the
+5. Path D — the all-device plan (``--device-tokenize``) on Path B's
+   corpus: raw bytes up, the finished index down, ``sort_cols == 3``, no
+   fallback; md5 equal to Paths B and C and to the same build with
+   ``--device cpu``; recorded by torch.profiler.  Two more legs on Path
+   A's corpus: with added documents of 13-44-letter words (tail groups,
+   the sparse tail fetch; md5 equal to their oracle's), and with
+   ``--device-tokenize-width 8``, which must restart on the host plan
+   (``device_tokenize_fallback`` set; md5 equal to Path A's oracle).
+6. Path E — the streaming plan (``--stream-chunk-docs 5000``) on Path
+   B's corpus: four windows into a packed accumulator, the finalize's
+   dedup through ``unique_mask_count``; md5 equal to Path B's; recorded
+   by torch.profiler.
+7. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A and B gave it in this
    run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -43,11 +55,13 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-6. Engine: the warm device time of each engine program a path runs, at
+8. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
-   sort_prov_chunks (Path C's two int32 windows) — and the peak device
-   memory of the last.
+   sort_prov_chunks (Path C's two int32 windows), index_bytes_device
+   (Path D's bytes) — with the peak device memory of the last two; and
+   one StreamingIndexEngine.feed of Path E's last window, by the host
+   clock and by CUDA events.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
@@ -164,6 +178,10 @@ def phase_kernels(torch, K, shapes) -> list[dict]:
     limit_b = b_vocab * (b_docs + 2)
     cmp_unique(keys_a, limit_a, f"path A shape n={a_n}")
     cmp_unique(keys_b, limit_b, f"path B shape n={b_n}")
+    # Path E's finalize runs on the whole (doubled) accumulator
+    e_n, e_valid, e_vocab, e_docs = shapes["E"]
+    cmp_unique(sorted_keys(torch, e_n, e_valid, e_vocab, e_docs, gen), e_vocab * (e_docs + 2),
+               f"path E shape n={e_n}")
     for n in (1, 8191, 1_000_003):
         cmp_unique(sorted_keys(torch, n, n - n // 7, 5000, 355, gen), 5000 * 357, f"ragged n={n}")
     cmp_unique(torch.full((8192,), INT32_MAX, dtype=torch.int32, device="cuda"), 100,
@@ -307,18 +325,88 @@ def phase_engine(torch, E, shapes) -> dict:
     return out
 
 
-def device_busy(trace_path: Path) -> dict:
+def engine_device_plans(torch, m, stats_d: dict, chunk_docs: int) -> dict:
+    """Path D's device program on Path D's bytes (warm time, peak memory
+    beyond its inputs) and one streaming feed of Path E's last window
+    (host clock and CUDA events), from the corpus ``m`` of this run."""
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
+        manifest as manifest_mod)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        device_tokenizer as DT, streaming as S)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.text import (
+        streaming as text_streaming)
+
+    out = {}
+    contents, ids = manifest_mod.load_documents(m)
+    total = sum(len(c) for c in contents)
+    buf = np.full(round_up(total, 1 << 16), 0x20, np.uint8)
+    buf[:total] = np.frombuffer(b"".join(contents), np.uint8)
+    ends = np.cumsum([len(c) for c in contents]).astype(np.int32)
+    del contents
+    count, max_len = DT.host_token_stats(buf, ends)
+    kw = dict(width=stats_d["device_tokenize_width"], tok_cap=round_up(count + 1, 1 << 15),
+              num_docs=len(ids), sort_cols=-(-max(max_len, 1) // 4))
+    args = [torch.from_numpy(a).cuda() for a in (buf, ends, np.asarray(ids, np.int32))]
+    check(kw["sort_cols"] == stats_d["sort_cols"],
+          f"engine: sort_cols {kw['sort_cols']} != path D's {stats_d['sort_cols']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = DT.index_bytes_device(*args, **kw)
+    counts = res["counts"].cpu().tolist()
+    out["index_bytes_device_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    check(counts[:2] == [stats_d["unique_terms"], stats_d["unique_pairs"]],
+          f"engine: index_bytes_device counts {counts} disagree with path D")
+    del res
+    out["index_bytes_device_ms"] = cuda_ms(
+        torch, lambda: DT.index_bytes_device(*args, **kw), iters=3, warmup=1, repeats=3)
+    out["index_bytes_device_shape"] = {"n": int(buf.shape[0]), "tok_cap": kw["tok_cap"],
+                                       "tokens": count, "sort_cols": kw["sort_cols"]}
+    del args
+
+    tok = text_streaming.StreamingTokenizer(num_threads=4)
+    windows = [tok.feed(c, i) for c, i in
+               manifest_mod.iter_document_chunks(m, chunk_docs)]
+    eng = S.StreamingIndexEngine(max_doc_id=len(m), device="cuda", window_pad=1 << 16)
+    for w in windows[:-1]:
+        eng.feed(w.prov_term_ids, w.doc_ids, tok.vocab_size)
+    last = windows[-1]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    eng.feed(last.prov_term_ids, last.doc_ids, tok.vocab_size)
+    end.record()
+    torch.cuda.synchronize()
+    out["stream_feed_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["stream_feed_event_ms"] = start.elapsed_time(end)
+    out["stream_feed_shape"] = {"pairs": int(last.prov_term_ids.shape[0]),
+                                "capacity": eng.capacity, "mode": eng.mode}
+    return out
+
+
+def device_busy(trace_path: Path, top: int = 6) -> dict:
     """Summed duration of the kernels, copies and fills in a
     torch.profiler Chrome trace: ``{"ms": total or None when the trace
-    holds none, "by_cat": {category: [events, ms]}}``."""
+    holds none, "by_cat": {category: [events, ms]}, "top_kernels":
+    [[name, launches, ms], ...]}`` (the ``top`` kernels by summed time,
+    summed by full name; names cut to 90 characters only when listed)."""
     events = json.loads(trace_path.read_text()).get("traceEvents", [])
     by_cat: dict = {}
+    by_kernel: dict = {}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             n, ms = by_cat.get(e["cat"], (0, 0.0))
             by_cat[e["cat"]] = (n + 1, ms + e.get("dur", 0) / 1e3)
+        if e.get("cat") == "kernel":
+            n, ms = by_kernel.get(e.get("name", "?"), (0, 0.0))
+            by_kernel[e.get("name", "?")] = (n + 1, ms + e.get("dur", 0) / 1e3)
     total = sum(ms for _, ms in by_cat.values())
-    return {"ms": total if by_cat else None, "by_cat": by_cat}
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"ms": total if by_cat else None, "by_cat": by_cat,
+            "top_kernels": [[name[:90], n, round(ms, 4)] for name, (n, ms) in ranked]}
 
 
 def run_cli(cli, argv: list[str]) -> tuple[int, dict | None]:
@@ -366,6 +454,7 @@ def drive_path(torch, K, formatter, run, out_dir: Path, label: str,
         profiler.export_chrome_trace(str(trace))
         busy = device_busy(trace)
         stats["device_busy_ms"], stats["device_busy_by_cat"] = busy["ms"], busy["by_cat"]
+        stats["device_top_kernels"] = busy["top_kernels"]
     return stats, launches
 
 
@@ -387,11 +476,20 @@ def check_pipelined(stats: dict, label: str) -> None:
           f"{label} did not take the pipelined plan: phases {sorted(stats['phases_ms'])}")
 
 
+def check_device_tokenize(stats: dict, label: str) -> None:
+    check("host_views" in stats["phases_ms"] and "device_tokenize_fallback" not in stats,
+          f"{label} did not stay on the all-device plan: phases {sorted(stats['phases_ms'])}, "
+          f"fallback {stats.get('device_tokenize_fallback')}")
+
+
 def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
     fields = {k: stats.get(k) for k in (
         "tokens", "unique_pairs", "unique_terms", "engine", "host_threads", "upload_windows",
-        "window_modes", "window_plan_bytes", "window_read_ms", "window_wait_ms", "window_scan_ms", "pipelined_fallback", "letter_imbalance",
-        "bucket_imbalance") if k in stats}
+        "window_modes", "window_plan_bytes", "window_read_ms", "window_wait_ms",
+        "window_scan_ms", "pipelined_fallback", "letter_imbalance", "bucket_imbalance",
+        "device_tokenize_width", "sort_cols", "fetched_bytes", "device_tokenize_fallback",
+        "stream_windows", "accumulator_mode", "accumulator_capacity", "vocab_curve")
+        if k in stats}
     print(f"phase {name}: {json.dumps(fields)} md5={stats['md5']} launches={launches} "
           + " ".join(f"{k}={v}" for k, v in extra.items())
           + f" wall_ms={stats['wall_ms']:.3f} total_ms={stats['total_ms']} "
@@ -403,7 +501,8 @@ def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
               f"profiler_start_stop_ms={stats['profiler_start_stop_ms']:.3f} device_busy_ms="
               + (f"{busy:.3f} idle_share={1 - busy / stats['wall_ms']:.6f}"
                  if busy is not None else "not measured (no device events in the trace)")
-              + f" by_category={json.dumps(stats['device_busy_by_cat'])}", flush=True)
+              + f" by_category={json.dumps(stats['device_busy_by_cat'])}"
+              + f" top_kernels={json.dumps(stats['device_top_kernels'])}", flush=True)
 
 
 def main() -> int:
@@ -461,8 +560,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
             tmp = Path(tmp)
             # -- Path A: the reference envelope, two legs -------------------
-            list_a = write_corpus_dir(synthetic, manifest_mod, tmp / "A", synthetic.zipf_corpus(
-                num_docs=355, vocab_size=33_000, tokens_per_doc=2900, seed=7))
+            docs_a = synthetic.zipf_corpus(num_docs=355, vocab_size=33_000,
+                                           tokens_per_doc=2900, seed=7)
+            list_a = write_corpus_dir(synthetic, manifest_mod, tmp / "A", docs_a)
             rc, _ = run_cli(cli, ["4", "26", str(list_a), "--backend", "oracle",
                                   "--output-dir", str(tmp / "A_oracle")])
             check(rc == 0, f"path A oracle: exit {rc}")
@@ -546,6 +646,82 @@ def main() -> int:
             print(f"phase path_c_reads: main_thread_ms={main_ms} "
                   f"reader_thread_alone_ms={alone_ms}", flush=True)
 
+            # -- Path D: the all-device plan on Path B's corpus ---------------
+            stats_d, launches_d = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path D", list_b, tmp / "D_out", ["--device-tokenize"]),
+                tmp / "D_out", "path D", trace=tmp / "D_trace.json")
+            check_device_tokenize(stats_d, "path D")
+            check(stats_d["sort_cols"] == 3, f"path D sort_cols {stats_d['sort_cols']}, want 3")
+            rc, stats_d_cpu = run_cli(cli, ["4", "26", str(list_b), "--device-tokenize",
+                                            "--device", "cpu", "--stats",
+                                            "--output-dir", str(tmp / "D_cpu")])
+            check(rc == 0, f"path D --device cpu: exit {rc}")
+            md5_d_cpu = formatter.letters_md5(tmp / "D_cpu")
+            check(stats_d["md5"] == md5_d_cpu == stats_b["md5"] == stats_c["md5"],
+                  f"path D md5 {stats_d['md5']} != cpu {md5_d_cpu} or path B {stats_b['md5']} "
+                  f"or path C {stats_c['md5']}")
+            print_path("path_d", stats_d, launches_d, cpu_md5=md5_d_cpu,
+                       path_b_md5=stats_b["md5"], path_c_md5=stats_c["md5"],
+                       cpu_phases_ms=json.dumps(stats_d_cpu["phases_ms"]))
+            launches_by_path["D"] = launches_d
+
+            # Path D on Path A's corpus with words of 13-44 letters added:
+            # tail groups and the sparse tail fetch
+            long_docs = [b" ".join(bytes(97 + (3 * d + 5 * w + 7 * j) % 26
+                                         for j in range(13 + (d + w) % 32))
+                                   for w in range(60)) for d in range(20)]
+            list_dl = write_corpus_dir(synthetic, manifest_mod, tmp / "DL", docs_a + long_docs)
+            rc, _ = run_cli(cli, ["4", "26", str(list_dl), "--backend", "oracle",
+                                  "--output-dir", str(tmp / "DL_oracle")])
+            check(rc == 0, f"path D long words oracle: exit {rc}")
+            md5_dl_oracle = formatter.letters_md5(tmp / "DL_oracle")
+            stats_dl, launches_dl = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path D long words", list_dl, tmp / "DL_out", ["--device-tokenize"]),
+                tmp / "DL_out", "path D long words")
+            check_device_tokenize(stats_dl, "path D long words")
+            check(stats_dl["sort_cols"] == 11,
+                  f"path D long words sort_cols {stats_dl['sort_cols']}, want 11")
+            check(stats_dl["md5"] == md5_dl_oracle,
+                  f"path D long words md5 {stats_dl['md5']} != oracle {md5_dl_oracle}")
+            print_path("path_d_long_words", stats_dl, launches_dl, oracle_md5=md5_dl_oracle)
+            launches_by_path["D_long_words"] = launches_dl
+
+            # Path D on Path A's corpus with 8-byte rows: must restart on
+            # the host plan, and say so
+            stats_do, launches_do = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path D overflow", list_a, tmp / "DO_out",
+                        ["--device-tokenize", "--device-tokenize-width", "8"]),
+                tmp / "DO_out", "path D overflow")
+            check("device_tokenize_fallback" in stats_do
+                  and "aborted_device_tokenize" in stats_do["phases_ms"],
+                  f"path D overflow did not restart: phases {sorted(stats_do['phases_ms'])}")
+            check_pipelined(stats_do, "path D overflow")
+            check(stats_do["md5"] == md5_oracle,
+                  f"path D overflow md5 {stats_do['md5']} != oracle {md5_oracle}")
+            print_path("path_d_overflow", stats_do, launches_do, oracle_md5=md5_oracle)
+            launches_by_path["D_overflow"] = launches_do
+
+            # -- Path E: the streaming plan on Path B's corpus ----------------
+            stats_e, launches_e = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path E", list_b, tmp / "E_out", ["--stream-chunk-docs", "5000"]),
+                tmp / "E_out", "path E", trace=tmp / "E_trace.json")
+            check("stream" in stats_e["phases_ms"] and stats_e.get("stream_windows") == 4,
+                  f"path E: phases {sorted(stats_e['phases_ms'])}, "
+                  f"windows {stats_e.get('stream_windows')}, want the streaming plan's 4")
+            check(stats_e["accumulator_mode"] == "packed",
+                  f"path E accumulator mode {stats_e['accumulator_mode']}, want packed")
+            check(launches_e["unique_mask_count"] > 0, "path E launched no unique_mask_count")
+            check(stats_e["md5"] == stats_b["md5"],
+                  f"path E md5 {stats_e['md5']} != path B {stats_b['md5']}")
+            print_path("path_e", stats_e, launches_e, path_b_md5=stats_b["md5"])
+            launches_by_path["E"] = launches_e
+            # Paths D and E's device programs alone, while their files exist
+            eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)
+
         # -- kernels against their plain versions, at this run's shapes ----
         # (padded n, valid n, vocab, docs): Path A's numpy leg keeps every
         # token; Path B feeds the combiner's deduped pairs
@@ -554,7 +730,9 @@ def main() -> int:
         kernels = phase_kernels(torch, K, {
             "A": (round_up(stats_a1["tokens"], 1 << 16), stats_a1["tokens"],
                   stats_a1["unique_terms"], 355),
-            "B": (round_up(b_pairs, 1 << 16), b_pairs, stats_b["unique_terms"], 20_000)})
+            "B": (round_up(b_pairs, 1 << 16), b_pairs, stats_b["unique_terms"], 20_000),
+            "E": (stats_e["accumulator_capacity"], stats_e["unique_pairs"],
+                  stats_e["unique_terms"], 20_000)})
         for k in kernels:
             print(f"phase kernels: {k['name']} exact={k['parity']} ms={k['ms']:.4f} "
                   f"(min {k['ms_min']:.4f} max {k['ms_max']:.4f}) "
@@ -569,10 +747,11 @@ def main() -> int:
             "A_dedup": (round_up(a_pairs, 1 << 16), a_pairs, stats_a2["unique_terms"], 355),
             "B": (round_up(b_pairs, 1 << 16), b_pairs, stats_b["unique_terms"], 20_000),
             "C": (None, stats_c["unique_pairs"], stats_c["unique_terms"], 20_000)})
-        peak = eng.pop("sort_prov_chunks_peak_extra_bytes")
+        eng.update(eng_plans)
+        extra = {k: eng.pop(k) for k in list(eng) if not isinstance(eng[k], tuple)}
         print("phase engine: " + " ".join(
             f"{name}={t[0]:.4f} (min {t[1]:.4f} max {t[2]:.4f})" for name, t in eng.items())
-            + f" sort_prov_chunks_peak_extra_bytes={peak}", flush=True)
+            + " " + " ".join(f"{k}={json.dumps(v)}" for k, v in extra.items()), flush=True)
     except (SmokeFailure, OSError, RuntimeError, ValueError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

@@ -2,19 +2,23 @@
 
 A port of the JAX package
 ``parallel_computation_of_an_inverted_index_using_map_reduce_tpu`` (kept
-beside it as the reference), for its default build on one device:
+beside it as the reference), for its single-device build plans:
 
 - host frontend: corpus manifest, then the native C++ scan
   (``native/``, the map phase with its per-(term, doc) combiner,
   main.c:85-124) or the vectorized numpy tokenizer
-- device engine, by one of two plans (models/inverted_index.py):
-  the pipelined plan uploads provisional-key windows while the scan
-  runs and finalizes with one ``torch.sort``; the one-shot plan sorts
-  packed (term, doc) pairs, dedups through the ``unique_mask_count``
-  CUDA kernel when the feed still holds duplicates, and derives run-edge
-  document frequency, rank-scatter postings and the emit order
-  (reference reduce phase, main.c:126-242); ``--skew`` adds the
-  ``bucket_histogram`` CUDA kernel
+- device engine, by one of four plans (models/inverted_index.py):
+  the pipelined plan (the default) uploads provisional-key windows
+  while the scan runs and finalizes with one ``torch.sort``; the
+  one-shot plan sorts packed (term, doc) pairs, dedups through the
+  ``unique_mask_count`` CUDA kernel when the feed still holds
+  duplicates, and derives run-edge document frequency, rank-scatter
+  postings and the emit order (reference reduce phase,
+  main.c:126-242), with ``--skew`` adding the ``bucket_histogram`` CUDA
+  kernel; the streaming plan (``--stream-chunk-docs``) folds document
+  windows into a bounded sorted accumulator on the card; the all-device
+  plan (``--device-tokenize``) runs the whole map phase on the card
+  from the raw bytes (ops/device_tokenizer.py)
 - host emit: byte-identical ``<letter>.txt`` postings files, native or
   Python (format of main.c:227-234)
 

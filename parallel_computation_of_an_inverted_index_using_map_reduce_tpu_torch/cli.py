@@ -52,9 +52,19 @@ def make_parser() -> argparse.ArgumentParser:
                    help="also measure letter vs hash-bucket partition skew on the device")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="torch device of the engine (cpu runs the kernels' plain versions)")
+    p.add_argument("--stream-chunk-docs", type=int, default=None,
+                   help="streaming plan: window size in whole documents "
+                        "(bounded host/device memory; default: off)")
     p.add_argument("--pipeline-chunk-docs", type=int, default=None,
                    help="pipelined plan: documents per upload window "
                         "(default: auto, two windows; 0 = one-shot engine)")
+    p.add_argument("--device-tokenize", action="store_true",
+                   help="all-device plan: raw corpus bytes up, finished index "
+                        "down (the whole map phase on the device; single "
+                        "device; exact, with a restart on the host-scan plans "
+                        "for tokens longer than --device-tokenize-width)")
+    p.add_argument("--device-tokenize-width", type=int, default=48,
+                   help="device word-row bytes (multiple of 4)")
     p.add_argument("--host-threads", type=int, default=None,
                    help="native scan threads (default: num_mappers if > 1, "
                         "else min(cores, 8)); output-invariant")
@@ -88,6 +98,9 @@ def main(argv: list[str] | None = None) -> int:
             collect_skew_stats=args.skew,
             device=args.device,
             pipeline_chunk_docs=args.pipeline_chunk_docs,
+            stream_chunk_docs=args.stream_chunk_docs,
+            device_tokenize=args.device_tokenize,
+            device_tokenize_width=args.device_tokenize_width,
             host_threads=args.host_threads,
             emit_backend=args.emit_backend,
         )

@@ -4,8 +4,9 @@ The reference exposes exactly three positional CLI args — num_mappers,
 num_reducers, input list (main.c:248-255) — plus compile-time caps
 (main.c:7-11).  Here those become an explicit, validated config object.
 The config holds the fields of the plans this package implements: the
-pipelined plan (native scan, provisional-key windows, one device sort)
-and the one-shot plan.
+pipelined plan (native scan, provisional-key windows, one device sort),
+the one-shot plan, the streaming plan (``stream_chunk_docs``) and the
+all-device plan (``device_tokenize``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,21 @@ class IndexConfig:
     # windows: window 1's upload overlaps window 2's scan); 0 disables
     # the pipelined plan (forces the one-shot engine).
     pipeline_chunk_docs: int | None = None
+    # Streaming plan: process the corpus in windows of this many whole
+    # documents with a bounded device accumulator (ops/streaming.py)
+    # instead of one-shot arrays.  None = off.  Takes precedence over
+    # the pipelined plan.  Output is byte-identical either way.
+    stream_chunk_docs: int | None = None
+    # All-device plan (ops/device_tokenizer.py): raw corpus bytes go up,
+    # the finished index comes down — byte classify, token segmentation,
+    # cleaning, dedup, df and postings as one device program.  Exact
+    # (words are fixed-width byte rows, no hashing); a cleaned token
+    # longer than ``device_tokenize_width`` aborts to the host-scan
+    # plans (WidthOverflow).  Single device.
+    device_tokenize: bool = False
+    # Word-row width in bytes (multiple of 4; >= the longest cleaned
+    # token or the run falls back).
+    device_tokenize_width: int = 48
     # Host map-phase threads of the native scan (fork-join over
     # contiguous byte-balanced doc ranges, output-identical at any
     # count).  None = ``num_mappers`` if > 1, else min(cores, 8).
@@ -93,6 +109,43 @@ class IndexConfig:
         if self.backend != "cuda" and self.pipeline_chunk_docs is not None:
             raise ValueError(
                 f"pipeline_chunk_docs requires backend='cuda', got backend={self.backend!r}")
+        # upper bound 296 (< MAX_WORD_LETTERS): a width that could hold
+        # a 299+-letter token would silently skip the reference's 299
+        # cap (main.c:105) instead of falling back to the host path
+        if not (4 <= self.device_tokenize_width <= 296
+                and self.device_tokenize_width % 4 == 0):
+            raise ValueError(
+                "device_tokenize_width must be a multiple of 4 in [4, 296], "
+                f"got {self.device_tokenize_width}")
+        if self.device_tokenize:
+            if self.backend != "cuda":
+                raise ValueError(
+                    "device_tokenize requires backend='cuda', "
+                    f"got backend={self.backend!r}")
+            if self.pipeline_chunk_docs is not None:
+                raise ValueError(
+                    "device_tokenize is a complete engine; pipeline_chunk_docs "
+                    "belongs to the host-scan plans")
+            if self.collect_skew_stats:
+                raise ValueError(
+                    "device_tokenize is incompatible with collect_skew_stats "
+                    "(no host-side pair ids exist)")
+            if self.stream_chunk_docs is not None:
+                raise ValueError(
+                    "device_tokenize with stream_chunk_docs is the streaming "
+                    "all-device plan, which this package does not have yet")
+        if self.stream_chunk_docs is not None:
+            if self.stream_chunk_docs < 1:
+                raise ValueError(
+                    f"stream_chunk_docs must be >= 1 or None, got {self.stream_chunk_docs}")
+            if self.backend != "cuda":
+                raise ValueError(
+                    "stream_chunk_docs requires backend='cuda', "
+                    f"got backend={self.backend!r}")
+            if self.collect_skew_stats:
+                raise ValueError(
+                    "stream_chunk_docs is incompatible with collect_skew_stats "
+                    "(per-window pair ids are discarded after each merge)")
         if self.host_threads is not None and self.host_threads < 1:
             raise ValueError(
                 f"host_threads must be >= 1 or None (auto), got {self.host_threads}")

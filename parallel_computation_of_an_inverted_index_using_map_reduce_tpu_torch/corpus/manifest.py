@@ -153,6 +153,21 @@ def iter_document_ranges(manifest: Manifest, ranges,
         yield contents, doc_ids
 
 
+def iter_document_chunks(manifest: Manifest, chunk_docs: int,
+                         report: DegradationReport | None = None):
+    """Yield ``(contents, doc_ids)`` windows of at most ``chunk_docs``
+    whole documents, in manifest order — the streaming loader (host
+    memory stays O(chunk)).  Skips are recorded in ``report`` as in
+    :func:`iter_document_ranges`."""
+    if chunk_docs < 1:
+        raise ValueError(f"chunk_docs must be >= 1, got {chunk_docs}")
+    n = len(manifest)
+    yield from iter_document_ranges(
+        manifest,
+        ((s, min(s + chunk_docs, n)) for s in range(0, n, chunk_docs)),
+        report)
+
+
 def prefetch_document_ranges(manifest: Manifest, ranges,
                              report: DegradationReport | None = None, depth: int = 1,
                              read_ms: list | None = None):

@@ -7,7 +7,7 @@ Orchestrates the chain the reference runs as fork-join pthread phases
 
 with backends:
     "cuda"   — the device engine (ops/engine.py) on ``config.device``,
-               by one of two plans:
+               by one of four plans:
                * pipelined (default when eligible): the native scan emits
                  combiner-deduped provisional keys per document window,
                  each window's upload overlaps the next window's scan,
@@ -15,6 +15,12 @@ with backends:
                * one-shot: tokenize everything (native combiner, or the
                  numpy tokenizer with ``use_native=False``), then one
                  device program
+               * streaming (``stream_chunk_docs``): document windows fold
+                 into a bounded sorted accumulator on the card
+                 (ops/streaming.py), one finalize
+               * all-device (``device_tokenize``): raw bytes up, the
+                 finished index down (ops/device_tokenizer.py); a token
+                 wider than the word rows restarts on the host-scan plans
     "oracle" — pure-Python dict oracle (models/oracle.py)
 
 Output is byte-identical across backends and plans, to the JAX package,
@@ -31,13 +37,16 @@ import torch
 
 from .. import native
 from ..config import IndexConfig
-from ..corpus.manifest import (DegradationReport, Manifest, load_documents,
-                               prefetch_document_ranges)
+from ..corpus.manifest import (DegradationReport, Manifest, iter_document_chunks,
+                               load_documents, prefetch_document_ranges)
 from ..corpus.scheduler import plan_contiguous_windows, window_balance_stats
 from ..obs.timing import PhaseTimer
+from ..ops import device_tokenizer as DT
 from ..ops import engine
 from ..ops import keys as K
+from ..ops.streaming import StreamingIndexEngine
 from ..text import formatter
+from ..text.streaming import StreamingTokenizer
 from ..text.tokenizer import tokenize
 from ..utils.rounding import round_up as _round_up
 from .oracle import oracle_index
@@ -55,6 +64,30 @@ def resolve_device(name: str) -> torch.device:
             "device='cuda' but torch sees no CUDA device; "
             "pass device='cpu' (--device cpu) to run on the CPU")
     return torch.device(name)
+
+
+def _pack_window(contents, ids, shard_len: int):
+    """Pack the loaded docs into the device byte-feed layout:
+    ``(buf[shard_len] space-padded, ends, ids)``, one ``ends`` and
+    ``ids`` entry per doc.  One join + one copy — no per-doc Python
+    loop.  Every call returns fresh arrays, so no buffer a copy to the
+    card may still read is ever refilled."""
+    joined = b"".join(contents)
+    buf = np.full(shard_len, 0x20, np.uint8)
+    buf[: len(joined)] = np.frombuffer(joined, np.uint8)
+    lens = np.fromiter((len(c) for c in contents), np.int64, len(contents))
+    return buf, np.cumsum(lens).astype(np.int32), np.array(ids, np.int32)
+
+
+def _host_view(a: np.ndarray) -> np.ndarray:
+    """A fetched array as the host reads it: int16 tensors carry uint16
+    bits (no uint16 arithmetic on the card), so they are read as uint16."""
+    return engine.host_u16(a) if a.dtype == np.int16 else a
+
+
+def _leaves(v) -> list:
+    """The tensors of a tensor or a nested tuple of them, in order."""
+    return [v] if isinstance(v, torch.Tensor) else [t for x in v for t in _leaves(x)]
 
 
 class InvertedIndexModel:
@@ -86,9 +119,25 @@ class InvertedIndexModel:
 
     def _run_device(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
                     report: DegradationReport) -> dict:
-        device = resolve_device(self.config.device)
+        cfg = self.config
+        device = resolve_device(cfg.device)
         device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         timer.count("device", device_name)
+        if cfg.device_tokenize:
+            try:
+                return self._run_device_tokenize(manifest, out_dir, timer, report, device)
+            except DT.WidthOverflow as e:
+                # exactness guard tripped: restart on the host-scan plans
+                # with a fresh timer; the aborted attempt's wall time
+                # stays in the report as its own phase
+                aborted_s = sum(timer.phases.values())
+                timer = self._new_timer()
+                timer.count("device", device_name)
+                timer.count("device_tokenize_fallback", str(e))
+                timer.phases["aborted_device_tokenize"] = aborted_s
+                report.skips.clear()  # the host plan reloads and records them anew
+        if cfg.stream_chunk_docs is not None:
+            return self._run_streaming(manifest, out_dir, timer, report, device)
         if self._pipelined_eligible(manifest):
             try:
                 return self._run_pipelined(manifest, out_dir, timer, report, device)
@@ -107,12 +156,14 @@ class InvertedIndexModel:
 
     def _pipelined_eligible(self, manifest: Manifest) -> bool:
         """Whether the provisional-key pipelined plan applies: it needs
-        the native scan, no skew statistics (which need the token arrays
-        on the host) and uint16 postings (doc ids < 0xFFFF)."""
+        the native scan, no streaming plan, no skew statistics (which
+        need the token arrays on the host) and uint16 postings (doc ids
+        < 0xFFFF)."""
         cfg = self.config
         return (
             cfg.pipeline_chunk_docs != 0
             and cfg.use_native
+            and cfg.stream_chunk_docs is None
             and not cfg.collect_skew_stats
             and len(manifest) <= 0xFFFE
             and native.available()
@@ -220,6 +271,186 @@ class InvertedIndexModel:
             host["postings"] = engine.host_u16(pending.wait())
         del chunks_dev, staged
         return self._emit_and_report(vocab, letters, host, out_dir, timer, max_doc_id)
+
+    # -- streaming plan ------------------------------------------------
+
+    def _run_streaming(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                       report: DegradationReport, device: torch.device) -> dict:
+        """Windowed plan for corpora larger than host or device memory.
+
+        Host memory stays O(window + vocab); device memory O(window +
+        unique pairs).  Each window is tokenized into provisional ids
+        and folded into the card's sorted unique-pair accumulator
+        (ops/streaming.py); one finalize remaps to sorted-vocab rank and
+        runs the engine's shared tail.  Byte-identical to the one-shot
+        plan.
+        """
+        cfg = self.config
+        max_doc_id = len(manifest)
+        threads = cfg.resolved_host_threads()
+        timer.count("host_threads", threads)
+        tok = StreamingTokenizer(use_native=cfg.use_native, num_threads=threads)
+        eng = StreamingIndexEngine(max_doc_id=max_doc_id, device=device,
+                                   window_pad=cfg.pad_multiple)
+        docs_loaded = raw_tokens = pairs_fed = 0
+        vocab_curve: list[int] = []  # unique terms after each window
+        with timer.phase("stream"):
+            for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
+                chunk = tok.feed(contents, ids)
+                docs_loaded += len(contents)
+                raw_tokens += chunk.raw_tokens
+                pairs_fed += int(chunk.prov_term_ids.shape[0])
+                eng.feed(chunk.prov_term_ids, chunk.doc_ids, tok.vocab_size)
+                vocab_curve.append(tok.vocab_size)
+        vocab, remap, letters = tok.finalize()
+        vocab_size = int(vocab.shape[0])
+        timer.count("documents", docs_loaded)
+        timer.count("tokens", raw_tokens)
+        timer.count("unique_terms", vocab_size)
+        timer.count("vocab_curve", vocab_curve)
+        timer.count("stream_windows", eng.windows_fed)
+        timer.count("accumulator_capacity", eng.capacity)
+        timer.count("accumulator_mode", eng.mode)
+
+        if pairs_fed == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {})
+            return timer.report()
+
+        with timer.phase("device_index"):
+            # every copy to the host starts before any is read
+            pending = {k: engine.PendingFetch(v)
+                       for k, v in eng.finalize(remap, letters, vocab_size).items()}
+        with timer.phase("fetch"):
+            host = {k: p.wait() for k, p in pending.items()}
+            host["num_unique"] = int(host["num_unique"])
+        return self._emit_and_report(vocab, letters, host, out_dir, timer, max_doc_id)
+
+    # -- all-device plan -----------------------------------------------
+
+    def _run_device_tokenize(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                             report: DegradationReport, device: torch.device) -> dict:
+        """All-device plan: raw bytes up, finished index down.
+
+        The whole map phase — the reference's mapper tokenize/clean/emit
+        (main.c:85-124) and its reducer dedup/df/sort (main.c:126-242) —
+        runs as one device program over the corpus byte tensor
+        (ops/device_tokenizer.py).  The host only loads files, decodes
+        the fetched unique word rows and writes the letter files.  Exact
+        by construction (words are sorted byte rows, not hashes); a
+        cleaned token longer than ``device_tokenize_width`` raises
+        WidthOverflow and the caller restarts on a host-scan plan.
+        """
+        cfg = self.config
+        width = cfg.device_tokenize_width
+        max_doc_id = len(manifest)
+        with timer.phase("load"):
+            contents, doc_ids = load_documents(manifest, report)
+        num_docs = len(contents)
+        total = sum(len(c) for c in contents)
+        timer.count("documents", num_docs)
+        timer.count("device_tokenize_width", width)
+        if num_docs == 0 or total == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {})
+            return timer.report()
+
+        staged: list = []  # pinned uploads, held until the counts arrive
+        with timer.phase("feed"):
+            padded = _round_up(total, cfg.pad_multiple)
+            buf, ends, idv = _pack_window(contents, doc_ids, padded)
+            # one host pass: the exact token count (a snug tok_cap; note
+            # N//2+1 is NOT a bound — doc boundaries split tokens, so up
+            # to one token per byte) and the exact max cleaned length —
+            # abort a doomed launch before paying for it, and skip radix
+            # passes over provably all-zero word columns (sort_cols)
+            tok_count, host_max_len = DT.host_token_stats(buf, ends)
+            tok_cap = _round_up(tok_count + 1, 1 << 15)
+            if host_max_len > width:
+                raise DT.WidthOverflow(
+                    f"cleaned token of {host_max_len} letters "
+                    f"exceeds device_tokenize_width={width}")
+            sort_cols = -(-max(host_max_len, 1) // 4)  # ceil div
+            timer.count("sort_cols", sort_cols)
+            out = DT.index_bytes_device(
+                engine.upload(buf, device, staged), engine.upload(ends, device, staged),
+                engine.upload(idv, device, staged),
+                width=width, tok_cap=tok_cap, num_docs=num_docs, sort_cols=sort_cols)
+        with timer.phase("device_index"):
+            # the one sync: all five counts in one tensor
+            num_words, num_pairs, max_len, num_tokens, num_long = (
+                int(v) for v in out["counts"].cpu().numpy())
+            if num_tokens + 1 > tok_cap:
+                raise AssertionError(
+                    f"device token count {num_tokens} exceeded "
+                    f"tok_cap {tok_cap}: host mask count diverged "
+                    "from the device classifier (bug)")
+            if max_len != host_max_len:
+                raise AssertionError(
+                    f"device max word len {max_len} != host "
+                    f"{host_max_len}: classifier divergence (bug)")
+        del staged
+        timer.count("unique_terms", num_words)
+        timer.count("unique_pairs", num_pairs)
+        # the raw token count never reaches the host in this plan; the
+        # deduped pair count the device measured stands in for it
+        timer.count("tokens", num_pairs)
+        return self._fetch_decode_emit_device(
+            out, cap=tok_cap, num_words=num_words, num_pairs=num_pairs,
+            num_long=num_long, sort_cols=sort_cols, max_doc_id=max_doc_id,
+            out_dir=out_dir, timer=timer)
+
+    def _fetch_decode_emit_device(self, out: dict, *, cap: int, num_words: int,
+                                  num_pairs: int, num_long: int, sort_cols: int,
+                                  max_doc_id: int, out_dir: str, timer: PhaseTimer) -> dict:
+        """Tail of the all-device plan: prefix-sliced fetch with transfer
+        trimming, word-row decode, and the letter-file emit.
+
+        Transfer trimming (``DT.fetch_pack``): group pairs past the
+        host-exact ``sort_cols`` bound are provably all zero; tail
+        groups travel sparsely (indices + values for only the >12-char
+        words, the dense arrays rebuilt by a host scatter at vocab
+        scale); postings pack 3 doc ids per int32 when ids fit 10 bits,
+        else 16 bits when they fit 16.  Every copy starts before any is
+        read.
+        """
+        width = self.config.device_tokenize_width
+        if num_pairs == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {})
+            return timer.report()
+        with timer.phase("fetch"):
+            nu = min(cap, _round_up(max(num_words, 1), 1 << 13))
+            npairs = min(cap, _round_up(max(num_pairs, 1), 1 << 13))
+            ngroups_fetch = DT.live_groups_for(sort_cols, width)
+            narrow = max_doc_id < (1 << 16)
+            k = DT.doc_pack_width(max_doc_id)
+            nlong = (min(nu, _round_up(num_long, 1 << 10))
+                     if ngroups_fetch > 1 and num_long else 0)
+            packed = DT.fetch_pack(out, nu=nu, npairs=npairs, nlong=nlong, k=k,
+                                   live=ngroups_fetch, narrow=narrow)
+            pending = {name: [engine.PendingFetch(t) for t in _leaves(v)]
+                       for name, v in packed.items()}
+            host = {name: [_host_view(p.wait()) for p in ps] for name, ps in pending.items()}
+            df = host["df"][0][:num_words].astype(np.int32)
+            postings = DT.unpack_postings(host["post"][0], num_pairs, k)
+            g0 = tuple(h[:num_words] for h in host["g0"])
+            tails = host.get("tail", [])
+            groups = [g0] + DT.rebuild_tail_groups(
+                num_words, ngroups_fetch,
+                idx=host["long_idx"][0][:num_long] if nlong else None,
+                tails=[(tails[2 * g], tails[2 * g + 1]) for g in range(len(tails) // 2)],
+                num_long=num_long if nlong else 0)
+            timer.count("fetched_bytes", sum(a.nbytes for arrays in host.values()
+                                             for a in arrays))
+        with timer.phase("host_views"):
+            vocab = DT.decode_word_groups(groups, width)
+            letters = vocab.view(np.uint8).reshape(num_words, width)[:, 0] - ord("a")
+            df64 = df.astype(np.int64)
+            order, offsets = engine.host_order_offsets(letters, df64)
+        host_out = {"df": df64, "order": order, "offsets": offsets, "postings": postings,
+                    "num_unique": num_pairs}
+        return self._emit_and_report(vocab, letters, host_out, out_dir, timer, max_doc_id)
 
     # -- one-shot plan -------------------------------------------------
 

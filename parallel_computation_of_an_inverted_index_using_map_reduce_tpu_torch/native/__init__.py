@@ -134,6 +134,7 @@ def _bind(lib) -> None:
         "mri_stream_chunk_u16_free": (None, [ctypes.POINTER(_StreamChunkU16Result)]),
         "mri_stream_finalize": (ctypes.POINTER(_StreamFinalResult), [ctypes.c_void_p]),
         "mri_stream_final_free": (None, [ctypes.POINTER(_StreamFinalResult)]),
+        "mri_token_stats": (i32, [u8p, i64, i64p, i32, i64p, i32p]),
         "mri_emit": (i64, [u8p, i32, i32, i64p, i64p, i64p,
                            ctypes.POINTER(ctypes.c_uint16), i32p, ctypes.c_char_p,
                            i32, i32, i64, i64]),
@@ -168,6 +169,28 @@ def load():
 
 def available() -> bool:
     return load() is not None
+
+
+def token_stats(buf: np.ndarray, ends: np.ndarray):
+    """Native ``(token_count, max_cleaned_len)`` over one byte window
+    (``mri_token_stats``, SIMD masks) — the fast path behind
+    ops/device_tokenizer.host_token_stats, the same contract as its
+    numpy mirror.  ``None`` when the library is unavailable or refuses
+    the arguments (negative or decreasing ends)."""
+    lib = load()
+    if lib is None:
+        return None
+    b = np.ascontiguousarray(buf, dtype=np.uint8)
+    e = np.ascontiguousarray(ends, dtype=np.int64)
+    count = ctypes.c_int64()
+    max_len = ctypes.c_int32()
+    rc = lib.mri_token_stats(
+        b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), ctypes.c_int64(b.shape[0]),
+        e.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), ctypes.c_int32(e.shape[0]),
+        ctypes.byref(count), ctypes.byref(max_len))
+    if rc != 0:
+        return None
+    return int(count.value), int(max_len.value)
 
 
 def _null(ctype):

@@ -23,6 +23,9 @@
 //     combiner's counts) — everything the emit phase needs, with the
 //     device program never depending on final vocab order.
 //
+// Beside them, `mri_token_stats` counts token starts and the longest
+// cleaned token of a byte window: the all-device plan's host guard.
+//
 // Map-phase host parallelism (the reference's N mapper threads over
 // size-balanced contiguous file ranges, main.c:307-328, 348-365,
 // re-expressed): every entry point takes a `num_threads`; documents are
@@ -1176,6 +1179,90 @@ void mri_stream_final_free(StreamFinalResult* r) {
   std::free(r->df);
   std::free(r->emit_order);
   std::free(r);
+}
+
+
+// Host-exact (token_count, max_cleaned_len) over one byte window — the
+// all-device engines' stats guard (ops/device_tokenizer.
+// host_token_stats): token boundaries per the device classifier
+// (whitespace set main.c:102-104, tokens never span documents), length
+// = letters only (main.c:105-111).  Counts EVERY token start including
+// letterless tokens ("42"): the count must equal the device program's
+// token_start sum.  Returns 0, or -1 on bad args.
+int32_t mri_token_stats(const uint8_t* data, int64_t len,
+                        const int64_t* doc_ends, int32_t num_docs,
+                        int64_t* count_out, int32_t* max_len_out) try {
+  if (num_docs < 0 || len < 0) return -1;
+  for (int32_t d = 0; d < num_docs; ++d) {  // honor the bad-args contract:
+    // a regressing or negative end would double-scan / read out of bounds
+    if (doc_ends[d] < 0 || (d && doc_ends[d] < doc_ends[d - 1])) return -1;
+  }
+  int64_t count = 0;
+  int64_t max_len = 0;
+  // Token breaks happen at INNER doc ends only; the scan runs to the
+  // end of the buffer, exactly like the device classifier (doc_starts
+  // uses doc_ends[:-1]) and the numpy mirror — bytes past the last
+  // doc's end still tokenize (callers pad with spaces).
+  const int32_t spans = std::max(num_docs, 1);
+  auto span_end = [&](int32_t d) -> int64_t {
+    return d >= num_docs - 1 ? len : std::min<int64_t>(doc_ends[d], len);
+  };
+#if defined(__x86_64__)
+  if (kHaveSimdScan && len > 0) {
+    MaskSpan m;
+    BuildMasks(data, len, 0, len, m);
+    int64_t pos = 0;
+    for (int32_t d = 0; d < spans; ++d) {
+      const int64_t end = span_end(d);
+      while (pos < end) {
+        const int64_t a = NextSet(m.T, m.base, pos, end);
+        if (a >= end) break;
+        const int64_t b = NextSet(m.S, m.base, a, end);
+        pos = b;
+        ++count;
+        int64_t letters = 0;
+        for (int64_t p = a; p < b; p += 64) {
+          uint64_t bits = ExtractBits(m.L, m.base, p);
+          const int64_t take = b - p;
+          if (take < 64) bits &= (1ull << take) - 1;
+          letters += __builtin_popcountll(bits);
+        }
+        max_len = std::max(max_len, letters);
+      }
+      pos = end;
+    }
+    *count_out = count;
+    *max_len_out = static_cast<int32_t>(max_len);
+    return 0;
+  }
+#endif
+  int64_t pos = 0;
+  for (int32_t d = 0; d < spans; ++d) {
+    const int64_t end = span_end(d);
+    bool in_tok = false;
+    int64_t letters = 0;
+    for (; pos < end; ++pos) {
+      if (kTab.space[data[pos]]) {
+        if (in_tok) max_len = std::max(max_len, letters);
+        in_tok = false;
+        letters = 0;
+        continue;
+      }
+      if (!in_tok) {
+        in_tok = true;
+        letters = 0;
+        ++count;
+      }
+      if (kTab.lower[data[pos]]) ++letters;
+    }
+    if (in_tok) max_len = std::max(max_len, letters);
+    pos = end;
+  }
+  *count_out = count;
+  *max_len_out = static_cast<int32_t>(max_len);
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -1;
 }
 
 // ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ The report has the JAX package's shape (``phases_ms``, ``total_ms``,
 then the counters flat), so the two packages' ``--stats`` lines compare
 key for key over the phases of the plans the port has: pipelined
 ``tokenize_feed``, ``finalize_vocab``; one-shot ``load``, ``tokenize``,
-``skew_stats``, ``feed``; both ``device_index``, ``fetch``, ``emit``
-(and ``aborted_pipelined`` after a ``KeyOverflow`` restart).
+``skew_stats``, ``feed``; streaming ``stream``; all-device ``load``,
+``feed``, ``host_views``; all ``device_index``, ``fetch``, ``emit`` (and
+``aborted_pipelined`` after a ``KeyOverflow`` restart,
+``aborted_device_tokenize`` after a ``WidthOverflow`` one).
 """
 
 from __future__ import annotations
