@@ -44,9 +44,24 @@ Phases, each failing loudly (exit 1, no result line):
    B's corpus: four windows into a packed accumulator, the finalize's
    dedup through ``unique_mask_count``; md5 equal to Path B's; recorded
    by torch.profiler.
-7. Kernels: each CUDA kernel against its plain PyTorch version on the
-   card, exact equality, at the shapes Paths A and B gave it in this
-   run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
+7. Path F — the streaming all-device plan (``--device-tokenize
+   --stream-chunk-docs 2500``) on Path B's corpus: eight byte windows
+   into the word-row accumulator on the card, no fallback; md5 equal to
+   Path B's; recorded by torch.profiler.  Two more legs: the same build
+   through ``build_index`` with a stream checkpoint every two windows,
+   killed by the crash hook after window 5 and run again (it must resume
+   after window 4, delete the checkpoint and give Path B's md5); and
+   ``--stream-chunk-docs 100 --device-tokenize-width 8`` on Path A's
+   corpus, which must restart on the streaming plan (md5 equal to Path
+   A's oracle).
+8. Path G — the overlap plan (``--overlap-tail-fraction 0.3``) on Path
+   B's corpus: two device windows sorted and fetched while the host
+   scans on, the last 30% of the bytes sorted on the host; md5 equal to
+   Path B's; recorded by torch.profiler.  Neither F nor G launches a
+   kernel of ``csrc/``.
+9. Kernels: each CUDA kernel against its plain PyTorch version on the
+   card, exact equality, at the shapes Paths A, B, E and F's overflow
+   leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
    least time the card could take (bytes over 3.35 TB/s, or operations
    over 67 T/s, whichever is larger).  Each time is the median of five
@@ -55,13 +70,15 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-8. Engine: the warm device time of each engine program a path runs, at
+10. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
-   (Path D's bytes) — with the peak device memory of the last two; and
-   one StreamingIndexEngine.feed of Path E's last window, by the host
-   clock and by CUDA events.
+   (Path D's bytes) — with the peak device memory of the last two; one
+   StreamingIndexEngine.feed of Path E's last window, by the host clock
+   and by CUDA events; and one DeviceStreamEngine.feed of Path F's last
+   window, synchronized after each stage (upload, window_rows, merge),
+   with the warm time of the finalize program on Path F's accumulator.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
@@ -79,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -91,6 +109,7 @@ JAX_KERNELS = "parallel_computation_of_an_inverted_index_using_map_reduce_tpu/op
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12     # 32-bit ops on the CUDA cores (fp32 non-tensor peak)
 INT32_MAX = 2**31 - 1
+CRASH_KNOB = "MRI_TPU_STREAM_CRASH_AFTER_WINDOWS"  # the stream crash hook
 
 
 class SmokeFailure(Exception):
@@ -178,10 +197,12 @@ def phase_kernels(torch, K, shapes) -> list[dict]:
     limit_b = b_vocab * (b_docs + 2)
     cmp_unique(keys_a, limit_a, f"path A shape n={a_n}")
     cmp_unique(keys_b, limit_b, f"path B shape n={b_n}")
-    # Path E's finalize runs on the whole (doubled) accumulator
-    e_n, e_valid, e_vocab, e_docs = shapes["E"]
-    cmp_unique(sorted_keys(torch, e_n, e_valid, e_vocab, e_docs, gen), e_vocab * (e_docs + 2),
-               f"path E shape n={e_n}")
+    # the streaming plan's finalize runs on its whole (doubled)
+    # accumulator: Path E's, and Path F overflow leg's restart on it
+    for label in ("E", "F_overflow"):
+        s_n, s_valid, s_vocab, s_docs = shapes[label]
+        cmp_unique(sorted_keys(torch, s_n, s_valid, s_vocab, s_docs, gen),
+                   s_vocab * (s_docs + 2), f"path {label} shape n={s_n}")
     for n in (1, 8191, 1_000_003):
         cmp_unique(sorted_keys(torch, n, n - n // 7, 5000, 355, gen), 5000 * 357, f"ragged n={n}")
     cmp_unique(torch.full((8192,), INT32_MAX, dtype=torch.int32, device="cuda"), 100,
@@ -387,6 +408,74 @@ def engine_device_plans(torch, m, stats_d: dict, chunk_docs: int) -> dict:
     return out
 
 
+def engine_device_stream(torch, m, stats_f: dict, chunk_docs: int, pad_multiple: int) -> dict:
+    """Path F's device stream engine alone, on Path F's windows of the
+    corpus ``m``: the first windows fed as the plan feeds them, then the
+    last one through a ``stage_hook`` that synchronizes after each stage
+    (host clock and CUDA events per stage), then the warm time of the
+    finalize program on the full accumulator."""
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
+        manifest as manifest_mod)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.models import (
+        inverted_index as MI)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        device_streaming as DS, device_tokenizer as DT)
+
+    width = stats_f["device_tokenize_width"]
+    eng = DS.DeviceStreamEngine(width=width, device="cuda")
+    windows = list(manifest_mod.iter_document_chunks(m, chunk_docs))
+    check(len(windows) == stats_f["stream_windows"],
+          f"engine: {len(windows)} windows, path F fed {stats_f['stream_windows']}")
+
+    def packed(contents, ids):
+        total = sum(len(c) for c in contents)
+        buf, ends, idv = MI._pack_window(contents, ids, round_up(total, pad_multiple))
+        count, max_len = DT.host_token_stats(buf, ends)
+        return buf, ends, idv, count, max_len
+
+    for contents, ids in windows[:-1]:
+        buf, ends, idv, count, max_len = packed(contents, ids)
+        eng.feed(buf, ends, idv, tok_count=count, max_len=max_len)
+    buf, ends, idv, count, max_len = packed(*windows[-1])
+    del windows
+    marks = []
+
+    def hook(name, _value):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter(), ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    first.record()
+    eng.feed(buf, ends, idv, tok_count=count, max_len=max_len, stage_hook=hook)
+    stages, prev_t, prev_ev = {}, t0, first
+    for name, t, ev in marks:
+        stages[name] = {"wall_ms": (t - prev_t) * 1e3, "event_ms": prev_ev.elapsed_time(ev)}
+        prev_t, prev_ev = t, ev
+    out = {"device_stream_feed_stages": stages,
+           "device_stream_feed_shape": {"tokens": count, "bytes": int(buf.shape[0]),
+                                        "capacity": eng.capacity,
+                                        "rows": eng.rows_curve[-1]},
+           "device_stream_feed_peak_bytes": torch.cuda.max_memory_allocated()}
+    check(eng.capacity == stats_f["accumulator_capacity"],
+          f"engine: capacity {eng.capacity} != path F's {stats_f['accumulator_capacity']}")
+    acc, groups = eng._acc, eng._num_groups
+    out["device_stream_finalize_ms"] = cuda_ms(
+        torch, lambda: DS.finalize_rows_body(acc, num_groups=groups), iters=5, warmup=1,
+        repeats=3)
+    res = eng.finalize()
+    counts = res["counts"].cpu().tolist()
+    check(counts[:2] == [stats_f["unique_terms"], stats_f["unique_pairs"]],
+          f"engine: device stream counts {counts} disagree with path F")
+    return out
+
+
 def device_busy(trace_path: Path, top: int = 6) -> dict:
     """Summed duration of the kernels, copies and fills in a
     torch.profiler Chrome trace: ``{"ms": total or None when the trace
@@ -488,7 +577,9 @@ def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
         "window_modes", "window_plan_bytes", "window_read_ms", "window_wait_ms",
         "window_scan_ms", "pipelined_fallback", "letter_imbalance", "bucket_imbalance",
         "device_tokenize_width", "sort_cols", "fetched_bytes", "device_tokenize_fallback",
-        "stream_windows", "accumulator_mode", "accumulator_capacity", "vocab_curve")
+        "stream_windows", "accumulator_mode", "accumulator_capacity", "vocab_curve",
+        "unique_rows_curve", "resumed_from_window", "checkpoint_saves", "checkpoint_ms",
+        "checkpoint_ms_per_save", "checkpoint_skips", "overlap_tail_fraction", "device_pairs")
         if k in stats}
     print(f"phase {name}: {json.dumps(fields)} md5={stats['md5']} launches={launches} "
           + " ".join(f"{k}={v}" for k, v in extra.items())
@@ -719,8 +810,90 @@ def main() -> int:
                   f"path E md5 {stats_e['md5']} != path B {stats_b['md5']}")
             print_path("path_e", stats_e, launches_e, path_b_md5=stats_b["md5"])
             launches_by_path["E"] = launches_e
-            # Paths D and E's device programs alone, while their files exist
+
+            # -- Path F: the streaming all-device plan on Path B's corpus -----
+            stats_f, launches_f = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path F", list_b, tmp / "F_out",
+                        ["--device-tokenize", "--stream-chunk-docs", "2500"]),
+                tmp / "F_out", "path F", trace=tmp / "F_trace.json")
+            check("stream_feed" in stats_f["phases_ms"] and stats_f.get("stream_windows") == 8
+                  and "device_tokenize_fallback" not in stats_f,
+                  f"path F: phases {sorted(stats_f['phases_ms'])}, windows "
+                  f"{stats_f.get('stream_windows')}, fallback "
+                  f"{stats_f.get('device_tokenize_fallback')}; want 8 device stream windows")
+            check(stats_f["md5"] == stats_b["md5"],
+                  f"path F md5 {stats_f['md5']} != path B {stats_b['md5']}")
+            print_path("path_f", stats_f, launches_f, path_b_md5=stats_b["md5"])
+            launches_by_path["F"] = launches_f
+
+            # the same build through build_index with a stream checkpoint
+            # every two windows, killed after window 5 by the crash hook,
+            # then run again: it must resume after window 4
+            ckpt = tmp / "F_stream.ckpt.npz"
+            cfg_f = IndexConfig(num_mappers=4, num_reducers=26, device_tokenize=True,
+                                stream_chunk_docs=2500, stream_checkpoint=str(ckpt),
+                                stream_checkpoint_every=2)
+
+            def crash_then_resume():
+                os.environ[CRASH_KNOB] = "5"
+                try:
+                    build_index(manifest_b, cfg_f, output_dir=str(tmp / "FR_out"))
+                except RuntimeError as e:
+                    check("injected stream crash" in str(e), f"path F resume: {e}")
+                else:
+                    raise SmokeFailure("path F resume: the injected crash did not fire")
+                finally:
+                    del os.environ[CRASH_KNOB]
+                check(ckpt.exists(), "path F resume: the crash left no checkpoint")
+                return build_index(manifest_b, cfg_f, output_dir=str(tmp / "FR_out"))
+
+            stats_fr, launches_fr = drive_path(torch, K, formatter, crash_then_resume,
+                                               tmp / "FR_out", "path F resume")
+            check(stats_fr.get("resumed_from_window") == 4 and not ckpt.exists(),
+                  f"path F resume: resumed_from_window {stats_fr.get('resumed_from_window')}, "
+                  f"checkpoint left: {ckpt.exists()}; want 4 and none")
+            check(stats_fr["md5"] == stats_b["md5"],
+                  f"path F resume md5 {stats_fr['md5']} != path B {stats_b['md5']}")
+            print_path("path_f_resume", stats_fr, launches_fr, path_b_md5=stats_b["md5"])
+            launches_by_path["F_resume"] = launches_fr
+
+            # Path F on Path A's corpus with 8-byte rows: must restart on
+            # the streaming plan, and say so
+            stats_fo, launches_fo = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path F overflow", list_a, tmp / "FO_out",
+                        ["--device-tokenize", "--stream-chunk-docs", "100",
+                         "--device-tokenize-width", "8"]),
+                tmp / "FO_out", "path F overflow")
+            check("device_tokenize_fallback" in stats_fo
+                  and {"aborted_device_tokenize", "stream"} <= set(stats_fo["phases_ms"]),
+                  f"path F overflow did not restart on the streaming plan: phases "
+                  f"{sorted(stats_fo['phases_ms'])}")
+            check(stats_fo["md5"] == md5_oracle,
+                  f"path F overflow md5 {stats_fo['md5']} != oracle {md5_oracle}")
+            print_path("path_f_overflow", stats_fo, launches_fo, oracle_md5=md5_oracle)
+            launches_by_path["F_overflow"] = launches_fo
+
+            # -- Path G: the overlap plan on Path B's corpus ------------------
+            stats_g, launches_g = drive_path(
+                torch, K, formatter,
+                cli_run(cli, "path G", list_b, tmp / "G_out", ["--overlap-tail-fraction", "0.3"]),
+                tmp / "G_out", "path G", trace=tmp / "G_trace.json")
+            check("host_tail" in stats_g["phases_ms"] and stats_g.get("upload_windows") == 2
+                  and stats_g.get("device_pairs", 0) > 0,
+                  f"path G: phases {sorted(stats_g['phases_ms'])}, windows "
+                  f"{stats_g.get('upload_windows')}, device pairs {stats_g.get('device_pairs')}; "
+                  "want the overlap plan's 2 device windows")
+            check(stats_g["md5"] == stats_b["md5"],
+                  f"path G md5 {stats_g['md5']} != path B {stats_b['md5']}")
+            print_path("path_g", stats_g, launches_g, path_b_md5=stats_b["md5"])
+            launches_by_path["G"] = launches_g
+
+            # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)
+            eng_plans.update(engine_device_stream(torch, manifest_b, stats_f, 2500,
+                                                  cfg_f.pad_multiple))
 
         # -- kernels against their plain versions, at this run's shapes ----
         # (padded n, valid n, vocab, docs): Path A's numpy leg keeps every
@@ -732,7 +905,9 @@ def main() -> int:
                   stats_a1["unique_terms"], 355),
             "B": (round_up(b_pairs, 1 << 16), b_pairs, stats_b["unique_terms"], 20_000),
             "E": (stats_e["accumulator_capacity"], stats_e["unique_pairs"],
-                  stats_e["unique_terms"], 20_000)})
+                  stats_e["unique_terms"], 20_000),
+            "F_overflow": (stats_fo["accumulator_capacity"], stats_fo["unique_pairs"],
+                           stats_fo["unique_terms"], 355)})
         for k in kernels:
             print(f"phase kernels: {k['name']} exact={k['parity']} ms={k['ms']:.4f} "
                   f"(min {k['ms_min']:.4f} max {k['ms_max']:.4f}) "

@@ -19,13 +19,15 @@ import sys
 from .config import IndexConfig
 from .corpus.manifest import read_manifest
 from .models.inverted_index import DeviceUnavailable, build_index
+from .utils.checkpoint import CheckpointCorrupt
 
 EXIT_DEGRADED = 3
 
 _EPILOG = """\
 exit codes:
   0  clean run
-  2  error (bad arguments, I/O failure, no CUDA device for --device cuda)
+  2  error (bad arguments, I/O failure, a corrupt --stream-checkpoint
+     under --resume strict, no CUDA device for --device cuda)
   3  degraded (completed, but skipped unreadable documents; see the
      'degradation' block of --stats)
 """
@@ -65,12 +67,34 @@ def make_parser() -> argparse.ArgumentParser:
                         "for tokens longer than --device-tokenize-width)")
     p.add_argument("--device-tokenize-width", type=int, default=48,
                    help="device word-row bytes (multiple of 4)")
+    p.add_argument("--overlap-tail-fraction", type=float, default=None,
+                   help="windowed overlap plan: this fraction of corpus "
+                        "bytes (the last doc range) is indexed on the host "
+                        "while the earlier windows' device sorts and fetches "
+                        "run (single device)")
+    p.add_argument("--overlap-device-windows", type=int, default=2, choices=(1, 2),
+                   help="overlap plan device windows: 2 = earliest first "
+                        "fetch, 1 = half the launches and copies")
+    p.add_argument("--overlap-window-split", type=float, default=0.55,
+                   help="the first device window's share of the overlap "
+                        "plan's device bytes")
+    p.add_argument("--stream-checkpoint", default=None,
+                   help="crash-resumable streaming all-device plan "
+                        "(--device-tokenize --stream-chunk-docs): save the "
+                        "verified accumulator here; a rerun of the same "
+                        "command resumes at the last saved window")
+    p.add_argument("--stream-checkpoint-every", type=int, default=2,
+                   help="windows between stream checkpoints")
     p.add_argument("--host-threads", type=int, default=None,
                    help="native scan threads (default: num_mappers if > 1, "
                         "else min(cores, 8)); output-invariant")
     p.add_argument("--emit-backend", choices=("auto", "native", "python"), default="auto",
                    help="letter-file writer: auto = native emit when available, "
                         "python = the pure-Python writer; byte-identical either way")
+    p.add_argument("--resume", choices=("strict", "auto"), default="strict",
+                   help="stream-checkpoint trust policy: strict = a corrupt "
+                        "checkpoint is an error; auto = move it aside to "
+                        "<path>.corrupt and restart fresh")
     return p
 
 
@@ -103,9 +127,15 @@ def main(argv: list[str] | None = None) -> int:
             device_tokenize_width=args.device_tokenize_width,
             host_threads=args.host_threads,
             emit_backend=args.emit_backend,
+            overlap_tail_fraction=args.overlap_tail_fraction,
+            overlap_device_windows=args.overlap_device_windows,
+            overlap_window_split=args.overlap_window_split,
+            stream_checkpoint=args.stream_checkpoint,
+            stream_checkpoint_every=args.stream_checkpoint_every,
+            resume=args.resume,
         )
         stats = build_index(manifest, config)
-    except (OSError, ValueError, DeviceUnavailable) as e:
+    except (OSError, ValueError, DeviceUnavailable, CheckpointCorrupt) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.stats:

@@ -4,9 +4,11 @@ The reference exposes exactly three positional CLI args — num_mappers,
 num_reducers, input list (main.c:248-255) — plus compile-time caps
 (main.c:7-11).  Here those become an explicit, validated config object.
 The config holds the fields of the plans this package implements: the
-pipelined plan (native scan, provisional-key windows, one device sort),
-the one-shot plan, the streaming plan (``stream_chunk_docs``) and the
-all-device plan (``device_tokenize``).
+pipelined plan (native scan, provisional-key windows, one device sort)
+and its overlap variant (``overlap_tail_fraction``), the one-shot plan,
+the streaming plan (``stream_chunk_docs``), the all-device plan
+(``device_tokenize``) and the two together, the streaming all-device
+plan with its resumable stream checkpoints.
 """
 
 from __future__ import annotations
@@ -53,9 +55,10 @@ class IndexConfig:
     # the pipelined plan (forces the one-shot engine).
     pipeline_chunk_docs: int | None = None
     # Streaming plan: process the corpus in windows of this many whole
-    # documents with a bounded device accumulator (ops/streaming.py)
-    # instead of one-shot arrays.  None = off.  Takes precedence over
-    # the pipelined plan.  Output is byte-identical either way.
+    # documents with a bounded device accumulator (ops/streaming.py, or
+    # ops/device_streaming.py with device_tokenize) instead of one-shot
+    # arrays.  None = off.  Takes precedence over the pipelined plan.
+    # Output is byte-identical either way.
     stream_chunk_docs: int | None = None
     # All-device plan (ops/device_tokenizer.py): raw corpus bytes go up,
     # the finished index comes down — byte classify, token segmentation,
@@ -75,6 +78,30 @@ class IndexConfig:
     # loads (and use_native is on), else Python; "native" requires it;
     # "python" forces the pure-Python writer.  Byte-identical all three.
     emit_backend: str = "auto"
+    # Windowed overlap plan (a single-device variant of the pipelined
+    # plan): this fraction of the corpus bytes — the LAST contiguous doc
+    # range — is indexed on the host (a numpy sort of its packed keys)
+    # while the earlier windows' device sorts and fetches are in flight;
+    # the emit concatenates the per-window runs in doc order.  None =
+    # off (the plain pipelined plan); must be in (0, 1).
+    overlap_tail_fraction: float | None = None
+    # Device windows of the overlap plan: 2 issues the first fetch
+    # earlier; 1 halves the launches and copies.
+    overlap_device_windows: int = 2
+    # The first device window's share of the overlap plan's device bytes.
+    overlap_window_split: float = 0.55
+    # Crash-resumable streaming all-device plan (device_tokenize with
+    # stream_chunk_docs): save the verified accumulator prefix and the
+    # stream position here every ``stream_checkpoint_every`` windows
+    # (utils/checkpoint.py, atomic); a rerun with the same manifest and
+    # stream config resumes at the last saved window.
+    stream_checkpoint: str | None = None
+    stream_checkpoint_every: int = 2
+    # What a corrupt checkpoint does at resume: "strict" raises
+    # (utils/checkpoint.CheckpointCorrupt); "auto" moves it aside to
+    # ``<path>.corrupt`` and starts fresh.  A version or fingerprint
+    # mismatch raises under both.
+    resume: str = "strict"
 
     def resolved_host_threads(self) -> int:
         """The map-phase thread count this run will actually use."""
@@ -109,6 +136,32 @@ class IndexConfig:
         if self.backend != "cuda" and self.pipeline_chunk_docs is not None:
             raise ValueError(
                 f"pipeline_chunk_docs requires backend='cuda', got backend={self.backend!r}")
+        if self.overlap_tail_fraction is not None:
+            if not 0.0 < self.overlap_tail_fraction < 1.0:
+                raise ValueError(
+                    "overlap_tail_fraction must be in (0, 1) or None, "
+                    f"got {self.overlap_tail_fraction}")
+            if self.backend != "cuda":
+                raise ValueError(
+                    "overlap_tail_fraction requires backend='cuda', "
+                    f"got backend={self.backend!r}")
+            if self.pipeline_chunk_docs == 0:
+                raise ValueError(
+                    "overlap_tail_fraction requires the pipelined path "
+                    "(pipeline_chunk_docs=0 disables it)")
+            if self.stream_chunk_docs is not None:
+                raise ValueError(
+                    "overlap_tail_fraction is incompatible with "
+                    "stream_chunk_docs (the streaming engine has its own "
+                    "window pipeline)")
+        if self.overlap_device_windows not in (1, 2):
+            raise ValueError(
+                f"overlap_device_windows must be 1 or 2, "
+                f"got {self.overlap_device_windows}")
+        if not (0.0 < self.overlap_window_split < 1.0):
+            raise ValueError(
+                f"overlap_window_split must be in (0, 1), "
+                f"got {self.overlap_window_split}")
         # upper bound 296 (< MAX_WORD_LETTERS): a width that could hold
         # a 299+-letter token would silently skip the reference's 299
         # cap (main.c:105) instead of falling back to the host path
@@ -122,18 +175,27 @@ class IndexConfig:
                 raise ValueError(
                     "device_tokenize requires backend='cuda', "
                     f"got backend={self.backend!r}")
-            if self.pipeline_chunk_docs is not None:
-                raise ValueError(
-                    "device_tokenize is a complete engine; pipeline_chunk_docs "
-                    "belongs to the host-scan plans")
+            for flag in ("pipeline_chunk_docs", "overlap_tail_fraction"):
+                if getattr(self, flag) is not None:
+                    raise ValueError(
+                        f"device_tokenize is a complete engine; {flag} "
+                        "belongs to the host-scan plans")
             if self.collect_skew_stats:
                 raise ValueError(
                     "device_tokenize is incompatible with collect_skew_stats "
                     "(no host-side pair ids exist)")
-            if self.stream_chunk_docs is not None:
-                raise ValueError(
-                    "device_tokenize with stream_chunk_docs is the streaming "
-                    "all-device plan, which this package does not have yet")
+        if self.resume not in ("strict", "auto"):
+            raise ValueError(
+                f"resume must be 'strict' or 'auto', got {self.resume!r}")
+        if self.stream_checkpoint_every < 1:
+            raise ValueError(
+                f"stream_checkpoint_every must be >= 1, "
+                f"got {self.stream_checkpoint_every}")
+        if self.stream_checkpoint is not None and not (
+                self.device_tokenize and self.stream_chunk_docs is not None):
+            raise ValueError(
+                "stream_checkpoint requires the streaming all-device "
+                "engine (device_tokenize=True with stream_chunk_docs)")
         if self.stream_chunk_docs is not None:
             if self.stream_chunk_docs < 1:
                 raise ValueError(

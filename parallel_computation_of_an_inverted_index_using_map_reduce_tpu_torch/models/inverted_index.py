@@ -7,11 +7,15 @@ Orchestrates the chain the reference runs as fork-join pthread phases
 
 with backends:
     "cuda"   — the device engine (ops/engine.py) on ``config.device``,
-               by one of four plans:
+               by one of these plans:
                * pipelined (default when eligible): the native scan emits
                  combiner-deduped provisional keys per document window,
                  each window's upload overlaps the next window's scan,
                  and the device finalize is one sort
+               * overlap (``overlap_tail_fraction``): the pipelined plan
+                 with each device window sorted and fetched while later
+                 windows are scanned, and the last byte share sorted on
+                 the host
                * one-shot: tokenize everything (native combiner, or the
                  numpy tokenizer with ``use_native=False``), then one
                  device program
@@ -21,6 +25,11 @@ with backends:
                * all-device (``device_tokenize``): raw bytes up, the
                  finished index down (ops/device_tokenizer.py); a token
                  wider than the word rows restarts on the host-scan plans
+               * streaming all-device (both): raw byte windows fold into
+                 a bounded word-row accumulator on the card
+                 (ops/device_streaming.py), with resumable stream
+                 checkpoints; a too-wide token restarts on the streaming
+                 plan
     "oracle" — pure-Python dict oracle (models/oracle.py)
 
 Output is byte-identical across backends and plans, to the JAX package,
@@ -30,6 +39,7 @@ and to the pthread reference.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -39,15 +49,18 @@ from .. import native
 from ..config import IndexConfig
 from ..corpus.manifest import (DegradationReport, Manifest, iter_document_chunks,
                                load_documents, prefetch_document_ranges)
-from ..corpus.scheduler import plan_contiguous_windows, window_balance_stats
+from ..corpus.scheduler import (plan_contiguous_windows, plan_fraction_windows,
+                                window_balance_stats)
 from ..obs.timing import PhaseTimer
 from ..ops import device_tokenizer as DT
 from ..ops import engine
 from ..ops import keys as K
+from ..ops.device_streaming import DeviceStreamEngine
 from ..ops.streaming import StreamingIndexEngine
 from ..text import formatter
 from ..text.streaming import StreamingTokenizer
 from ..text.tokenizer import tokenize
+from ..utils import checkpoint, envknobs
 from ..utils.rounding import round_up as _round_up
 from .oracle import oracle_index
 
@@ -125,11 +138,19 @@ class InvertedIndexModel:
         timer.count("device", device_name)
         if cfg.device_tokenize:
             try:
+                if cfg.stream_chunk_docs is not None:
+                    return self._run_device_tokenize_stream(manifest, out_dir, timer, report,
+                                                            device)
                 return self._run_device_tokenize(manifest, out_dir, timer, report, device)
             except DT.WidthOverflow as e:
                 # exactness guard tripped: restart on the host-scan plans
-                # with a fresh timer; the aborted attempt's wall time
-                # stays in the report as its own phase
+                # (a streaming config on the streaming plan, below) with a
+                # fresh timer; the aborted attempt's wall time stays in
+                # the report as its own phase.  The stream is abandoned
+                # for good: a stale checkpoint would make every later
+                # identical run restore, re-stream and overflow again.
+                if cfg.stream_checkpoint and os.path.exists(cfg.stream_checkpoint):
+                    os.remove(cfg.stream_checkpoint)
                 aborted_s = sum(timer.phases.values())
                 timer = self._new_timer()
                 timer.count("device", device_name)
@@ -138,8 +159,16 @@ class InvertedIndexModel:
                 report.skips.clear()  # the host plan reloads and records them anew
         if cfg.stream_chunk_docs is not None:
             return self._run_streaming(manifest, out_dir, timer, report, device)
+        if cfg.overlap_tail_fraction is not None and not self._pipelined_eligible(manifest):
+            # fail loudly rather than run a plan the config does not name
+            raise ValueError(
+                "overlap_tail_fraction requires the pipelined path: "
+                "native tokenizer available, no checkpoint/skew flags, "
+                "no streaming, and <= 65534 documents")
         if self._pipelined_eligible(manifest):
             try:
+                if cfg.overlap_tail_fraction is not None:
+                    return self._run_overlap(manifest, out_dir, timer, report, device)
                 return self._run_pipelined(manifest, out_dir, timer, report, device)
             except native.KeyOverflow:
                 # prov_id * stride outgrew int32 keys mid-stream: restart
@@ -271,6 +300,133 @@ class InvertedIndexModel:
             host["postings"] = engine.host_u16(pending.wait())
         del chunks_dev, staged
         return self._emit_and_report(vocab, letters, host, out_dir, timer, max_doc_id)
+
+    # -- overlap plan --------------------------------------------------
+
+    def _run_overlap(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                     report: DegradationReport, device: torch.device) -> dict:
+        """Windowed overlap plan: the device round trips hide under the
+        scan.
+
+        The pipelined plan still waits for its one fetch after the scan
+        ends.  Here the corpus is cut into contiguous byte-weighted doc
+        windows (``plan_fraction_windows``): each *device* window's
+        provisional keys are uploaded, sorted and copied back the moment
+        it is scanned, while the host scans the later windows, and the
+        last ``overlap_tail_fraction`` of the bytes never goes to the
+        card: its keys are sorted with numpy while the copies are in
+        flight.  Windows are ascending doc ranges and a window's sorted
+        keys give each term's docs ascending, so each term's postings
+        list is its per-window segments in window order — the native
+        multi-run emit renders them with no merge pass.  The reference's
+        map->reduce barrier (main.c:367-369) forbids exactly this
+        overlap; the bytes stay the same.
+        """
+        cfg = self.config
+        max_doc_id = len(manifest)
+        stride = max_doc_id + 2
+        tail_f = cfg.overlap_tail_fraction
+        # with two device windows the first fetch is issued earlier; with
+        # one, half the launches and copies
+        dev_f = 1.0 - tail_f
+        if len(manifest) >= 8 and cfg.overlap_device_windows == 2:
+            split = cfg.overlap_window_split
+            fractions = (split * dev_f, (1.0 - split) * dev_f, tail_f)
+        else:
+            fractions = (dev_f, tail_f)
+        windows = plan_fraction_windows(manifest, fractions)
+        threads = cfg.resolved_host_threads()
+        timer.count("host_threads", threads)
+        timer.count("window_plan_bytes", window_balance_stats(manifest, windows)["bytes_per_shard"])
+        granule = min(1 << 14, cfg.pad_multiple)
+
+        dev_handles: list[tuple] = []  # (postings copy in flight, nvalid)
+        dev_snaps: list[tuple] = []    # (df before, df after) per device window
+        staged: list = []              # pinned windows, held until the fetch
+        prev_snap = np.zeros(0, np.int32)
+        tail_keys = None
+        num_pairs = docs_loaded = 0
+        with native.NativeKeyStream(stride, num_threads=threads) as stream:
+            with timer.phase("tokenize_feed"), contextlib.closing(
+                    prefetch_document_ranges(manifest, windows, report)) as reader:
+                for wi, (contents, ids) in enumerate(reader):
+                    docs_loaded += len(contents)
+                    if wi == len(windows) - 1:  # the host tail
+                        keys, _ = stream.feed(contents, ids)
+                        num_pairs += int(keys.size)
+                        if keys.size:
+                            tail_keys = keys
+                        continue
+                    mode, buf, nvalid, _ = stream.feed_u16(contents, ids, granule=granule)
+                    num_pairs += nvalid
+                    if nvalid == 0:
+                        continue
+                    if mode == "u16":
+                        host = buf.view(np.int16)
+                    else:  # prov ids outgrew uint16: int32 keys
+                        host = np.full(_round_up(nvalid, granule), K.INT32_MAX, np.int32)
+                        host[:nvalid] = buf
+                    post = engine.sort_prov_chunks(
+                        [engine.upload(host, device, staged)], stride=stride,
+                        out_size=_round_up(nvalid, granule))
+                    dev_handles.append((engine.PendingFetch(post), nvalid))
+                    # per-window per-term pair counts from combiner df
+                    # snapshot diffs (vocab scale), not token-scale counts
+                    snap = stream.df_snapshot(hint=max(1 << 16, prev_snap.shape[0] * 2))
+                    dev_snaps.append((prev_snap, snap))
+                    prev_snap = snap
+            with timer.phase("finalize_vocab"):
+                (vocab, letters, remap, df_prov, raw_tokens, _,
+                 emit_order) = stream.finalize()
+
+        vocab_size = int(vocab.shape[0])
+        timer.count("documents", docs_loaded)
+        timer.count("tokens", raw_tokens)
+        timer.count("unique_terms", vocab_size)
+        timer.count("upload_windows", len(dev_handles))
+        timer.count("overlap_tail_fraction", tail_f)
+        timer.count("device_pairs", sum(n for _, n in dev_handles))
+        timer.count("unique_pairs", num_pairs)
+        if num_pairs == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {})
+            return timer.report()
+
+        with timer.phase("host_tail"):
+            if tail_keys is not None:
+                tail_docs = (np.sort(tail_keys) % stride).astype(np.uint16)
+            else:
+                tail_docs = np.empty(0, np.uint16)
+
+        with timer.phase("host_views"):
+            # vocab scale, while the device copies are in flight: per-run
+            # rank-space segment tables from the df snapshot diffs; the
+            # emit order came from the native finalize
+            prov_of_rank = np.empty(vocab_size, dtype=np.int64)
+            prov_of_rank[remap] = np.arange(vocab_size)
+
+            def run_meta(prev, cur):
+                c = np.zeros(vocab_size, np.int64)
+                c[: cur.shape[0]] = cur
+                c[: prev.shape[0]] -= prev
+                off = np.cumsum(c) - c
+                return off[prov_of_rank], c[prov_of_rank]
+
+            runs_meta = [run_meta(prev, cur) for prev, cur in dev_snaps]
+            # the tail's counts: the final df minus the last device snapshot
+            tail_meta = run_meta(prev_snap, df_prov.astype(np.int64))
+
+        with timer.phase("fetch"):
+            fetched = [engine.host_u16(p.wait()) for p, _ in dev_handles]
+        del staged
+
+        with timer.phase("emit"):
+            runs = [(arr, off, cnt) for arr, (off, cnt) in zip(fetched, runs_meta)]
+            runs.append((tail_docs, *tail_meta))
+            bytes_written = native.emit_native_runs(out_dir, vocab, emit_order, runs)
+        timer.count("lines_written", vocab_size)
+        timer.count("bytes_written", bytes_written)
+        return timer.report()
 
     # -- streaming plan ------------------------------------------------
 
@@ -451,6 +607,153 @@ class InvertedIndexModel:
         host_out = {"df": df64, "order": order, "offsets": offsets, "postings": postings,
                     "num_unique": num_pairs}
         return self._emit_and_report(vocab, letters, host_out, out_dir, timer, max_doc_id)
+
+    # -- streaming all-device plan -------------------------------------
+
+    def _run_device_tokenize_stream(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                                    report: DegradationReport, device: torch.device) -> dict:
+        """Streaming all-device plan: document-aligned byte windows fold
+        into a bounded word-row accumulator on the card
+        (ops/device_streaming.py) — the all-device plan for corpora
+        larger than device memory, with the same exactness contract (a
+        too-wide token raises WidthOverflow before its window is fed).
+
+        With ``stream_checkpoint`` the verified accumulator prefix and
+        the stream position are saved every ``stream_checkpoint_every``
+        windows, and a rerun resumes after the last saved window.  Each
+        save drains the merge pipeline and fetches the accumulator, so
+        its cost is projected first and, when over the budget, up to
+        ``MRI_TPU_CKPT_STRETCH`` consecutive saves are skipped before one
+        is forced; the link rate behind the projection is re-measured by
+        every save.
+        """
+        cfg = self.config
+        width = cfg.device_tokenize_width
+        max_doc_id = len(manifest)
+        timer.count("device_tokenize_width", width)
+        timer.count("documents", len(manifest))
+        eng = DeviceStreamEngine(width=width, device=device)
+        fed_tokens = 0
+
+        ckpt_path = cfg.stream_checkpoint
+        resume_from = 0
+        if ckpt_path:
+            stream_fp = checkpoint.stream_fingerprint(
+                manifest, width=width, chunk_docs=cfg.stream_chunk_docs,
+                pad_multiple=cfg.pad_multiple)
+            if os.path.exists(ckpt_path):
+                try:
+                    state = checkpoint.load_stream_state(ckpt_path, stream_fp)
+                except checkpoint.CheckpointCorrupt:
+                    # the save is atomic (tmp + rename), but disk
+                    # corruption or a foreign file at the path must not
+                    # wedge a rerun under resume='auto'
+                    if cfg.resume != "auto":
+                        raise
+                    timer.count("quarantined_checkpoint", checkpoint.quarantine(ckpt_path))
+                else:
+                    eng.restore(state)
+                    fed_tokens = state["fed_tokens"]
+                    # the loop position, not the engine's windows_fed:
+                    # empty windows are not fed, so that count can lag
+                    resume_from = state["window_pos"]
+                    timer.count("resumed_from_window", resume_from)
+        crash_after = envknobs.get("MRI_TPU_STREAM_CRASH_AFTER_WINDOWS")
+        total_windows = -(-len(manifest) // cfg.stream_chunk_docs)
+        ckpt_seconds, ckpt_saves = 0.0, 0
+        ckpt_ms_per_save: list[float] = []
+        ckpt_skipped_projection_s: list[float] = []
+        ckpt_budget_s = envknobs.get("MRI_TPU_CKPT_BUDGET_S")
+        ckpt_rate_mbps = envknobs.get("MRI_TPU_CKPT_LINK_MBPS")
+        ckpt_stretch = envknobs.get("MRI_TPU_CKPT_STRETCH")
+        ckpt_consec_skips = 0
+
+        with timer.phase("stream_feed"):
+            for win_i, (contents, ids) in enumerate(
+                    iter_document_chunks(manifest, cfg.stream_chunk_docs, report), start=1):
+                if win_i <= resume_from:
+                    continue
+                total = sum(len(c) for c in contents)
+                # a fresh host array per window: no buffer the card may
+                # still read is ever refilled
+                buf, ends, idv = _pack_window(contents, ids,
+                                              _round_up(total, cfg.pad_multiple))
+                cnt, ml = DT.host_token_stats(buf, ends)
+                if ml > width:
+                    raise DT.WidthOverflow(
+                        f"cleaned token of {ml} letters exceeds "
+                        f"device_tokenize_width={width}")
+                eng.feed(buf, ends, idv, tok_count=cnt, max_len=ml)
+                fed_tokens += cnt
+                # no checkpoint on the last window: the finalize deletes
+                # it moments later
+                if (ckpt_path and win_i < total_windows
+                        and (win_i - resume_from) % cfg.stream_checkpoint_every == 0):
+                    nbytes = eng.snapshot_nbytes
+                    projected = nbytes / (ckpt_rate_mbps * 1e6)
+                    if projected > ckpt_budget_s and ckpt_consec_skips < ckpt_stretch:
+                        ckpt_consec_skips += 1
+                        ckpt_skipped_projection_s.append(round(projected, 2))
+                    else:
+                        ckpt_consec_skips = 0
+                        t0 = time.perf_counter()
+                        snap = eng.snapshot()
+                        if snap is not None:
+                            checkpoint.save_stream_state(ckpt_path, snap, fed_tokens, win_i,
+                                                         stream_fp)
+                            dt = time.perf_counter() - t0
+                            ckpt_seconds += dt
+                            ckpt_saves += 1
+                            ckpt_ms_per_save.append(round(dt * 1e3, 2))
+                            moved = snap["fetched_nbytes"]
+                            if dt > 1e-3 and moved:
+                                # the whole save's rate (drain + fetch +
+                                # write) over the bytes the fetch moved,
+                                # floored so one outlier cannot lock out
+                                # every later save
+                                ckpt_rate_mbps = max(moved / dt / 1e6, 0.5)
+                if crash_after and win_i >= crash_after:
+                    raise RuntimeError(
+                        f"injected stream crash after window {win_i} "
+                        "(MRI_TPU_STREAM_CRASH_AFTER_WINDOWS)")
+        if ckpt_saves:
+            # inside stream_feed's wall time, recorded apart so a
+            # checkpointed run compares with an uncheckpointed one
+            timer.count("checkpoint_saves", ckpt_saves)
+            timer.count("checkpoint_ms", round(ckpt_seconds * 1e3, 2))
+            timer.count("checkpoint_ms_per_save", ckpt_ms_per_save)
+        if ckpt_skipped_projection_s:
+            timer.count("checkpoint_skips", len(ckpt_skipped_projection_s))
+            timer.count("checkpoint_skipped_projection_s", ckpt_skipped_projection_s)
+            timer.count("checkpoint_budget_s", ckpt_budget_s)
+        timer.count("stream_windows", eng.windows_fed)
+        timer.count("accumulator_capacity", eng.capacity)
+        if eng.rows_curve:
+            # resolved unique-row counts per merge (trails the windows by
+            # the merges still in flight)
+            timer.count("unique_rows_curve", eng.rows_curve)
+        if eng.windows_fed == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {})
+            return timer.report()
+        sort_cols = -(-max(eng.max_word_len, 1) // 4)  # ceil div
+        timer.count("sort_cols", sort_cols)
+
+        with timer.phase("device_index"):
+            out = eng.finalize()
+            num_words, num_pairs, num_long = (
+                int(v) for v in engine.PendingFetch(out["counts"]).wait())
+        if ckpt_path and os.path.exists(ckpt_path):
+            # the stream completed; a stale checkpoint would make the next
+            # identical run skip every window
+            os.remove(ckpt_path)
+        timer.count("unique_terms", num_words)
+        timer.count("unique_pairs", num_pairs)
+        timer.count("tokens", fed_tokens)
+        return self._fetch_decode_emit_device(
+            out, cap=int(out["df"].shape[0]), num_words=num_words, num_pairs=num_pairs,
+            num_long=num_long, sort_cols=sort_cols, max_doc_id=max_doc_id,
+            out_dir=out_dir, timer=timer)
 
     # -- one-shot plan -------------------------------------------------
 

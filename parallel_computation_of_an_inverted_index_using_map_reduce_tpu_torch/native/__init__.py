@@ -134,10 +134,15 @@ def _bind(lib) -> None:
         "mri_stream_chunk_u16_free": (None, [ctypes.POINTER(_StreamChunkU16Result)]),
         "mri_stream_finalize": (ctypes.POINTER(_StreamFinalResult), [ctypes.c_void_p]),
         "mri_stream_final_free": (None, [ctypes.POINTER(_StreamFinalResult)]),
+        "mri_stream_df_snapshot": (i32, [ctypes.c_void_p, i32p, i32]),
         "mri_token_stats": (i32, [u8p, i64, i64p, i32, i64p, i32p]),
         "mri_emit": (i64, [u8p, i32, i32, i64p, i64p, i64p,
                            ctypes.POINTER(ctypes.c_uint16), i32p, ctypes.c_char_p,
                            i32, i32, i64, i64]),
+        "mri_emit_runs": (i64, [u8p, i32, i32, i64p, i32,
+                                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint16)),
+                                ctypes.POINTER(i64p), ctypes.POINTER(i64p),
+                                ctypes.c_char_p]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -344,6 +349,23 @@ class NativeKeyStream:
         finally:
             self._lib.mri_stream_chunk_u16_free(res)
 
+    def df_snapshot(self, hint: int = 1 << 16) -> np.ndarray:
+        """Current per-term deduped (term, doc) counts in global prov-id
+        space (int32, one slot per provisional id seen so far) — a
+        vocab-scale copy, in MT mode a vocab-scale fold per worker.  The
+        overlap plan diffs consecutive snapshots for per-window per-term
+        pair counts instead of token-scale bincounts."""
+        buf = np.empty(max(hint, 1), np.int32)
+        n = self._lib.mri_stream_df_snapshot(
+            self._handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int32(buf.shape[0]))
+        if n < 0:  # the buffer was too small: -n slots are needed
+            buf = np.empty(-n, np.int32)
+            n = self._lib.mri_stream_df_snapshot(
+                self._handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                ctypes.c_int32(buf.shape[0]))
+        return buf[:n].copy()
+
     def finalize(self):
         """``(vocab, letter_of_term, remap, df_prov, raw_tokens,
         num_pairs, emit_order)``.
@@ -414,6 +436,49 @@ def emit_native(out_dir, vocab: np.ndarray, order, df, offsets, postings) -> int
         ptr(order64, ctypes.c_int64), ptr(df64, ctypes.c_int64), ptr(off64, ctypes.c_int64),
         p16, p32, str(out_dir).encode(),
         ctypes.c_int32(0), ctypes.c_int32(26), ctypes.c_int64(0), ctypes.c_int64(vocab_size))
+    if rc < 0:
+        raise OSError(f"native emit failed writing to {str(out_dir)!r}")
+    return int(rc)
+
+
+def emit_native_runs(out_dir, vocab: np.ndarray, order, runs) -> int:
+    """Multi-run native emit: each term's postings list is the
+    concatenation of its per-run segments in run order.
+
+    ``runs`` is a sequence of ``(postings_u16, offsets, counts)`` —
+    postings a uint16 array, offsets and counts rank-space int64 arrays.
+    The overlap plan's device windows and host tail are contiguous
+    ascending doc ranges, so concatenation in run order is the merge.
+    Byte-identical to one :func:`emit_native` call over the merged
+    postings.  Returns total bytes written."""
+    lib = _require()
+    os.makedirs(out_dir, exist_ok=True)
+    vocab_size = int(vocab.shape[0])
+    width = vocab.dtype.itemsize if vocab_size else 1
+    vbuf = np.ascontiguousarray(vocab).view(np.uint8)
+    order64 = np.ascontiguousarray(order, dtype=np.int64)
+    n = len(runs)
+    keep = []  # the contiguous arrays must outlive the call
+    bases = (ctypes.POINTER(ctypes.c_uint16) * max(n, 1))()
+    offs = (ctypes.POINTER(ctypes.c_int64) * max(n, 1))()
+    cnts = (ctypes.POINTER(ctypes.c_int64) * max(n, 1))()
+    for i, (postings, offsets, counts) in enumerate(runs):
+        p = np.ascontiguousarray(postings, dtype=np.uint16)
+        o = np.ascontiguousarray(offsets, dtype=np.int64)
+        c = np.ascontiguousarray(counts, dtype=np.int64)
+        keep.extend((p, o, c))
+        bases[i] = p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+        offs[i] = o.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+        cnts[i] = c.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+    def ptr(arr, ctype):
+        return arr.ctypes.data_as(ctypes.POINTER(ctype)) if vocab_size else _null(ctype)
+
+    rc = lib.mri_emit_runs(
+        ptr(vbuf, ctypes.c_uint8), ctypes.c_int32(vocab_size), ctypes.c_int32(width),
+        ptr(order64, ctypes.c_int64), ctypes.c_int32(n), bases, offs, cnts,
+        str(out_dir).encode())
+    del keep
     if rc < 0:
         raise OSError(f"native emit failed writing to {str(out_dir)!r}")
     return int(rc)

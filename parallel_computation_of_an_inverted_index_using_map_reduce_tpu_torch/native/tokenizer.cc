@@ -715,7 +715,9 @@ StreamState& ResolveVocab(StreamState& global, std::vector<Worker>& workers) {
 // Fold the workers' combiner df counts (local prov space) into a
 // zeroed global-prov-space buffer.  Correct because each document is
 // scanned by exactly one worker, so per-(term, doc) dedup is complete
-// thread-locally.
+// thread-locally.  THE one fold: finalize's GlobalDf and the
+// mid-stream mri_stream_df_snapshot must agree bit for bit (the
+// overlap plan diffs snapshots against finalize's totals).
 void FoldWorkerDf(const std::vector<Worker>& workers, int32_t* out) {
   for (const Worker& w : workers)
     for (int32_t lid = 0; lid < w.local.next_id; ++lid)
@@ -1072,6 +1074,27 @@ void mri_stream_chunk_u16_free(StreamChunkU16Result* r) {
   std::free(r->feed_u16);
   std::free(r->keys);
   std::free(r);
+}
+
+// Current document-frequency snapshot in GLOBAL provisional-id space
+// (the combiner's deduped per-(term, doc) counts so far).  Lets the
+// windowed overlap plan derive per-window per-term pair counts as
+// vocab-scale snapshot diffs instead of token-scale bincounts.  In MT
+// mode folds the workers' thread-local counts (each document is
+// scanned by exactly one worker, so the fold is exact; l2g is extended
+// every feed).  Returns the term count written, or -needed when the
+// caller's buffer is too small (call again with >= needed slots).
+int32_t mri_stream_df_snapshot(void* handle, int32_t* out, int32_t cap) {
+  auto& h = *static_cast<StreamHandle*>(handle);
+  const int32_t n = h.global.next_id;
+  if (n > cap) return -n;
+  std::memset(out, 0, static_cast<size_t>(n) * sizeof(int32_t));
+  if (h.workers.empty()) {
+    for (int32_t i = 0; i < n; ++i) out[i] = h.global.combiner[i].df;
+  } else {
+    FoldWorkerDf(h.workers, out);
+  }
+  return n;
 }
 
 void mri_stream_final_free(StreamFinalResult* r);
@@ -1504,5 +1527,23 @@ int64_t mri_emit(const uint8_t* vocab_packed, int32_t vocab_size, int32_t width,
   return -1;
 }
 
+// Multi-run emit for the windowed overlap plan: each term's postings are
+// the concatenation of its `n_runs` segments in run order (uint16 doc
+// ids; run k's segment for rank t is run_bases[k][run_offsets[k][t] ..
+// + run_counts[k][t]]).  Returns total bytes written, or -1 on IO error.
+int64_t mri_emit_runs(const uint8_t* vocab_packed, int32_t vocab_size,
+                      int32_t width, const int64_t* order, int32_t n_runs,
+                      const uint16_t* const* run_bases,
+                      const int64_t* const* run_offsets,
+                      const int64_t* const* run_counts,
+                      const char* out_dir) try {
+  std::vector<EmitRun> runs(std::max(n_runs, 1));
+  for (int32_t r = 0; r < n_runs; ++r)
+    runs[r] = EmitRun{run_bases[r], nullptr, run_offsets[r], run_counts[r]};
+  return EmitLettersRuns(vocab_packed, vocab_size, width, order, runs.data(),
+                         n_runs, out_dir);
+} catch (const std::bad_alloc&) {
+  return -1;
+}
 
 }  // extern "C"

@@ -94,9 +94,11 @@ def _tokenize_front(data, doc_ends, doc_id_values, *, tok_cap: int, num_docs: in
     # onto byte n-1.
     inner = doc_ends[:-1]
     doc_starts = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    doc_starts[inner.to(torch.int64).clamp(max=n)] = True
+    # index_fill_ takes its value as a scalar argument, so nothing is
+    # copied from the host: the streaming plan calls this with work queued
+    doc_starts.index_fill_(0, inner.to(torch.int64).clamp(max=n), True)
     doc_starts = doc_starts[:n]
-    doc_starts[0] = True
+    doc_starts[:1].fill_(True)
     prev_space = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), is_space[:-1]])
     token_start = ~is_space & (prev_space | doc_starts)
 
@@ -213,9 +215,12 @@ def tokenize_groups(data, doc_ends, doc_id_values, *, width: int, tok_cap: int,
     """
     dev = data.device
     full = (1 << 30) - 1
-    # made before any work is queued (see tokenize_rows)
-    masktab6 = torch.tensor([0] + [full ^ ((1 << (30 - 5 * m)) - 1) for m in range(1, 7)],
-                            dtype=torch.int32, device=dev)
+    # masktab6[m] keeps the top m of 6 chars: full ^ ((1 << (30 - 5m)) - 1),
+    # 0 at m = 0.  Computed on the card, not copied from pageable host
+    # memory: the streaming plan calls this with earlier windows' work
+    # queued, where such a copy would wait for the card
+    shift = 30 - 5 * torch.arange(7, dtype=torch.int32, device=dev)
+    masktab6 = full ^ ((torch.ones(7, dtype=torch.int32, device=dev) << shift) - 1)
     (letters, F0, tok_len, max_word_len, doc_of_tok, valid_tok,
      num_tokens, n) = _tokenize_front(data, doc_ends, doc_id_values,
                                       tok_cap=tok_cap, num_docs=num_docs)

@@ -1,8 +1,10 @@
 """The build plans' device side on the card: the pinned uploads, the
 provisional-key sort and the one-shot prededuped sort, the streaming
-accumulator, and the all-device program and its fetch packing against
-the same programs on the CPU; and whole builds of every plan on the card
-against the golden and the CPU build.  Every test needs a CUDA device
+accumulator, the all-device program and its fetch packing, and the
+device stream engine (its snapshots, and a feed loop that never waits
+for the card) against the same programs on the CPU; and whole builds of
+every plan on the card, the overlap plan and a crash-resumed stream
+included, against the golden and the CPU build.  Every test needs a CUDA device
 and skips without one; none needs JAX, so on the card
 ``python -m pytest --noconftest tests/test_torch_cuda_plan.py -m cuda``
 runs them."""
@@ -19,6 +21,7 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus
     synthetic as tsyn,
 )
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+    device_streaming as tds,
     device_tokenizer as tdt,
     engine as te,
     kernels as tk,
@@ -264,3 +267,160 @@ def test_cuda_device_tokenize_build_matches_the_cpu_build(width, fallback, tmp_p
     assert ("device_tokenize_fallback" in stats["cuda"]) == fallback
     for key in ("unique_terms", "unique_pairs", "sort_cols", "fetched_bytes"):
         assert stats["cuda"].get(key) == stats["cpu"].get(key), key
+
+
+# -- the streaming all-device plan -------------------------------------------
+
+
+def _stream_windows(n=5):
+    """Seeded byte windows for the device stream engine, one of them
+    whitespace only; the long-word doc of each window makes later
+    windows widen the live groups."""
+    out = []
+    for w in range(n):
+        if w == 2:
+            out.append((np.full(4096, 0x20, np.uint8), np.array([4096], np.int32),
+                        np.array([999], np.int32)))
+            continue
+        buf, ends, ids = _byte_window(30 + w, num_docs=60, long_words=w >= 3)
+        out.append((buf, ends, ids + 100 * w))
+    return out
+
+
+def _feed(eng, windows, **kw):
+    for buf, ends, ids in windows:
+        count, max_len = tdt.host_token_stats(buf, ends)
+        # fresh arrays per engine: the CPU engine shares their memory
+        eng.feed(buf.copy(), ends.copy(), ids.copy(), tok_count=count, max_len=max_len, **kw)
+    return eng
+
+
+def _finalized(eng) -> dict:
+    out = eng.finalize()
+    flat = {k: out[k].cpu().numpy() for k in ("counts", "df", "postings")}
+    for g, (hi, lo) in enumerate(out["unique_groups"]):
+        flat[f"g{g}"] = np.stack([hi.cpu().numpy(), lo.cpu().numpy()])
+    return flat
+
+
+@pytest.mark.parametrize("initial_capacity", [4096, 1 << 16])
+def test_cuda_device_stream_engine_matches_cpu(initial_capacity):
+    _need_cuda()
+    engines = [_feed(tds.DeviceStreamEngine(width=48, device=device, window_pad=4096,
+                                            initial_capacity=initial_capacity),
+                     _stream_windows())
+               for device in ("cuda", "cpu")]
+    outs = [_finalized(e) for e in engines]
+    assert engines[0].windows_fed == engines[1].windows_fed == 4
+    assert engines[0].capacity == engines[1].capacity
+    assert engines[0].rows_curve == engines[1].rows_curve
+    for k in outs[1]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+
+
+def test_cuda_device_stream_snapshot_and_restore():
+    _need_cuda()
+    windows = _stream_windows()
+    live = _feed(tds.DeviceStreamEngine(width=48, device="cuda", window_pad=4096), windows[:3])
+    cpu = _feed(tds.DeviceStreamEngine(width=48, device="cpu", window_pad=4096), windows[:3])
+    nbytes = live.snapshot_nbytes
+    assert nbytes == cpu.snapshot_nbytes
+    snap, want = live.snapshot(), cpu.snapshot()
+    assert snap["fetched_nbytes"] == nbytes
+    for k in ("count", "cap", "live_groups", "max_word_len", "windows_fed", "rows_curve"):
+        assert snap[k] == want[k], k
+    for a, b in zip(snap["columns"], want["columns"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    # a fresh card engine restored from the snapshot finishes the stream
+    # exactly like the live one
+    rest = tds.DeviceStreamEngine(width=48, device="cuda", window_pad=4096)
+    rest.restore(snap)
+    outs = [_finalized(_feed(e, windows[3:])) for e in (rest, live)]
+    for k in outs[1]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+
+
+def test_cuda_device_stream_feed_never_waits_for_the_card():
+    """The stream loop queues every window's program and merge without a
+    synchronizing call: each count comes back through a pinned copy and
+    an event, read two merges late."""
+    _need_cuda()
+    windows = _stream_windows(7)
+    eng = tds.DeviceStreamEngine(width=48, device="cuda", window_pad=4096, initial_capacity=4096)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _feed(eng, windows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.windows_fed == 6 and eng.capacity > 4096
+    assert len(eng.rows_curve) == 4
+    _finalized(eng)
+
+
+@pytest.mark.parametrize("chunk_docs", [7, 40])
+def test_cuda_device_stream_build_matches_the_cpu_build(chunk_docs, tmp_path):
+    _need_cuda()
+    docs = tsyn.zipf_corpus(num_docs=80, vocab_size=20_000, tokens_per_doc=400, seed=23)
+    docs.append(b" ".join(b"w" * n + b"x" for n in range(12, 44)))
+    paths = tsyn.write_corpus(tmp_path / "docs", docs)
+    tman.write_manifest(tmp_path / "list.txt", paths)
+    m = tpkg.read_manifest(tmp_path / "list.txt")
+    stats = {}
+    for device in ("cuda", "cpu"):
+        stats[device] = tpkg.build_index(
+            m, tpkg.IndexConfig(device=device, device_tokenize=True,
+                                stream_chunk_docs=chunk_docs),
+            output_dir=str(tmp_path / device))
+    assert tfmt.letters_md5(tmp_path / "cuda") == tfmt.letters_md5(tmp_path / "cpu")
+    assert "device_tokenize_fallback" not in stats["cuda"]
+    for key in ("stream_windows", "accumulator_capacity", "unique_rows_curve", "sort_cols",
+                "unique_terms", "unique_pairs", "fetched_bytes"):
+        assert stats["cuda"].get(key) == stats["cpu"].get(key), key
+
+
+def test_cuda_device_stream_build_resumes_after_a_crash(tmp_path, monkeypatch):
+    _need_cuda()
+    monkeypatch.chdir(SMOKE)
+    m = tpkg.read_manifest("manifest.txt")
+    ckpt = tmp_path / "stream.ckpt.npz"
+    cfg = tpkg.IndexConfig(device_tokenize=True, stream_chunk_docs=1,
+                           stream_checkpoint=str(ckpt), stream_checkpoint_every=2)
+    monkeypatch.setenv("MRI_TPU_STREAM_CRASH_AFTER_WINDOWS", "3")
+    with pytest.raises(RuntimeError, match="injected stream crash"):
+        tpkg.build_index(m, cfg, output_dir=str(tmp_path / "out"))
+    assert ckpt.exists()
+    monkeypatch.delenv("MRI_TPU_STREAM_CRASH_AFTER_WINDOWS")
+    stats = tpkg.build_index(m, cfg, output_dir=str(tmp_path / "out"))
+    assert stats["resumed_from_window"] == 2 and not ckpt.exists()
+    assert tfmt.letters_md5(tmp_path / "out") == tfmt.letters_md5(SMOKE / "golden")
+
+
+# -- the overlap plan ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("tail,windows", [(0.3, 2), (0.6, 1)])
+def test_cuda_overlap_build_matches_the_cpu_build(tail, windows, tmp_path):
+    _need_cuda()
+    paths = tsyn.write_corpus(tmp_path / "docs", tsyn.zipf_corpus(
+        num_docs=200, vocab_size=80_000, tokens_per_doc=800, seed=17))
+    tman.write_manifest(tmp_path / "list.txt", paths)
+    m = tpkg.read_manifest(tmp_path / "list.txt")
+    stats = {}
+    for device in ("cuda", "cpu"):
+        stats[device] = tpkg.build_index(
+            m, tpkg.IndexConfig(device=device, overlap_tail_fraction=tail,
+                                overlap_device_windows=windows),
+            output_dir=str(tmp_path / device))
+    assert tfmt.letters_md5(tmp_path / "cuda") == tfmt.letters_md5(tmp_path / "cpu")
+    assert stats["cuda"]["upload_windows"] == windows
+    for key in ("device_pairs", "unique_pairs", "window_plan_bytes"):
+        assert stats["cuda"][key] == stats["cpu"][key], key
+
+
+def test_cuda_overlap_build_matches_the_smoke_golden(tmp_path, monkeypatch):
+    _need_cuda()
+    monkeypatch.chdir(SMOKE)
+    tpkg.build_index(tpkg.read_manifest("manifest.txt"),
+                     tpkg.IndexConfig(overlap_tail_fraction=0.4), output_dir=str(tmp_path))
+    assert tfmt.letters_md5(tmp_path) == tfmt.letters_md5(SMOKE / "golden")

@@ -490,10 +490,18 @@ def test_cli_device_tokenize_matches_the_jax_cli(flags, tmp_path, capsys):
     ({"device_tokenize": True, "backend": "oracle"}, "backend"),
     ({"device_tokenize": True, "pipeline_chunk_docs": 3}, "host-scan"),
     ({"device_tokenize": True, "collect_skew_stats": True}, "skew"),
-    ({"device_tokenize": True, "stream_chunk_docs": 10}, "streaming all-device"),
+    # a stream checkpoint needs stream_chunk_docs beside device_tokenize
+    ({"device_tokenize": True, "stream_checkpoint": "s.npz"}, "streaming all-device"),
     ({"device_tokenize_width": 30}, "device_tokenize_width"),
     ({"device_tokenize_width": 300}, "device_tokenize_width"),
     ({"device_tokenize_width": 0}, "device_tokenize_width"),
+    ({"stream_checkpoint": "s.npz"}, "streaming all-device"),
+    ({"device_tokenize": True, "stream_chunk_docs": 10, "stream_checkpoint_every": 0},
+     "stream_checkpoint_every"),
+    ({"device_tokenize": True, "resume": "maybe"}, "resume must be"),
+    ({"device_tokenize": True, "overlap_tail_fraction": 0.0}, "overlap_tail_fraction"),
+    ({"device_tokenize": True, "overlap_tail_fraction": 1.0}, "overlap_tail_fraction"),
+    ({"device_tokenize": True, "overlap_tail_fraction": 0.5}, "host-scan"),
 ])
 def test_config_validation(kw, match):
     with pytest.raises(ValueError, match=match):

@@ -325,7 +325,8 @@ def test_cli_plan_flags_match_jax():
 
     jp = jcli.make_parser()
     tp = tcli.make_parser()
-    for dest in ("pipeline_chunk_docs", "host_threads", "emit_backend"):
+    for dest in ("pipeline_chunk_docs", "host_threads", "emit_backend", "overlap_tail_fraction",
+                 "overlap_device_windows", "overlap_window_split"):
         ja = next(a for a in jp._actions if a.dest == dest)
         ta = next(a for a in tp._actions if a.dest == dest)
         assert (ta.option_strings, ta.default, ta.choices, ta.type) == (

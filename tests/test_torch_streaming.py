@@ -330,7 +330,12 @@ def test_cli_streaming_matches_the_jax_cli(chunk_docs, tmp_path, capsys):
     ({"stream_chunk_docs": -3}, "stream_chunk_docs"),
     ({"stream_chunk_docs": 4, "collect_skew_stats": True}, "collect_skew_stats"),
     ({"stream_chunk_docs": 4, "backend": "oracle"}, "backend"),
-    ({"stream_chunk_docs": 4, "device_tokenize": True}, "streaming all-device"),
+    # a stream checkpoint needs the streaming plan's all-device variant
+    ({"stream_chunk_docs": 4, "stream_checkpoint": "s.npz"}, "streaming all-device"),
+    ({"stream_chunk_docs": 4, "device_tokenize": True, "stream_checkpoint_every": 0},
+     "stream_checkpoint_every"),
+    ({"stream_chunk_docs": 4, "device_tokenize": True, "resume": "maybe"}, "resume"),
+    ({"stream_chunk_docs": 4, "overlap_tail_fraction": 0.5}, "stream_chunk_docs"),
 ])
 def test_config_rejects_what_the_streaming_plan_lacks(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -348,7 +353,9 @@ def test_cli_new_flags_match_jax():
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu import cli as jcli
 
     jp, tp = jcli.make_parser(), tcli.make_parser()
-    for dest in ("stream_chunk_docs", "device_tokenize", "device_tokenize_width"):
+    for dest in ("stream_chunk_docs", "device_tokenize", "device_tokenize_width",
+                 "stream_checkpoint", "stream_checkpoint_every", "resume",
+                 "overlap_tail_fraction", "overlap_device_windows", "overlap_window_split"):
         ja = next(a for a in jp._actions if a.dest == dest)
         ta = next(a for a in tp._actions if a.dest == dest)
         assert (ta.option_strings, ta.default, ta.choices, ta.type, ta.nargs) == (
