@@ -59,7 +59,22 @@ Phases, each failing loudly (exit 1, no result line):
    scans on, the last 30% of the bytes sorted on the host; md5 equal to
    Path B's; recorded by torch.profiler.  Neither F nor G launches a
    kernel of ``csrc/``.
-9. Kernels: each CUDA kernel against its plain PyTorch version on the
+9. Path H — serving on Path B's corpus: the default CLI build with
+   ``--artifact`` (md5 equal to Path B's, ``index.mri`` v2.1 byte-equal
+   to the same build with ``--device cpu``), v1 and v2 written by the
+   port's writer from the same arrays; then per format a
+   ``DeviceEngine`` on the card answers df and postings at batches 1,
+   32, 1024 and 8192 (Zipf-weighted words with absent, non-alpha and
+   too-long ones mixed in), AND and OR over 2, 3 and 5 words, top_k for
+   three letters and BM25 at k = 10 under each planner.  Every answer
+   is held against a numpy reference (the reader's decode, set algebra,
+   float64 BM25, rel 1e-4) and against the same engine on the CPU (BM25
+   rel 1e-5; at batch 8192 on the first 256 lanes); each BM25 query
+   runs twice on the card, bit-equal.  Then the median of five means of
+   20 calls per op and batch (CUDA events and host clock), the column
+   bytes, the peak device memory and one torch.profiler trace of a
+   batch-8192 postings call and a BM25 call.  No kernel of ``csrc/``.
+10. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -70,7 +85,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-10. Engine: the warm device time of each engine program a path runs, at
+11. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -596,6 +611,351 @@ def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
               + f" top_kernels={json.dumps(stats['device_top_kernels'])}", flush=True)
 
 
+SERVE_BATCHES = (1, 32, 1024, 8192)
+CPU_POSTINGS_LANES = 1024  # lanes of a batch whose postings the CPU engine also answers
+CPU_POSTINGS_LANES_8192 = 256  # at batch 8192 (about 3.5 M of its 110 M postings)
+PLANNERS = ("exhaustive", "bmw", "maxscore")
+
+
+def timed(torch, fn, device: str, iters: int = 20, repeats: int = 5) -> dict:
+    """One call to warm up, then ``repeats`` means of ``iters`` calls, by
+    CUDA events (on the card) and by the host clock: the medians in ms."""
+    fn()
+    ev, host = [], []
+    for _ in range(repeats):
+        if device == "cuda":
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if device == "cuda":
+            end.record()
+            torch.cuda.synchronize()
+            ev.append(start.elapsed_time(end) / iters)
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
+    ev.sort()
+    host.sort()
+    return {"event_ms": ev[len(ev) // 2] if ev else None, "host_ms": host[len(host) // 2]}
+
+
+class ServeReference:
+    """The plain numpy answers of one artifact, from the port reader's
+    ``decode_postings`` / ``decode_tf`` (memoized per term), a term ->
+    index dict, set algebra and float64 BM25 (the JAX engine's formula)."""
+
+    K1, B = 1.2, 0.75
+
+    def __init__(self, art, TA):
+        import numpy as np
+
+        self.np, self.art = np, art
+        _, terms, _ = TA.term_table(art)
+        self.index = {t: i for i, t in enumerate(terms.tolist())}
+        self.doc_lens, self.ndocs, self.avgdl = TA.bm25_corpus(art)
+        self._posts: dict = {}
+
+    def postings(self, i: int):
+        p = self._posts.get(i)
+        if p is None:
+            p = self._posts[i] = (self.art.decode_postings(i), self.art.decode_tf(i))
+        return p
+
+    def lookup(self, encoded: bytes):
+        return self.index.get(encoded) if encoded else None
+
+    def bm25(self, ids: list[int], k: int) -> list[tuple[int, float]]:
+        np = self.np
+        scores = np.zeros(len(self.doc_lens), dtype=np.float64)
+        for i in ids:
+            docs, tf = self.postings(i)
+            tf = tf.astype(np.float64)
+            df = len(docs)
+            idf = np.log(1.0 + (self.ndocs - df + 0.5) / (df + 0.5))
+            denom = tf + self.K1 * (1.0 - self.B + self.B * self.doc_lens[docs] / self.avgdl)
+            scores[docs] += idf * tf * (self.K1 + 1.0) / denom
+        hit = np.nonzero(scores > 0)[0]
+        order = hit[np.lexsort((hit, -scores[hit]))][:k]
+        return [(int(d), float(scores[d])) for d in order]
+
+
+def zipf_terms(np, rng, ranked: list[bytes], n: int, alpha: float = 1.2) -> list[str]:
+    """``n`` query words drawn by Zipf weight over the df-ranked
+    vocabulary, with absent words, non-alpha words and words longer than
+    the vocabulary width mixed in."""
+    p = np.arange(1, len(ranked) + 1, dtype=np.float64) ** -alpha
+    picks = rng.choice(len(ranked), size=n, p=p / p.sum())
+    junk = ["qqqqzzzzj", "zzxqv", "x1y2", "don't", "Café", "abcdefghijklmnop", ""]
+    kinds = rng.random(n)
+    return [junk[int(k * 1000) % len(junk)] if k < 0.06 else ranked[i].decode()
+            for i, k in zip(picks.tolist(), kinds.tolist())]
+
+
+def check_bm25(got, want, rel: float, label: str) -> None:
+    check([d for d, _ in got] == [d for d, _ in want], f"{label}: docs {got} != {want}")
+    for (_, g), (_, w) in zip(got, want):
+        check(abs(g - w) <= rel * abs(w), f"{label}: score {g} vs {w} beyond rel {rel}")
+
+
+def serve_format(torch, TA, DeviceEngine, path: Path, fmt: int, device: str, card: str,
+                 seed: int, trace: Path | None) -> dict:
+    """Path H on one artifact: load the engine on ``device`` (and on the
+    CPU, the plain version), answer df/postings at each batch, AND/OR
+    over 2, 3 and 5 words, top_k for three letters and BM25 under each
+    planner; hold every answer against the numpy reference and the CPU
+    engine (at batch 8192, the CPU engine answers the first 256 lanes),
+    BM25 run twice on ``device`` bit-equal; then
+    time each op and batch, and trace one batch-8192 postings call and
+    one BM25 call."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    art = TA.load_artifact(path)
+    ref = ServeReference(art, TA)
+    check(art.version == fmt, f"path H v{fmt}: artifact version {art.version}")
+    ranked = [art.term(int(i)) for i in np.argsort(-art.df.astype(np.int64), kind="stable")]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = DeviceEngine(path, device=device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    column_bytes = eng.column_bytes
+    cpu = DeviceEngine(path, device="cpu")
+    out = {"format": fmt, "artifact_bytes": art.nbytes, "column_bytes": column_bytes,
+           "load_ms": load_ms, "tiers": eng.describe()["device"]["tiers"]}
+    batches = {}
+    for n in SERVE_BATCHES:
+        words = zipf_terms(np, rng, ranked, n)
+        b = eng.encode_batch(words)
+        batches[n] = b
+        dfs, posts = eng.df(b), eng.postings(b)
+        cdfs = cpu.df(b)
+        check(dfs.tolist() == cdfs.tolist(), f"path H v{fmt} df@{n} != cpu engine")
+        # lanes are independent: at 8192 the CPU engine answers the
+        # first lanes only (the whole batch is about 110 M postings)
+        cposts = cpu.postings(b[:CPU_POSTINGS_LANES if n < 8192 else CPU_POSTINGS_LANES_8192])
+        total = 0
+        for j, enc in enumerate(b.tolist()):
+            i = ref.lookup(enc)
+            want_df = 0 if i is None else int(art.df[i])
+            check(int(dfs[j]) == want_df, f"path H v{fmt} df@{n} lane {j}: {dfs[j]} != {want_df}")
+            if i is None:
+                check(posts[j] is None, f"path H v{fmt} postings@{n} lane {j} not None")
+                continue
+            want = ref.postings(i)[0]
+            total += len(want)
+            check(np.array_equal(posts[j], want), f"path H v{fmt} postings@{n} lane {j} != numpy")
+            if j < len(cposts):
+                check(np.array_equal(posts[j], cposts[j]), f"path H v{fmt} postings@{n} != cpu")
+        out[f"postings_total@{n}"] = total
+    queries = {}
+    for arity in (2, 3, 5):
+        qs = []
+        while len(qs) < 5:
+            q = list(dict.fromkeys(zipf_terms(np, rng, ranked, arity * 3)))
+            q = [w for w in q if ref.lookup(eng.encode_batch([w]).tolist()[0]) is not None]
+            if len(q) >= arity:
+                qs.append(q[:arity])
+        queries[arity] = qs
+        for q in qs:
+            b = eng.encode_batch(q)
+            ids = [ref.lookup(x) for x in b.tolist()]
+            sets = [ref.postings(i)[0] for i in ids]
+            want_and, want_or = sets[0], sets[0]
+            for s in sets[1:]:
+                want_and, want_or = np.intersect1d(want_and, s), np.union1d(want_or, s)
+            got_and, got_or = eng.query_and(b), eng.query_or(b)
+            check(np.array_equal(got_and, want_and) and np.array_equal(got_and, cpu.query_and(b)),
+                  f"path H v{fmt} AND {q}")
+            check(np.array_equal(got_or, want_or) and np.array_equal(got_or, cpu.query_or(b)),
+                  f"path H v{fmt} OR {q}")
+    for letter in ("a", "m", "z"):
+        li = ord(letter) - 97
+        lo = int(art.letter_dir[li])
+        want = [(art.term(int(i)), int(art.df[i])) for i in art.df_order[lo:lo + 10]]
+        got = eng.top_k(letter, 10)
+        check(got == want == cpu.top_k(letter, 10), f"path H v{fmt} top_k {letter}")
+    saved = os.environ.get("MRI_SERVE_PLANNER")
+    try:
+        for planner in PLANNERS:
+            os.environ["MRI_SERVE_PLANNER"] = planner
+            for arity in (2, 3, 5):
+                for q in queries[arity]:
+                    b = eng.encode_batch(q)
+                    got = eng.top_k_scored(b, 10)
+                    label = f"path H v{fmt} bm25 {planner} {q}"
+                    check(len(got) == 10, f"{label}: {len(got)} docs")
+                    check_bm25(got, ref.bm25([ref.lookup(x) for x in b.tolist()], 10), 1e-4,
+                               label + " vs numpy")
+                    check_bm25(got, cpu.top_k_scored(b, 10), 1e-5, label + " vs cpu engine")
+                    again = eng.top_k_scored(b, 10)
+                    check([(d, np.float32(s).tobytes()) for d, s in again]
+                          == [(d, np.float32(s).tobytes()) for d, s in got],
+                          f"{label}: not bit-equal from run to run")
+            out[f"planner_{planner}"] = eng.planner.describe()["ranked"]
+        cpu.close()
+        out["checks_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # -- times: per op and batch, the device engine alone -------------
+        times = {}
+        for n, b in batches.items():
+            for op in ("df", "postings"):
+                t = timed(torch, lambda op=op, b=b: getattr(eng, op)(b), device)
+                t["lookups_per_s"] = n / (t["host_ms"] / 1e3)
+                times[f"{op}@{n}"] = t
+        for arity in (2, 3, 5):
+            b = eng.encode_batch(queries[arity][0])
+            times[f"and@{arity}"] = timed(torch, lambda b=b: eng.query_and(b), device)
+            times[f"or@{arity}"] = timed(torch, lambda b=b: eng.query_or(b), device)
+        times["top_k@10"] = timed(torch, lambda: eng.top_k("m", 10), device)
+        b3 = eng.encode_batch(queries[3][0])
+        for planner in PLANNERS:
+            os.environ["MRI_SERVE_PLANNER"] = planner
+            times[f"bm25_{planner}@3"] = timed(torch, lambda: eng.top_k_scored(b3, 10), device)
+        os.environ["MRI_SERVE_PLANNER"] = "exhaustive"
+        if trace is not None and device == "cuda":
+            profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            profiler.start()
+            t1 = time.perf_counter()
+            eng.postings(batches[8192])
+            eng.top_k_scored(b3, 10)
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            profiler.stop()
+            profiler.export_chrome_trace(str(trace))
+            busy = device_busy(trace)
+            out["trace"] = {"wall_ms": wall_ms, "device_busy_ms": busy["ms"],
+                            "idle_share": (1 - busy["ms"] / wall_ms) if busy["ms"] else None,
+                            "by_cat": busy["by_cat"], "top_kernels": busy["top_kernels"]}
+    finally:
+        if saved is None:
+            os.environ.pop("MRI_SERVE_PLANNER", None)
+        else:
+            os.environ["MRI_SERVE_PLANNER"] = saved
+    if device == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["times"] = times
+    out["timing_s"] = time.perf_counter() - t0
+    eng.close()
+    art.close()
+    print(f"phase path_h_v{fmt}: card={card} artifact_bytes={out['artifact_bytes']} "
+          f"column_bytes={column_bytes} load_ms={load_ms:.3f} checks_s={out['checks_s']:.1f} "
+          f"timing_s={out['timing_s']:.1f} "
+          f"peak_memory_bytes={out.get('peak_memory_bytes')} tiers={out['tiers']} "
+          + " ".join(f"postings_total@{n}={out[f'postings_total@{n}']}" for n in SERVE_BATCHES)
+          + f" planners={json.dumps({p: out[f'planner_{p}'] for p in PLANNERS})}", flush=True)
+    for name, t in times.items():
+        extra = (f" lookups_per_s={t['lookups_per_s']:.1f}" if "lookups_per_s" in t else "")
+        ev = f"{t['event_ms']:.4f}" if t["event_ms"] is not None else "not measured"
+        print(f"phase path_h_v{fmt}_time: card={card} op={name} event_ms={ev} "
+              f"host_ms={t['host_ms']:.4f}{extra}", flush=True)
+    if "trace" in out:
+        tr = out["trace"]
+        print(f"phase path_h_v{fmt}_device: card={card} postings@8192+bm25 wall_ms="
+              f"{tr['wall_ms']:.3f} device_busy_ms={tr['device_busy_ms']} "
+              f"idle_share={tr['idle_share']} by_category={json.dumps(tr['by_cat'])} "
+              f"top_kernels={json.dumps(tr['top_kernels'])}", flush=True)
+    return out
+
+
+def decode_all(np, art):
+    """Every posting of a v2/v2.1 artifact, in lex term order, by one
+    vectorized numpy pass over all blocks (a reference independent of
+    the engine: two-word bit windows, then a per-block cumsum)."""
+    cnt = art.blk_cnt.astype(np.int64)
+    blk = np.repeat(np.arange(len(cnt)), cnt)
+    starts = np.cumsum(cnt) - cnt
+    j = np.arange(int(cnt.sum())) - starts[blk]
+    w = art.blk_width.astype(np.int64)[blk]
+    bit = art.blk_woff[:-1][blk] * 32 + np.maximum(j - 1, 0) * w
+    words = np.concatenate([art.post_words, np.zeros(2, np.uint32)]).astype(np.uint64)
+    word = bit >> 5
+    pair = words[word] | (words[word + 1] << np.uint64(32))
+    mask = (np.uint64(1) << w.astype(np.uint64)) - np.uint64(1)
+    delta = ((pair >> (bit & 31).astype(np.uint64)) & mask).astype(np.int64) + 1
+    vals = np.where(j == 0, art.blk_first[blk].astype(np.int64), delta)
+    c = np.cumsum(vals)
+    return (c - (c[starts] - vals[starts])[blk]).astype(np.int32)
+
+
+def path_h(torch, K, cli, formatter, list_b: Path, tmp: Path, md5_b: str, card: str,
+           device: str = "cuda") -> tuple[dict, dict]:
+    """Path H — serving on Path B's corpus: the default build with
+    ``--artifact`` (v2.1), its ``index.mri`` byte-equal to the same build
+    on the CPU, v1 and v2 written from the same arrays, then each format
+    served by :func:`serve_format`."""
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+        DeviceEngine, artifact as TA)
+
+    t0 = time.perf_counter()
+    stats, launches = drive_path(
+        torch, K, formatter, cli_run(cli, "path H", list_b, tmp / "H_out",
+                                     ["--artifact", "--device", device]),
+        tmp / "H_out", "path H")
+    check_pipelined(stats, "path H")
+    check(stats["md5"] == md5_b, f"path H md5 {stats['md5']} != path B {md5_b}")
+    rc, stats_cpu = run_cli(cli, ["4", "26", str(list_b), "--artifact", "--device", "cpu",
+                                  "--output-dir", str(tmp / "H_cpu"), "--stats"])
+    check(rc == 0, f"path H --device cpu: exit {rc}")
+    main_bytes = (tmp / "H_out" / "index.mri").read_bytes()
+    check(main_bytes == (tmp / "H_cpu" / "index.mri").read_bytes(),
+          "path H: index.mri differs from the --device cpu build's")
+    paths = {3: tmp / "H_out" / "index.mri"}
+    sizes = {3: len(main_bytes)}
+    build_ms = {3: stats["artifact_build_ms"]}
+    # v1 and v2 by the port's writer from the same arrays the build
+    # packed: the v2.1 file decoded whole (numpy), then the emit-shaped
+    # arrays through build_from_emit_arrays, as a MRI_SERVE_FORMAT=1|2
+    # build would call it (each further build would re-read the corpus)
+    import numpy as np
+
+    with TA.load_artifact(paths[3]) as v21:
+        emit = {"vocab": TA.term_table(v21)[1], "order": np.array(v21.df_order),
+                "df": np.array(v21.df), "postings": decode_all(np, v21),
+                "max_doc_id": v21.max_doc_id}
+        emit["offsets"] = np.cumsum(emit["df"], dtype=np.int64) - emit["df"]
+        saved = os.environ.get("MRI_SERVE_FORMAT")
+        try:
+            for fmt in (1, 2):
+                os.environ["MRI_SERVE_FORMAT"] = str(fmt)
+                paths[fmt] = tmp / f"H_v{fmt}.mri"
+                t1 = time.perf_counter()
+                sizes[fmt] = TA.build_from_emit_arrays(paths[fmt], **emit)
+                build_ms[fmt] = (time.perf_counter() - t1) * 1e3
+        finally:
+            if saved is None:
+                os.environ.pop("MRI_SERVE_FORMAT", None)
+            else:
+                os.environ["MRI_SERVE_FORMAT"] = saved
+        with TA.load_artifact(paths[2]) as v2, TA.load_artifact(paths[1]) as v1:
+            # v2 packs the same blocks; v1 holds the same runs
+            for name in ("blk_first", "blk_max", "blk_width", "post_words", "doc_lens"):
+                check(np.array_equal(getattr(v2, name), getattr(v21, name)),
+                      f"path H: v2 {name} differs from v2.1's")
+            check(np.array_equal(np.cumsum(v1.postings.astype(np.int64))
+                                 - np.repeat(np.cumsum(v1.postings.astype(np.int64))[
+                                     v1.post_offsets[:-1]] - v1.postings[v1.post_offsets[:-1]],
+                                             np.diff(v1.post_offsets)), emit["postings"]),
+                  "path H: v1 postings differ from v2.1's")
+    print_path("path_h", stats, launches, path_b_md5=md5_b,
+               cpu_phases_ms=json.dumps(stats_cpu["phases_ms"]))
+    print(f"phase path_h_build: card={card} artifact_bytes={json.dumps(sizes)} "
+          f"artifact_build_ms={json.dumps(build_ms)} "
+          f"build_s={time.perf_counter() - t0:.1f}", flush=True)
+    served = {fmt: serve_format(torch, TA, DeviceEngine, paths[fmt], fmt, device, card,
+                                seed=17 + fmt, trace=tmp / f"H_v{fmt}_trace.json")
+              for fmt in (3, 2, 1)}
+    # the whole path's launches: the counts were set to 0 before its build
+    launches = {"unique_mask_count": K.unique_mask_count.launches,
+                "bucket_histogram": K.bucket_histogram.launches}
+    print(f"phase path_h_done: card={card} seconds={time.perf_counter() - t0:.1f} "
+          f"launches={launches}", flush=True)
+    return served, launches
+
+
 def main() -> int:
     import threading
 
@@ -889,6 +1249,10 @@ def main() -> int:
                   f"path G md5 {stats_g['md5']} != path B {stats_b['md5']}")
             print_path("path_g", stats_g, launches_g, path_b_md5=stats_b["md5"])
             launches_by_path["G"] = launches_g
+
+            # -- Path H: serving on Path B's corpus ---------------------------
+            _, launches_by_path["H"] = path_h(torch, K, cli, formatter, list_b, tmp,
+                                              stats_b["md5"], card)
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

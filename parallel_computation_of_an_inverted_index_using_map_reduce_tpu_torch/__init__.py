@@ -20,7 +20,11 @@ beside it as the reference), for its single-device build plans:
   plan (``--device-tokenize``) runs the whole map phase on the card
   from the raw bytes (ops/device_tokenizer.py)
 - host emit: byte-identical ``<letter>.txt`` postings files, native or
-  Python (format of main.c:227-234)
+  Python (format of main.c:227-234), and with ``--artifact`` the
+  ``index.mri`` serving artifact (``serve/artifact.py``)
+- serving: ``serve.DeviceEngine`` answers batched df / postings / AND /
+  OR / top-k / BM25 queries from the artifact's columns on the card
+  (``query DIR`` on the CLI)
 
 It imports torch and numpy, never jax and nothing of the JAX package.
 """

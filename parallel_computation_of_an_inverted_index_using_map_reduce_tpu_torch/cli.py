@@ -6,7 +6,13 @@ a.txt..z.txt land in the CWD by default, exactly like the reference —
 plus flags for the device engine:
 
     python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch \\
-        4 26 list.txt --output-dir=out --stats
+        4 26 list.txt --output-dir=out --stats [--artifact]
+
+and the query side over an ``--artifact`` build's ``index.mri``:
+
+    python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch \\
+        query out word1 word2 [--op and|or] [--top-k K --letter L]
+        [--score df|bm25] [--stats] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -95,10 +101,125 @@ def make_parser() -> argparse.ArgumentParser:
                    help="stream-checkpoint trust policy: strict = a corrupt "
                         "checkpoint is an error; auto = move it aside to "
                         "<path>.corrupt and restart fresh")
+    p.add_argument("--artifact", action="store_true",
+                   help="also pack the compact mmap serving artifact "
+                        "(index.mri) next to the letter files at emit "
+                        "time — what 'query' loads (serve/artifact.py "
+                        "format; MRI_SERVE_FORMAT picks v1, v2 or v2.1)")
     return p
 
 
+def _query_main(argv: list[str]) -> int:
+    """``query DIR ...`` — serve from an --artifact build on the device."""
+    p = argparse.ArgumentParser(
+        prog="mri-torch query",
+        description="batched lookups against a built index.mri artifact")
+    p.add_argument("index_dir", help="output dir of an --artifact run "
+                                     "(or the index.mri file itself)")
+    p.add_argument("terms", nargs="*", help="query words")
+    p.add_argument("--batch-file", default=None,
+                   help="read query words from this file, one per line")
+    p.add_argument("--op", choices=("and", "or"), default=None,
+                   help="combine ALL query words into one multi-term "
+                        "query instead of answering each separately")
+    p.add_argument("--top-k", type=int, default=None, metavar="K",
+                   help="df mode: the K highest-df terms of --letter's "
+                        "range; bm25 mode (--score bm25): the K best-"
+                        "scoring documents for the query words")
+    p.add_argument("--letter", default=None, help="letter for --top-k (a..z)")
+    p.add_argument("--score", choices=("df", "bm25"), default=None,
+                   help="--top-k scoring mode: df = per-letter highest-df "
+                        "terms, bm25 = ranked document retrieval over the "
+                        "query words (v1 scores with tf=1). Default: "
+                        "MRI_SERVE_SCORE env, else df")
+    p.add_argument("--engine", choices=("device",), default="device",
+                   help="query backend: device = torch programs over "
+                        "device-resident columns")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="torch device of the engine (default cuda; no CUDA "
+                        "device is exit 2, never a quiet move to the CPU)")
+    p.add_argument("--stats", action="store_true",
+                   help="print an engine stats JSON line last (device info, "
+                        "cache counters, per-op timing, planner)")
+    # intermixed: ``query DIR --op and the dog`` must not feed "the dog"
+    # back into --op's greedy positional scan
+    args = p.parse_intermixed_args(argv)
+
+    from .serve import ArtifactError, DeviceEngine
+    from .serve.engine import resolve_score
+
+    try:
+        score = resolve_score(args.score)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    terms = list(args.terms)
+    if args.batch_file is not None:
+        try:
+            with open(args.batch_file, "r", encoding="utf-8") as f:
+                terms.extend(line.strip() for line in f if line.strip())
+        except OSError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if args.top_k is None and not terms:
+        # an empty --batch-file is a valid (empty) batch: no output,
+        # exit 0 — only a missing query is an error
+        if args.batch_file is not None:
+            return 0
+        print("error: no query terms (positional words, --batch-file, "
+              "or --top-k with --letter)", file=sys.stderr)
+        return 2
+    ranked = args.top_k is not None and score == "bm25"
+    if args.top_k is not None and not ranked and args.letter is None:
+        print("error: --top-k needs --letter (or --score bm25 with "
+              "query terms)", file=sys.stderr)
+        return 2
+    if ranked and not terms:
+        print("error: --score bm25 --top-k needs query terms", file=sys.stderr)
+        return 2
+    try:
+        engine = DeviceEngine(args.index_dir, device=args.device)
+    except (ArtifactError, ValueError, DeviceUnavailable) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        if ranked:
+            top = engine.top_k_scored(engine.encode_batch(terms), args.top_k)
+            print(json.dumps({
+                "score": "bm25", "k": args.top_k, "terms": terms,
+                "docs": [{"doc": d, "score": round(s, 6)} for d, s in top]}))
+        elif args.top_k is not None:
+            top = engine.top_k(args.letter, args.top_k)
+            print(json.dumps({
+                "letter": args.letter,
+                "top": [{"term": t.decode("ascii"), "df": d} for t, d in top]}))
+        if terms and not ranked and args.op is not None:
+            batch = engine.encode_batch(terms)
+            docs = (engine.query_and(batch) if args.op == "and"
+                    else engine.query_or(batch))
+            print(json.dumps({"op": args.op, "terms": terms, "docs": docs.tolist()}))
+        elif terms and not ranked:
+            batch = engine.encode_batch(terms)
+            dfs = engine.df(batch)
+            posts = engine.postings(batch)
+            for term, d, ids in zip(terms, dfs.tolist(), posts):
+                print(json.dumps({
+                    "term": term, "found": ids is not None, "df": d,
+                    "postings": ids.tolist() if ids is not None else []}))
+        if args.stats:
+            print(json.dumps(engine.describe()))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        engine.close()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "query":
+        return _query_main(argv[1:])
     args = make_parser().parse_args(argv)
     # validate the reference positionals up front with ONE clear line on
     # stderr, not an IndexConfig traceback
@@ -133,6 +254,7 @@ def main(argv: list[str] | None = None) -> int:
             stream_checkpoint=args.stream_checkpoint,
             stream_checkpoint_every=args.stream_checkpoint_every,
             resume=args.resume,
+            artifact=args.artifact,
         )
         stats = build_index(manifest, config)
     except (OSError, ValueError, DeviceUnavailable, CheckpointCorrupt) as e:

@@ -8,7 +8,8 @@ pipelined plan (native scan, provisional-key windows, one device sort)
 and its overlap variant (``overlap_tail_fraction``), the one-shot plan,
 the streaming plan (``stream_chunk_docs``), the all-device plan
 (``device_tokenize``) and the two together, the streaming all-device
-plan with its resumable stream checkpoints.
+plan with its resumable stream checkpoints, and the serving artifact
+(``artifact``) every plan but the overlap plan packs.
 """
 
 from __future__ import annotations
@@ -102,6 +103,12 @@ class IndexConfig:
     # ``<path>.corrupt`` and starts fresh.  A version or fingerprint
     # mismatch raises under both.
     resume: str = "strict"
+    # Serving artifact (serve/artifact.py): pack a compact mmap-able
+    # ``index.mri`` next to the letter files at emit time, so the query
+    # engine (``query DIR``, serve.DeviceEngine) never re-parses text.
+    # Needs the merged postings on one host: incompatible with the
+    # overlap plan's split emit.
+    artifact: bool = False
 
     def resolved_host_threads(self) -> int:
         """The map-phase thread count this run will actually use."""
@@ -154,6 +161,11 @@ class IndexConfig:
                     "overlap_tail_fraction is incompatible with "
                     "stream_chunk_docs (the streaming engine has its own "
                     "window pipeline)")
+        if self.artifact and self.overlap_tail_fraction is not None:
+            raise ValueError(
+                "artifact is incompatible with overlap_tail_fraction "
+                "(the overlap plan emits from two disjoint partial "
+                "indexes, never materializing merged postings)")
         if self.overlap_device_windows not in (1, 2):
             raise ValueError(
                 f"overlap_device_windows must be 1 or 2, "

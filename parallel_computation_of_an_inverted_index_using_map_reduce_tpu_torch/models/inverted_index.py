@@ -33,7 +33,9 @@ with backends:
     "oracle" — pure-Python dict oracle (models/oracle.py)
 
 Output is byte-identical across backends and plans, to the JAX package,
-and to the pthread reference.
+and to the pthread reference.  With ``config.artifact`` every plan but
+the overlap plan also packs the serving artifact ``index.mri``
+(serve/artifact.py) from the arrays it emits.
 """
 
 from __future__ import annotations
@@ -123,12 +125,27 @@ class InvertedIndexModel:
         out_dir = output_dir if output_dir is not None else cfg.output_dir
         if cfg.backend == "oracle":
             with timer.phase("oracle"):
-                stats = oracle_index(manifest, out_dir, report)
+                stats = oracle_index(manifest, out_dir, report,
+                                     artifact_path=self._artifact_path(out_dir))
             stats = {**stats, **timer.report()}
         else:
             stats = self._run_device(manifest, out_dir, timer, report)
         stats["degradation"] = report.summary()
         return stats
+
+    def _artifact_path(self, out_dir) -> str | None:
+        """Where ``--artifact`` packs the serving index (None when off)."""
+        if not self.config.artifact:
+            return None
+        from ..serve import artifact as artifact_mod
+
+        return str(artifact_mod.artifact_path(out_dir))
+
+    @staticmethod
+    def _count_artifact_stats(timer: PhaseTimer, emit_stats: dict) -> None:
+        for key in ("artifact_bytes", "artifact_build_ms"):
+            if key in emit_stats:
+                timer.count(key, emit_stats[key])
 
     def _run_device(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
                     report: DegradationReport) -> dict:
@@ -281,7 +298,7 @@ class InvertedIndexModel:
         timer.count("window_scan_ms", scan_ms)
         if num_pairs == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
 
         nfetch = min(keys_capacity, _round_up(num_pairs, 1 << 14))
@@ -389,7 +406,7 @@ class InvertedIndexModel:
         timer.count("unique_pairs", num_pairs)
         if num_pairs == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
 
         with timer.phase("host_tail"):
@@ -470,7 +487,7 @@ class InvertedIndexModel:
 
         if pairs_fed == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
 
         with timer.phase("device_index"):
@@ -508,7 +525,7 @@ class InvertedIndexModel:
         timer.count("device_tokenize_width", width)
         if num_docs == 0 or total == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
 
         staged: list = []  # pinned uploads, held until the counts arrive
@@ -573,7 +590,7 @@ class InvertedIndexModel:
         width = self.config.device_tokenize_width
         if num_pairs == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
         with timer.phase("fetch"):
             nu = min(cap, _round_up(max(num_words, 1), 1 << 13))
@@ -734,7 +751,7 @@ class InvertedIndexModel:
             timer.count("unique_rows_curve", eng.rows_curve)
         if eng.windows_fed == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
         sort_cols = -(-max(eng.max_word_len, 1) // 4)  # ceil div
         timer.count("sort_cols", sort_cols)
@@ -786,7 +803,7 @@ class InvertedIndexModel:
 
         if num_tokens == 0:
             with timer.phase("emit"):
-                formatter.emit_grouped(out_dir, {})
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
 
         packed = K.can_pack(vocab_size, max_doc_id)
@@ -887,9 +904,11 @@ class InvertedIndexModel:
                 postings=host["postings"],
                 max_doc_id=max_doc_id,
                 backend=self._emit_backend(),
+                artifact_path=self._artifact_path(out_dir),
             )
         timer.count("unique_pairs", int(host["num_unique"]))
         timer.count("lines_written", emit_stats["lines_written"])
+        self._count_artifact_stats(timer, emit_stats)
         return timer.report()
 
 

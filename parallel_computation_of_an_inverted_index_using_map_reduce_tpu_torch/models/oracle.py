@@ -38,13 +38,17 @@ def group_for_emit(postings: dict[str, list[int]]) -> dict[int, list[tuple[bytes
 
 
 def oracle_index(manifest: Manifest, output_dir: str | Path = ".",
-                 report: DegradationReport | None = None) -> dict:
-    """End-to-end oracle run: manifest -> 26 letter files."""
+                 report: DegradationReport | None = None,
+                 artifact_path: str | Path | None = None) -> dict:
+    """End-to-end oracle run: manifest -> 26 letter files (and the
+    serving artifact when ``artifact_path`` is set)."""
     contents, doc_ids = load_documents(manifest, report)
     postings = oracle_postings(contents, doc_ids)
-    emit_grouped(output_dir, group_for_emit(postings))
+    art_stats = emit_grouped(output_dir, group_for_emit(postings),
+                             artifact_path=artifact_path)
     return {
         "documents": len(contents),
         "unique_terms": len(postings),
         "postings": sum(len(v) for v in postings.values()),
+        **art_stats,
     }

@@ -4,13 +4,16 @@ Reference format (main.c:227-234): one line per word,
 ``word:[id1 id2 ... idN]\\n`` — ids space-separated, no trailing space,
 doc ids ascending (main.c:217-226), words ordered by document frequency
 descending then lexicographically ascending (main.c:55-64).  All 26
-files are always created, even when empty (main.c:149-150).
+files are always created, even when empty (main.c:149-150).  With an
+``artifact_path`` both writers also pack the serving artifact
+(serve/artifact.py) from the same arrays.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -46,8 +49,10 @@ def emit_index(
     postings: np.ndarray,         # (>=num pairs,) compacted ascending doc ids
     max_doc_id: int,
     backend: str = "python",
+    artifact_path: str | Path | None = None,
 ) -> dict:
-    """Write the 26 letter files from the device engine's output arrays.
+    """Write the 26 letter files from the device engine's output arrays,
+    and the serving artifact at ``artifact_path`` when it is set.
 
     ``backend`` selects the writer: ``"native"`` requires the C++ emit
     (native/tokenizer.cc), ``"auto"`` uses it when the library loads,
@@ -58,6 +63,19 @@ def emit_index(
     os.makedirs(output_dir, exist_ok=True)
     if backend not in ("python", "auto", "native"):
         raise ValueError(f"unknown emit backend {backend!r}")
+
+    def _pack_artifact() -> dict:
+        if artifact_path is None:
+            return {}
+        from ..serve import artifact as artifact_mod
+
+        t0 = time.perf_counter()
+        nbytes = artifact_mod.build_from_emit_arrays(
+            artifact_path, vocab=np.asarray(vocab), order=order, df=df,
+            offsets=offsets, postings=postings, max_doc_id=max_doc_id)
+        return {"artifact_bytes": int(nbytes),
+                "artifact_build_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+
     if backend in ("auto", "native"):
         from .. import native
 
@@ -65,7 +83,8 @@ def emit_index(
             bytes_written = native.emit_native(output_dir, np.asarray(vocab), order, df,
                                                offsets, postings)
             return {"lines_written": int(np.asarray(order).shape[0]),
-                    "bytes_written": bytes_written, "emit_backend": "native"}
+                    "bytes_written": bytes_written, "emit_backend": "native",
+                    **_pack_artifact()}
         if backend == "native":
             raise RuntimeError(
                 f"emit_backend='native' but the native library is "
@@ -89,13 +108,16 @@ def emit_index(
             out += b" ".join(id_strs[postings[start : start + n]])
             out += b"]\n"
         _write_letter_atomic(output_dir / letter_filename(letter), bytes(out))
-    return {"lines_written": int(bounds[-1] - bounds[0]), "emit_backend": "python"}
+    return {"lines_written": int(bounds[-1] - bounds[0]), "emit_backend": "python",
+            **_pack_artifact()}
 
 
 def emit_grouped(output_dir: str | Path,
-                 per_letter: dict[int, list[tuple[bytes, list[int]]]]) -> None:
+                 per_letter: dict[int, list[tuple[bytes, list[int]]]],
+                 artifact_path: str | Path | None = None) -> dict:
     """Write letter files from already-ordered (word, ids) groups
-    (oracle + empty-corpus paths)."""
+    (oracle + empty-corpus paths); with ``artifact_path``, pack the
+    serving artifact from the same groups and return its stats."""
     output_dir = Path(output_dir)
     os.makedirs(output_dir, exist_ok=True)
     for letter in range(ALPHABET_SIZE):
@@ -103,6 +125,14 @@ def emit_grouped(output_dir: str | Path,
         for word, ids in per_letter.get(letter, []):
             out += word + b":[" + " ".join(map(str, ids)).encode("ascii") + b"]\n"
         _write_letter_atomic(output_dir / letter_filename(letter), bytes(out))
+    if artifact_path is None:
+        return {}
+    from ..serve import artifact as artifact_mod
+
+    t0 = time.perf_counter()
+    nbytes = artifact_mod.build_from_grouped(artifact_path, per_letter)
+    return {"artifact_bytes": int(nbytes),
+            "artifact_build_ms": round((time.perf_counter() - t0) * 1e3, 3)}
 
 
 def letters_md5(output_dir: str | Path) -> str:
