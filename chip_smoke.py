@@ -74,7 +74,23 @@ Phases, each failing loudly (exit 1, no result line):
    20 calls per op and batch (CUDA events and host clock), the column
    bytes, the peak device memory and one torch.profiler trace of a
    batch-8192 postings call and a BM25 call.  No kernel of ``csrc/``.
-10. Kernels: each CUDA kernel against its plain PyTorch version on the
+10. Path I — the host query engine and the crossover router on Path H's
+   three artifacts (no build): per format the host ``Engine`` (the
+   native serve kernels required on v2/v2.1, numpy on v1), the
+   ``DeviceEngine`` on the card and a fresh ``AutoEngine`` on the card
+   answer Path H's batches and queries alike (df, lookup, postings, AND,
+   OR, top_k; BM25 at k = 10 per planner: host and auto bit-equal,
+   native and numpy bit-equal, the device within rel 1e-4); the auto
+   engine's first batch of 8192 runs its probe (``host_s``,
+   ``device_s``, winner printed); ``MRI_SERVE_CROSSOVER=1`` sends every
+   batch to the card with the answers unchanged, ``=0`` never builds the
+   device engine; ``query --engine host|device|auto`` prints the same
+   bytes on v2.1; then the host engine's ms per op and batch (host
+   clock), BM25 native and numpy; postings also on a fresh Zipf batch
+   per call and with the LRU purged before each call, and the auto
+   engine's postings at 8192 on the probe's winner.  No kernel of
+   ``csrc/``.
+11. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -85,7 +101,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-11. Engine: the warm device time of each engine program a path runs, at
+12. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -112,6 +128,7 @@ import contextlib
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -641,6 +658,20 @@ def timed(torch, fn, device: str, iters: int = 20, repeats: int = 5) -> dict:
     return {"event_ms": ev[len(ev) // 2] if ev else None, "host_ms": host[len(host) // 2]}
 
 
+def timed_each(fn, args: list, before=None) -> dict:
+    """One call of ``fn`` per argument, ``before()`` (untimed) ahead of
+    each: the median in ms by the host clock."""
+    host = []
+    for a in args:
+        if before is not None:
+            before()
+        t0 = time.perf_counter()
+        fn(a)
+        host.append((time.perf_counter() - t0) * 1e3)
+    host.sort()
+    return {"event_ms": None, "host_ms": host[len(host) // 2]}
+
+
 class ServeReference:
     """The plain numpy answers of one artifact, from the port reader's
     ``decode_postings`` / ``decode_tf`` (memoized per term), a term ->
@@ -839,6 +870,7 @@ def serve_format(torch, TA, DeviceEngine, path: Path, fmt: int, device: str, car
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["times"] = times
     out["timing_s"] = time.perf_counter() - t0
+    out["batches"], out["queries"] = batches, queries  # Path I asks the same
     eng.close()
     art.close()
     print(f"phase path_h_v{fmt}: card={card} artifact_bytes={out['artifact_bytes']} "
@@ -882,11 +914,12 @@ def decode_all(np, art):
 
 
 def path_h(torch, K, cli, formatter, list_b: Path, tmp: Path, md5_b: str, card: str,
-           device: str = "cuda") -> tuple[dict, dict]:
+           device: str = "cuda") -> tuple[dict, dict, dict]:
     """Path H — serving on Path B's corpus: the default build with
     ``--artifact`` (v2.1), its ``index.mri`` byte-equal to the same build
     on the CPU, v1 and v2 written from the same arrays, then each format
-    served by :func:`serve_format`."""
+    served by :func:`serve_format`.  Returns what each format served, the
+    launches and the artifacts' paths by format."""
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
         DeviceEngine, artifact as TA)
 
@@ -953,7 +986,231 @@ def path_h(torch, K, cli, formatter, list_b: Path, tmp: Path, md5_b: str, card: 
                 "bucket_histogram": K.bucket_histogram.launches}
     print(f"phase path_h_done: card={card} seconds={time.perf_counter() - t0:.1f} "
           f"launches={launches}", flush=True)
-    return served, launches
+    return served, launches, paths
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set (a str) or unset (None) environment variables for a block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bm25_bits(pairs) -> list:
+    return [(d, struct.pack("<d", s)) for d, s in pairs]
+
+
+def same_postings(np, a, b) -> bool:
+    return len(a) == len(b) and all(
+        (x is None and y is None) or (x is not None and y is not None and np.array_equal(x, y))
+        for x, y in zip(a, b))
+
+
+def device_op_calls(eng) -> int:
+    dev = eng.device_engine
+    return 0 if dev is None else sum(v["calls"] for v in dev.op_stats().values())
+
+
+def serve_host_format(torch, S, path: Path, fmt: int, served: dict, card: str,
+                      device: str) -> dict:
+    """Path I on one artifact: the host ``Engine`` (native kernels
+    required on v2/v2.1, numpy on v1), the ``DeviceEngine`` on ``device``
+    and a fresh ``AutoEngine`` on ``device`` answer Path H's query sets
+    alike; the auto engine's first batch of 8192 runs the probe; then the
+    host engine's times."""
+    import numpy as np
+
+    native = fmt >= 2
+    t0 = time.perf_counter()
+    with env(MRI_SERVE_NATIVE="1" if native else "0", MRI_SERVE_CROSSOVER=None):
+        host = S.Engine(path)
+        auto = S.AutoEngine(path, device=device)
+    with env(MRI_SERVE_NATIVE="0"):
+        numpy_host = S.Engine(path) if native else host
+    dev = S.DeviceEngine(path, device=device)
+    label = f"path I v{fmt}"
+    out = {"format": fmt}
+    try:
+        for n, b in served["batches"].items():
+            dfs = host.df(b)
+            check(dfs.tolist() == dev.df(b).tolist() == auto.df(b).tolist(),
+                  f"{label} df@{n} differs across engines")
+            if n >= 8192:
+                out["probe"] = auto.describe()["auto"]["probe"]
+                check(out["probe"] is not None and out["probe"]["batch"] == n,
+                      f"{label}: the first batch of {n} ran no probe")
+            hi, hf = host.lookup(b)
+            for other in (dev, auto):
+                oi, of = other.lookup(b)
+                check(of.tolist() == hf.tolist() and oi[of].tolist() == hi[hf].tolist(),
+                      f"{label} lookup@{n} differs")
+            posts = host.postings(b)
+            check(same_postings(np, posts, dev.postings(b)), f"{label} postings@{n} != device")
+            check(same_postings(np, posts, auto.postings(b)), f"{label} postings@{n} != auto")
+        if out.get("probe", {}).get("winner") == "host":
+            check(auto.describe()["auto"]["crossover"] == 1 << 62,
+                  f"{label}: the host won the probe but the crossover moved")
+        for arity, qs in served["queries"].items():
+            for q in qs:
+                b = host.encode_batch(q)
+                for op in ("query_and", "query_or"):
+                    got = getattr(host, op)(b)
+                    check(np.array_equal(got, getattr(dev, op)(b))
+                          and np.array_equal(got, getattr(auto, op)(b)),
+                          f"{label} {op} {q} differs across engines")
+        for letter in ("a", "m", "z"):
+            check(host.top_k(letter, 10) == dev.top_k(letter, 10) == auto.top_k(letter, 10),
+                  f"{label} top_k {letter} differs across engines")
+        for planner in PLANNERS:
+            with env(MRI_SERVE_PLANNER=planner):
+                for arity, qs in served["queries"].items():
+                    for q in qs:
+                        b = host.encode_batch(q)
+                        got = host.top_k_scored(b, 10)
+                        ql = f"{label} bm25 {planner} {q}"
+                        check(len(got) == 10, f"{ql}: {len(got)} docs")
+                        check(bm25_bits(auto.top_k_scored(b, 10)) == bm25_bits(got),
+                              f"{ql}: auto != host")
+                        check(bm25_bits(numpy_host.top_k_scored(b, 10)) == bm25_bits(got),
+                              f"{ql}: native != numpy")
+                        check_bm25(dev.top_k_scored(b, 10), got, 1e-4, f"{ql}: device vs host")
+                        encs = [b, host.encode_batch(q[:2])]
+                        check(host.top_k_scored_batch(encs, 10)
+                              == [got, host.top_k_scored(encs[1], 10)],
+                              f"{ql}: the coalesced batch != serial")
+        nat = host.describe()["native"]
+        out["native"] = nat
+        if native:
+            check(nat["active"] and nat["fallbacks"] == 0 and nat["ops"] > 0,
+                  f"{label}: native block {nat}")
+        out["checks_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+
+        # -- host times, per op and batch (host clock) -----------------
+        times = {}
+        for n, b in served["batches"].items():
+            big = n >= 8192
+            for op in ("df", "postings"):
+                t = timed(torch, lambda op=op, b=b: getattr(host, op)(b), "cpu",
+                          iters=3 if big else 20, repeats=3 if big else 5)
+                t["lookups_per_s"] = n / (t["host_ms"] / 1e3)
+                times[f"{op}@{n}"] = t
+        # the loop above repeats one batch, so after its warm-up every
+        # postings call is an LRU hit; here each call gets a fresh Zipf
+        # batch (the LRU keeps what earlier batches left), or the same
+        # batch with the LRU purged first (every term decoded)
+        art = host.artifact
+        ranked = [art.term(int(i))
+                  for i in np.argsort(-art.df.astype(np.int64), kind="stable")]
+        rng = np.random.default_rng(1000 + fmt)
+        for n, b in served["batches"].items():
+            calls = 3 if n >= 8192 else 10
+            fresh = [host.encode_batch(zipf_terms(np, rng, ranked, n))
+                     for _ in range(calls + 1)]
+            host.postings(fresh[0])
+            for kind, t in (
+                    ("fresh", timed_each(host.postings, fresh[1:])),
+                    ("cold", timed_each(host.postings, [b] * calls,
+                                        before=host.cache.purge))):
+                t["lookups_per_s"] = n / (t["host_ms"] / 1e3)
+                times[f"postings_{kind}@{n}"] = t
+        # the router's own postings leg at 8192, on the probe's winner
+        t = timed(torch, lambda: auto.postings(served["batches"][8192]), "cpu",
+                  iters=3, repeats=3)
+        t["engine"] = "auto:" + str((out.get("probe") or {}).get("winner"))
+        times["auto_postings@8192"] = t
+        for arity, qs in served["queries"].items():
+            b = host.encode_batch(qs[0])
+            times[f"and@{arity}"] = timed(torch, lambda b=b: host.query_and(b), "cpu")
+            times[f"or@{arity}"] = timed(torch, lambda b=b: host.query_or(b), "cpu")
+        times["top_k@10"] = timed(torch, lambda: host.top_k("m", 10), "cpu")
+        b3 = host.encode_batch(served["queries"][3][0])
+        backends = {"native": host, "numpy": numpy_host} if native else {"numpy": host}
+        for planner in PLANNERS:
+            with env(MRI_SERVE_PLANNER=planner):
+                for name, eng in backends.items():
+                    times[f"bm25_{planner}_{name}@3"] = timed(
+                        torch, lambda eng=eng: eng.top_k_scored(b3, 10), "cpu")
+        out["times"] = times
+        out["timing_s"] = time.perf_counter() - t1
+    finally:
+        for eng in (auto, dev, host, numpy_host):
+            eng.close()
+    probe = out.get("probe") or {}
+    print(f"phase path_i_v{fmt}: card={card} checks_s={out['checks_s']:.1f} "
+          f"timing_s={out['timing_s']:.1f} native={json.dumps(out['native'])} "
+          f"probe_batch={probe.get('batch')} host_s={probe.get('host_s')} "
+          f"device_s={probe.get('device_s')} winner={probe.get('winner')}", flush=True)
+    for name, t in times.items():
+        extra = f" lookups_per_s={t['lookups_per_s']:.1f}" if "lookups_per_s" in t else ""
+        print(f"phase path_i_v{fmt}_time: card={card} engine={t.get('engine', 'host')} "
+              f"op={name} "
+              f"host_ms={t['host_ms']:.4f}{extra}", flush=True)
+    return out
+
+
+def path_i(torch, cli, paths: dict, served: dict, card: str, device: str = "cuda") -> dict:
+    """Path I — the host engine, its native serve kernels and the
+    crossover router on Path H's artifacts (no build): per format
+    :func:`serve_host_format`; then the router's crossover knob on v2.1
+    (1: every batch to the card, answers unchanged; 0: the card never
+    built), and ``query --engine host|device|auto`` printing the same
+    bytes on v2.1."""
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import serve as S
+
+    t0 = time.perf_counter()
+    out = {fmt: serve_host_format(torch, S, paths[fmt], fmt, served[fmt], card, device)
+           for fmt in (3, 2, 1)}
+    v21 = paths[3]
+    batches = served[3]["batches"]
+    with S.Engine(v21) as host:
+        with env(MRI_SERVE_CROSSOVER="1"), S.AutoEngine(v21, device=device) as auto:
+            for n in (1, 32, 1024):
+                b = batches[n]
+                before = device_op_calls(auto)
+                check(auto.df(b).tolist() == host.df(b).tolist()
+                      and same_postings(np, auto.postings(b), host.postings(b)),
+                      f"path I crossover 1: answers @{n} moved")
+                check(device_op_calls(auto) == before + 2,
+                      f"path I crossover 1: batch {n} did not go to the card")
+            check(auto.describe()["auto"]["crossover"] == 1, "path I crossover 1 not read")
+        with env(MRI_SERVE_CROSSOVER="0"), S.AutoEngine(v21, device=device) as auto:
+            check(auto.df(batches[8192]).tolist() == host.df(batches[8192]).tolist(),
+                  "path I crossover 0: df@8192 moved")
+            d = auto.describe()["auto"]
+            check(not d["device_ready"] and d["probe"] is None,
+                  f"path I crossover 0 built the device engine: {d}")
+    words = [w.decode() for w in batches[32].tolist() if w][:12] + ["nope", "x1y2"]
+    legs = {"df+postings": [], "and": ["--op", "and"], "or": ["--op", "or"],
+            "top_k": ["--top-k", "10", "--letter", "m"]}
+    for leg, extra in legs.items():
+        got = {}
+        for engine in ("host", "device", "auto"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["query", str(v21), "--engine", engine, "--device", device,
+                               *words, *extra])
+            check(rc == 0, f"path I query --engine {engine} {leg}: exit {rc}")
+            got[engine] = buf.getvalue()
+        check(got["host"] and got["host"] == got["device"] == got["auto"],
+              f"path I query {leg}: stdout differs across --engine host|device|auto")
+    print(f"phase path_i_done: card={card} seconds={time.perf_counter() - t0:.1f} "
+          f"cli_legs={list(legs)} crossover_knob=ok", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1251,8 +1508,16 @@ def main() -> int:
             launches_by_path["G"] = launches_g
 
             # -- Path H: serving on Path B's corpus ---------------------------
-            _, launches_by_path["H"] = path_h(torch, K, cli, formatter, list_b, tmp,
-                                              stats_b["md5"], card)
+            served, launches_by_path["H"], h_paths = path_h(
+                torch, K, cli, formatter, list_b, tmp, stats_b["md5"], card)
+
+            # -- Path I: the host engine and the router on Path H's files ------
+            K.reset_launch_counts()
+            path_i(torch, cli, h_paths, served, card)
+            launches_by_path["I"] = {"unique_mask_count": K.unique_mask_count.launches,
+                                     "bucket_histogram": K.bucket_histogram.launches}
+            check(not any(launches_by_path["I"].values()),
+                  f"path I launched a kernel of csrc/: {launches_by_path['I']}")
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

@@ -12,7 +12,8 @@ and the query side over an ``--artifact`` build's ``index.mri``:
 
     python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch \\
         query out word1 word2 [--op and|or] [--top-k K --letter L]
-        [--score df|bm25] [--stats] [--device cuda|cpu]
+        [--score df|bm25] [--stats] [--engine host|device|auto]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _query_main(argv: list[str]) -> int:
-    """``query DIR ...`` — serve from an --artifact build on the device."""
+    """``query DIR ...`` — answer from an --artifact build's index.mri
+    with the engine ``--engine`` (or ``$MRI_SERVE_ENGINE``) names."""
     p = argparse.ArgumentParser(
         prog="mri-torch query",
         description="batched lookups against a built index.mri artifact")
@@ -132,21 +134,31 @@ def _query_main(argv: list[str]) -> int:
                         "terms, bm25 = ranked document retrieval over the "
                         "query words (v1 scores with tf=1). Default: "
                         "MRI_SERVE_SCORE env, else df")
-    p.add_argument("--engine", choices=("device",), default="device",
-                   help="query backend: device = torch programs over "
-                        "device-resident columns")
+    p.add_argument("--engine", choices=("host", "device", "auto"), default=None,
+                   help="query backend: host = numpy (or the native serve "
+                        "kernels, MRI_SERVE_NATIVE) over the mapped "
+                        "artifact; device = torch programs over "
+                        "device-resident columns; auto = host for small "
+                        "batches, the device when a probe of the first "
+                        "batch of 8192 or more says it wins "
+                        "(MRI_SERVE_CROSSOVER overrides the probe). "
+                        "Default: MRI_SERVE_ENGINE env, else device. "
+                        "Answers are the same either way")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="torch device of the engine (default cuda; no CUDA "
-                        "device is exit 2, never a quiet move to the CPU)")
+                   help="torch device of the device engine, alone or inside "
+                        "auto (default cuda; no CUDA device is exit 2, never "
+                        "a quiet move to the CPU or the host engine)")
     p.add_argument("--stats", action="store_true",
-                   help="print an engine stats JSON line last (device info, "
-                        "cache counters, per-op timing, planner)")
+                   help="print an engine stats JSON line last (cache "
+                        "counters, per-op timing, planner; native kernels "
+                        "(host, auto), crossover probe (auto), device info "
+                        "(device))")
     # intermixed: ``query DIR --op and the dog`` must not feed "the dog"
     # back into --op's greedy positional scan
     args = p.parse_intermixed_args(argv)
 
-    from .serve import ArtifactError, DeviceEngine
-    from .serve.engine import resolve_score
+    from .serve import ArtifactError, create_engine
+    from .serve.engine import NativeUnavailable, resolve_score
 
     try:
         score = resolve_score(args.score)
@@ -178,8 +190,11 @@ def _query_main(argv: list[str]) -> int:
         print("error: --score bm25 --top-k needs query terms", file=sys.stderr)
         return 2
     try:
-        engine = DeviceEngine(args.index_dir, device=args.device)
-    except (ArtifactError, ValueError, DeviceUnavailable) as e:
+        # ValueError: a bad knob read at construction (MRI_SERVE_ENGINE,
+        # _NATIVE, _CROSSOVER); no card; MRI_SERVE_NATIVE=1 without the
+        # native kernels.  Any other error keeps its traceback.
+        engine = create_engine(args.index_dir, args.engine, device=args.device)
+    except (ArtifactError, ValueError, DeviceUnavailable, NativeUnavailable) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     try:

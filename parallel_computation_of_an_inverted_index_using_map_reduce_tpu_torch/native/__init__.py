@@ -2,9 +2,11 @@
 
 The host hot path — tokenize + vocab build + per-(term, doc) combiner,
 the analogue of main.c:102-117 plus the reducer's dictionary and dedup —
-and the letter-file emit are a C++ library compiled with ``g++`` on
-first use and loaded with ctypes.  Without a compiler the callers fall
-back to the numpy tokenizer and the Python emit (same bytes, slower).
+the letter-file emit and the host query engine's serve kernels
+(:class:`NativeServe`) are a C++ library compiled with ``g++`` on first
+use and loaded with ctypes.  Without a compiler the callers fall back
+to the numpy tokenizer, the Python emit and the numpy query paths (same
+bytes, slower).
 
 The library is built into ``native/_build/`` as
 ``libmri_torch_scan_<hash>.so`` — its own stem and directory, so it can
@@ -29,8 +31,11 @@ _SRC = Path(__file__).resolve().parent / "tokenizer.cc"
 _BUILD_DIR = _SRC.parent / "_build"
 _STEM = "libmri_torch_scan"
 # -march=native would SIGILL if a built .so moved across machines; the
-# scan picks its AVX2/BMI2 path at run time (__builtin_cpu_supports)
-_CXX_FLAGS = ["-O3", "-shared", "-fPIC"]
+# scan picks its AVX2/BMI2 path at run time (__builtin_cpu_supports).
+# -ffp-contract=off: the serve kernels' BM25 scores must be bit-equal to
+# numpy's, which no fused multiply-add may change (GCC contracts by
+# default where the target has FMA, as on aarch64 hosts)
+_CXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _lib = None
 _lib_error: str | None = None
@@ -121,6 +126,8 @@ def _bind(lib) -> None:
     i32, i64 = ctypes.c_int32, ctypes.c_int64
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
+    u32p, f64 = ctypes.POINTER(ctypes.c_uint32), ctypes.c_double
+    f64p = ctypes.POINTER(ctypes.c_double)
     docs = [u8p, i64, i64p, i32p, i32]  # _marshal_docs' five arguments
     sigs = {
         "mri_tokenize": (ctypes.POINTER(_TokenizeResult), [*docs, i32, i32]),
@@ -143,6 +150,38 @@ def _bind(lib) -> None:
                                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint16)),
                                 ctypes.POINTER(i64p), ctypes.POINTER(i64p),
                                 ctypes.c_char_p]),
+        # -- serve kernels --
+        "mri_serve_new": (ctypes.c_void_p, [
+            i32p,                              # blk_max
+            i32p,                              # blk_first
+            u8p,                               # blk_width
+            u8p,                               # blk_tf_width
+            u8p,                               # blk_max_tf (raw bytes | NULL)
+            u8p,                               # blk_min_dl (raw bytes | NULL)
+            u32p,                              # post_words
+            u32p,                              # tf_words
+            f64p,                              # doc_lens
+            i64p,                              # term_block_off
+            i32p,                              # blk_cnt
+            i64p,                              # blk_woff
+            i64p,                              # blk_tf_woff
+            i32, i64, i32, i32, i64,           # vocab, blocks, B, bits, ndocs
+            f64, f64, f64, i32]),              # avgdl, k1, b, cache cap
+        "mri_serve_free": (None, [ctypes.c_void_p]),
+        "mri_serve_decode_blocks": (i32, [ctypes.c_void_p, i64p, i64, i32p, i32p, i32p]),
+        "mri_serve_decode_postings": (i64, [ctypes.c_void_p, i32, i32p, i32p]),
+        "mri_serve_and": (i64, [ctypes.c_void_p, i32p, i64, i32, i32p, i64p]),
+        "mri_serve_topk_bm25": (i64, [ctypes.c_void_p, i32p, i32, f64p, i32, i32,
+                                      i32p, f64p, i64p]),
+        "mri_serve_set_topk_out": (i64, [ctypes.c_void_p, i32p, f64p, i64p]),
+        "mri_serve_topk_prep": (i64, [ctypes.c_void_p, i32p, i32, f64p]),
+        "mri_serve_topk_prep_clear": (i64, [ctypes.c_void_p]),
+        "mri_serve_topk_prep_free": (i64, [ctypes.c_void_p, i64]),
+        "mri_serve_topk_run": (i64, [ctypes.c_void_p, i64, i32, i32]),
+        # raw addresses: the coalesced path passes array.array / ndarray
+        # buffer addresses as plain ints, with no per-call pointer casts
+        "mri_serve_topk_batch": (i64, [ctypes.c_void_p] * 3 + [i32, i32]
+                                 + [ctypes.c_void_p] * 4),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -482,3 +521,236 @@ def emit_native_runs(out_dir, vocab: np.ndarray, order, runs) -> int:
     if rc < 0:
         raise OSError(f"native emit failed writing to {str(out_dir)!r}")
     return int(rc)
+
+
+# -- serve kernels (mri_serve_*) -------------------------------------------
+
+#: planner mode -> mri_serve_topk_bm25's mode code, and back
+_SERVE_MODES = {"exhaustive": 0, "bmw": 1, "maxscore": 2}
+_SERVE_MODE_NAMES = ("exhaustive", "bmw", "maxscore")
+
+
+def _serve_ptr(arr, ctype):
+    if arr is None:
+        return _null(ctype)
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+class NativeServe:
+    """One ``mri_serve_*`` handle over a v2/v2.1 artifact's columns (the
+    JAX package's ``NativeServe``).
+
+    The handle borrows every pointer it is given, so this wrapper keeps
+    the buffers alive (the artifact's map views from
+    ``serve.artifact.serve_columns`` and the engine's float64 doc-length
+    column): close it before the artifact.  Calls are not thread-safe;
+    the engine serializes them.
+    """
+
+    #: planner mode -> C mode code and back, so the engine can memoize
+    #: the code beside a prep id and count a coalesced batch's modes
+    MODES = _SERVE_MODES
+    MODE_NAMES = _SERVE_MODE_NAMES
+
+    def __init__(self, cols: dict, doc_lens: np.ndarray, avgdl: float,
+                 k1: float, b: float, cache_cap: int = 4096):
+        lib = load()
+        if lib is None:
+            raise RuntimeError(f"native serve unavailable: {_lib_error}")
+        self._lib = lib
+        self._cols = cols  # keeps the map views alive
+        self._doc_lens = np.ascontiguousarray(doc_lens, dtype=np.float64)
+        self.block_size = int(cols["block_size"])
+        self.score_bits = int(cols["score_bits"])
+        self._h = lib.mri_serve_new(
+            _serve_ptr(cols["blk_max"], ctypes.c_int32),
+            _serve_ptr(cols["blk_first"], ctypes.c_int32),
+            _serve_ptr(cols["blk_width"], ctypes.c_uint8),
+            _serve_ptr(cols["blk_tf_width"], ctypes.c_uint8),
+            _serve_ptr(cols["blk_max_tf"], ctypes.c_uint8),
+            _serve_ptr(cols["blk_min_dl"], ctypes.c_uint8),
+            _serve_ptr(cols["post_words"], ctypes.c_uint32),
+            _serve_ptr(cols["tf_words"], ctypes.c_uint32),
+            _serve_ptr(self._doc_lens, ctypes.c_double),
+            _serve_ptr(cols["term_block_off"], ctypes.c_int64),
+            _serve_ptr(cols["blk_cnt"], ctypes.c_int32),
+            _serve_ptr(cols["blk_woff"], ctypes.c_int64),
+            _serve_ptr(cols["blk_tf_woff"], ctypes.c_int64),
+            ctypes.c_int32(int(cols["vocab"])),
+            ctypes.c_int64(int(cols["num_blocks"])),
+            ctypes.c_int32(self.block_size),
+            ctypes.c_int32(self.score_bits),
+            ctypes.c_int64(len(self._doc_lens)),
+            ctypes.c_double(float(avgdl)), ctypes.c_double(float(k1)),
+            ctypes.c_double(float(b)), ctypes.c_int32(int(cache_cap)),
+        )
+        if not self._h:
+            raise RuntimeError("mri_serve_new rejected the artifact columns")
+        # ranked-path output buffers, grown on demand and registered on
+        # the handle once: the per-query call then passes 4 scalars
+        self._f_run = lib.mri_serve_topk_run
+        self._f_batch = lib.mri_serve_topk_batch
+        self._stats = np.zeros(3, dtype=np.int64)
+        self._p_stats = _serve_ptr(self._stats, ctypes.c_int64)
+        self._batch_bufs = None
+        self._grow_topk(256)
+
+    def _grow_topk(self, cap: int) -> None:
+        self._topk_cap = cap
+        self._out_d = np.empty(cap, dtype=np.int32)
+        self._out_s = np.empty(cap, dtype=np.float64)
+        self._p_out_d = _serve_ptr(self._out_d, ctypes.c_int32)
+        self._p_out_s = _serve_ptr(self._out_s, ctypes.c_double)
+        self._lib.mri_serve_set_topk_out(self._h, self._p_out_d, self._p_out_s,
+                                         self._p_stats)
+
+    def close(self) -> None:
+        h, self._h = self._h, None
+        if h:
+            self._lib.mri_serve_free(h)
+        self._cols = None
+        self._doc_lens = None
+
+    def __del__(self):
+        try:
+            if getattr(self, "_h", None):
+                self._lib.mri_serve_free(self._h)
+                self._h = None
+        except Exception:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- ops ---------------------------------------------------------------
+
+    def decode_blocks(self, sel, want_tf: bool = True):
+        """``(ids, tf|None, cnt)`` of the selected global blocks: the
+        numpy ``Artifact.decode_blocks`` / ``decode_tf_blocks`` matrices,
+        padding included (tf past a block's count is 1).  ``None`` on a
+        rejected call."""
+        sel = np.ascontiguousarray(sel, dtype=np.int64)
+        n = len(sel)
+        B = self.block_size
+        ids = np.empty((max(n, 1), B), dtype=np.int32)
+        tfm = np.empty((max(n, 1), B), dtype=np.int32) if want_tf else None
+        cnt = np.empty(max(n, 1), dtype=np.int32)
+        rc = self._lib.mri_serve_decode_blocks(
+            self._h, _serve_ptr(sel, ctypes.c_int64), ctypes.c_int64(n),
+            _serve_ptr(ids, ctypes.c_int32), _serve_ptr(tfm, ctypes.c_int32),
+            _serve_ptr(cnt, ctypes.c_int32))
+        if rc != 0:
+            return None
+        return ids[:n], (tfm[:n] if want_tf else None), cnt[:n]
+
+    def decode_postings(self, idx: int, df: int, want_tf: bool = True):
+        """``(docs, tf|None)`` of one term, or ``None`` on error."""
+        docs = np.empty(max(df, 1), dtype=np.int32)
+        tf = np.empty(max(df, 1), dtype=np.int32) if want_tf else None
+        got = self._lib.mri_serve_decode_postings(
+            self._h, ctypes.c_int32(int(idx)), _serve_ptr(docs, ctypes.c_int32),
+            _serve_ptr(tf, ctypes.c_int32))
+        if got != df:
+            return None
+        return docs[:df], (tf[:df] if want_tf else None)
+
+    def query_and(self, acc, idx: int):
+        """``(survivors, blocks_decoded, blocks_skipped)`` of the
+        ascending candidates intersected with term ``idx``, or ``None``
+        on error."""
+        acc = np.ascontiguousarray(acc, dtype=np.int32)
+        out = np.empty(max(len(acc), 1), dtype=np.int32)
+        stats = np.zeros(2, dtype=np.int64)
+        m = self._lib.mri_serve_and(
+            self._h, _serve_ptr(acc, ctypes.c_int32), ctypes.c_int64(len(acc)),
+            ctypes.c_int32(int(idx)), _serve_ptr(out, ctypes.c_int32),
+            _serve_ptr(stats, ctypes.c_int64))
+        if m < 0:
+            return None
+        return out[:m], int(stats[0]), int(stats[1])
+
+    def top_k_bm25(self, occ, idfs, k: int, mode: str):
+        """``(docs, scores, blocks_scored, blocks_skipped, candidates)``
+        for the occurrence list, byte-equal to the numpy engine's
+        ``top_k_scored``; ``None`` on error."""
+        occ_a = np.ascontiguousarray(occ, dtype=np.int32)
+        idf_a = np.ascontiguousarray(idfs, dtype=np.float64)
+        kk = max(int(k), 0)
+        out_d = np.empty(max(kk, 1), dtype=np.int32)
+        out_s = np.empty(max(kk, 1), dtype=np.float64)
+        stats = np.zeros(3, dtype=np.int64)
+        n = self._lib.mri_serve_topk_bm25(
+            self._h, _serve_ptr(occ_a, ctypes.c_int32), ctypes.c_int32(len(occ_a)),
+            _serve_ptr(idf_a, ctypes.c_double), ctypes.c_int32(kk),
+            ctypes.c_int32(_SERVE_MODES[mode]), _serve_ptr(out_d, ctypes.c_int32),
+            _serve_ptr(out_s, ctypes.c_double), _serve_ptr(stats, ctypes.c_int64))
+        if n < 0:
+            return None
+        return out_d[:n], out_s[:n], int(stats[0]), int(stats[1]), int(stats[2])
+
+    def prep_query(self, occ, idfs):
+        """Freeze one query's (occ, idf) arrays into the handle and
+        return the prep id :meth:`top_k_bm25_fast` runs (``None`` on
+        rejection): the engine memoizes it per query key."""
+        occ_a = np.ascontiguousarray(occ, dtype=np.int32)
+        idf_a = np.ascontiguousarray(idfs, dtype=np.float64)
+        pid = self._lib.mri_serve_topk_prep(
+            self._h, _serve_ptr(occ_a, ctypes.c_int32), len(occ_a),
+            _serve_ptr(idf_a, ctypes.c_double))
+        return int(pid) if pid > 0 else None
+
+    def clear_preps(self) -> None:
+        """Drop every prepared query."""
+        if self._h:
+            self._lib.mri_serve_topk_prep_clear(self._h)
+
+    def free_prep(self, pid: int) -> None:
+        """Drop one prepared query."""
+        if self._h:
+            self._lib.mri_serve_topk_prep_free(self._h, pid)
+
+    def top_k_bm25_fast(self, pid: int, k: int, mode: str):
+        """A ranked query over a :meth:`prep_query` id into the handle's
+        registered buffers: ``(pairs, scored, skipped, candidates)`` with
+        ``pairs`` the engine's ``[(doc, score), ...]``; ``None`` on
+        error."""
+        if k > self._topk_cap:
+            self._grow_topk(max(k, 2 * self._topk_cap))
+        n = self._f_run(self._h, pid, k, _SERVE_MODES[mode])
+        if n < 0:
+            return None
+        stats = self._stats
+        return (list(zip(self._out_d[:n].tolist(), self._out_s[:n].tolist())),
+                int(stats[0]), int(stats[1]), int(stats[2]))
+
+    def top_k_bm25_batch(self, pids, modes, nq: int, k: int):
+        """``nq`` prepared queries in one library call: ``pids`` an
+        ``array.array('q')`` of prep ids, ``modes`` an
+        ``array.array('i')`` of :attr:`MODES` codes.  Returns
+        ``(pairs_list, scored, skipped, candidates)``, the stats summed
+        over the batch; ``None`` on any error (the caller re-runs per
+        query)."""
+        need = nq * k
+        bb = self._batch_bufs
+        if bb is None or bb[8] < need or bb[9] < nq:
+            docs = np.empty(max(need, 256), dtype=np.int32)
+            scores = np.empty(max(need, 256), dtype=np.float64)
+            nhits = np.empty(max(nq, 64), dtype=np.int32)
+            stats = np.zeros(3, dtype=np.int64)
+            bb = (docs, scores, nhits, stats, docs.ctypes.data, scores.ctypes.data,
+                  nhits.ctypes.data, stats.ctypes.data, len(docs), len(nhits))
+            self._batch_bufs = bb
+        rc = self._f_batch(self._h, pids.buffer_info()[0], modes.buffer_info()[0],
+                           nq, k, bb[4], bb[5], bb[6], bb[7])
+        if rc < 0:
+            return None
+        dl = bb[0][:need].tolist()
+        sl = bb[1][:need].tolist()
+        nl = bb[2][:nq].tolist()
+        pairs_list = [list(zip(dl[lo:lo + n], sl[lo:lo + n]))
+                      for lo, n in zip(range(0, need, k), nl)]
+        s0, s1, s2 = bb[3].tolist()
+        return pairs_list, s0, s1, s2

@@ -26,6 +26,10 @@
 // Beside them, `mri_token_stats` counts token starts and the longest
 // cleaned token of a byte window: the all-device plan's host guard.
 //
+// The serve kernels `mri_serve_*` (the last section) are the host query
+// engine's: block decode, the skip+gallop AND and the BM25 top-k over a
+// v2/v2.1 `index.mri`'s mapped columns, the JAX package's copy.
+//
 // Map-phase host parallelism (the reference's N mapper threads over
 // size-balanced contiguous file ranges, main.c:307-328, 348-365,
 // re-expressed): every entry point takes a `num_threads`; documents are
@@ -54,7 +58,7 @@
 // unique words only (vocab-scale, not token-scale).
 //
 // Build (native/__init__.py does this at first use):
-//   g++ -O3 -shared -fPIC -o libmri_torch_scan.so tokenizer.cc
+//   g++ -O3 -ffp-contract=off -shared -fPIC -o libmri_torch_scan.so tokenizer.cc
 
 #include <algorithm>
 #include <cstdint>
@@ -62,10 +66,12 @@
 #include <cstring>
 #include <cstdlib>
 #include <exception>
+#include <functional>
 #include <new>
 #include <system_error>
 #include <string>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 #if defined(__x86_64__)
@@ -1544,6 +1550,1050 @@ int64_t mri_emit_runs(const uint8_t* vocab_packed, int32_t vocab_size,
                          n_runs, out_dir);
 } catch (const std::bad_alloc&) {
   return -1;
+}
+
+// =====================================================================
+// Serve-path kernels (mri_serve_*): width-specialized block decode,
+// skip+gallop intersect, and the BM25 exhaustive/BMW/MaxScore top-k.
+//
+// The numpy Engine stays the conformance oracle: every kernel here
+// reproduces its answers byte-for-byte.  The float contract is the
+// tight part — per-element BM25 contributions use the numpy scorer's
+// exact expression and association order,
+//     denom   = tf + k1 * ((1.0 - b) + (b * dl) / avgdl)
+//     contrib = ((idf * tf) * (k1 + 1.0)) / denom
+// and final scores are re-accumulated in query OCCURRENCE order (the
+// exhaustive path's addition order).  idf is computed caller-side (in
+// Python, with np.log) and passed in as float64 so a libm-vs-numpy ulp
+// can never split the backends.  native/__init__.py builds with
+// -ffp-contract=off, so the compiler never contracts the mul+adds above
+// into FMAs (GCC does by default on targets that have FMA, aarch64
+// among them) — contraction would break the byte-identity contract.
+//
+// Handles are NOT thread-safe; the engine serializes calls (the GIL),
+// as it does the mri_stream_* handles.
+
+}  // extern "C" (reopened after the templated serve helpers below)
+
+namespace {
+
+//: mirror of serve.planner.THETA_MARGIN — relative slack on every
+//: theta comparison so float associativity never prunes a true top-k
+//: doc (1.0 - 1e-9 in IEEE double, bit-identical to the Python value).
+const double kServeThetaMargin = 1.0 - 1e-9;
+//: largest k the ranked fast path selects on the stack (bounded
+//: insertion); larger cutoffs fall back to nth_element over a heap
+//: vector
+const int32_t kServeStackK = 128;
+
+// ---- width-specialized bitpacked decode -----------------------------
+//
+// Values are LSB-first in u32 words (BitPacker's layout): value j of a
+// w-bit run occupies stream bits [j*w, (j+1)*w).  A value spans at
+// most two words, so a branchless 64-bit two-word window + shift +
+// mask recovers it.  The window unconditionally reads words[wi + 1];
+// the caller guarantees one readable word past the run (in a mmapped
+// artifact the next file section provides it — see
+// serve.artifact.serve_columns).
+
+template <int W>
+void ServeUnpackW(const uint32_t* words, int n, uint32_t* out) {
+  constexpr uint64_t mask = (1ull << W) - 1;
+  int bp = 0;
+  for (int j = 0; j < n; ++j, bp += W) {
+    const int wi = bp >> 5;
+    const uint64_t win = words[wi]
+        | (static_cast<uint64_t>(words[wi + 1]) << 32);
+    out[j] = static_cast<uint32_t>((win >> (bp & 31)) & mask);
+  }
+}
+
+using ServeUnpackFn = void (*)(const uint32_t*, int, uint32_t*);
+
+//: one specialization per width 1..31 (width 0 never unpacks; the
+//: exporter's BitPacker caps widths at 31)
+const ServeUnpackFn kServeUnpack[32] = {
+    nullptr,           ServeUnpackW<1>,  ServeUnpackW<2>,
+    ServeUnpackW<3>,   ServeUnpackW<4>,  ServeUnpackW<5>,
+    ServeUnpackW<6>,   ServeUnpackW<7>,  ServeUnpackW<8>,
+    ServeUnpackW<9>,   ServeUnpackW<10>, ServeUnpackW<11>,
+    ServeUnpackW<12>,  ServeUnpackW<13>, ServeUnpackW<14>,
+    ServeUnpackW<15>,  ServeUnpackW<16>, ServeUnpackW<17>,
+    ServeUnpackW<18>,  ServeUnpackW<19>, ServeUnpackW<20>,
+    ServeUnpackW<21>,  ServeUnpackW<22>, ServeUnpackW<23>,
+    ServeUnpackW<24>,  ServeUnpackW<25>, ServeUnpackW<26>,
+    ServeUnpackW<27>,  ServeUnpackW<28>, ServeUnpackW<29>,
+    ServeUnpackW<30>,  ServeUnpackW<31>,
+};
+
+// ---- in-register delta prefix sum -----------------------------------
+//
+// ids[0] = first; ids[j + 1] = ids[j] + (vals[j] + 1) — the stored
+// values are (delta - 1).  Integer adds are exact, so the SIMD and
+// scalar forms agree bit-for-bit.
+
+void ServePrefixIdsScalar(const uint32_t* vals, int m, int32_t first,
+                          int32_t* out) {
+  out[0] = first;
+  int32_t run = first;
+  for (int j = 0; j < m; ++j) {
+    run += static_cast<int32_t>(vals[j]) + 1;
+    out[j + 1] = run;
+  }
+}
+
+#if defined(__x86_64__) || defined(_M_X64)
+__attribute__((target("avx2")))
+void ServePrefixIdsAvx2(const uint32_t* vals, int m, int32_t first,
+                        int32_t* out) {
+  out[0] = first;
+  __m256i run = _mm256_set1_epi32(first);
+  const __m256i one = _mm256_set1_epi32(1);
+  const __m256i bcast7 = _mm256_set1_epi32(7);
+  int j = 0;
+  for (; j + 8 <= m; j += 8) {
+    __m256i d = _mm256_add_epi32(
+        _mm256_loadu_si256(
+            reinterpret_cast<const __m256i*>(vals + j)), one);
+    // in-lane inclusive scan (shift-and-add), then carry the low
+    // lane's total into the high lane
+    d = _mm256_add_epi32(d, _mm256_slli_si256(d, 4));
+    d = _mm256_add_epi32(d, _mm256_slli_si256(d, 8));
+    const __m256i tot = _mm256_shuffle_epi32(d, 0xff);
+    d = _mm256_add_epi32(d, _mm256_permute2x128_si256(tot, tot, 0x08));
+    d = _mm256_add_epi32(d, run);
+    _mm256_storeu_si256(reinterpret_cast<__m256i*>(out + 1 + j), d);
+    run = _mm256_permutevar8x32_epi32(d, bcast7);
+  }
+  int32_t r = (j == 0) ? first : out[j];
+  for (; j < m; ++j) {
+    r += static_cast<int32_t>(vals[j]) + 1;
+    out[j + 1] = r;
+  }
+}
+
+const bool kHaveServeAvx2 = __builtin_cpu_supports("avx2");
+#endif
+
+inline void ServePrefixIds(const uint32_t* vals, int m, int32_t first,
+                           int32_t* out) {
+#if defined(__x86_64__) || defined(_M_X64)
+  if (kHaveServeAvx2 && m >= 8) {
+    ServePrefixIdsAvx2(vals, m, first, out);
+    return;
+  }
+#endif
+  ServePrefixIdsScalar(vals, m, first, out);
+}
+
+// ---- serve handle ----------------------------------------------------
+
+struct ServeTermEntry {
+  std::vector<int32_t> docs;        // ascending absolute doc ids
+  std::vector<double> contrib;      // per-doc BM25 contribution
+  std::vector<double> sorted_desc;  // contrib sorted descending
+  double idf = 0.0;
+};
+
+//: one frozen ranked query (mri_serve_topk_prep): the occ/idf argument
+//: arrays copied into the handle so the per-call entry point takes only
+//: scalar arguments
+struct ServePrep {
+  std::vector<int32_t> occ;
+  std::vector<double> idf;
+};
+
+struct ServeState {
+  // borrowed artifact columns — the Python wrapper keeps the backing
+  // buffers (mmap views + derived arrays) alive for the handle's life
+  const int32_t* blk_max = nullptr;
+  const int32_t* blk_first = nullptr;
+  const uint8_t* blk_width = nullptr;
+  const uint8_t* blk_tf_width = nullptr;
+  const uint8_t* blk_max_tf = nullptr;  // u8 / u16-LE per score_bits
+  const uint8_t* blk_min_dl = nullptr;  // (null on plain v2)
+  const uint32_t* post_words = nullptr;
+  const uint32_t* tf_words = nullptr;
+  const double* doc_lens = nullptr;
+  const int64_t* term_block_off = nullptr;  // vocab + 1
+  const int32_t* blk_cnt = nullptr;
+  const int64_t* blk_woff = nullptr;        // num_blocks + 1
+  const int64_t* blk_tf_woff = nullptr;     // num_blocks + 1
+  int32_t vocab = 0;
+  int64_t num_blocks = 0;
+  int32_t block_size = 0;
+  int32_t score_bits = 0;
+  int64_t num_docs = 0;
+  double avgdl = 1.0, k1 = 1.2, b = 0.75;
+  int32_t cache_cap = 4096;
+  // per-term score memo (mirror of Engine._score_memo: cleared
+  // wholesale at the cap, node-based so held pointers stay valid
+  // across inserts)
+  std::unordered_map<int32_t, ServeTermEntry> cache;
+  // dense accumulator + epoch marks: touch-only reset between queries
+  std::vector<double> acc;
+  std::vector<uint32_t> mark;
+  uint32_t epoch = 0;
+  // scratch
+  std::vector<uint32_t> vals;     // one block of raw unpacked values
+  std::vector<int32_t> blk_ids;   // one decoded block (ids)
+  std::vector<int32_t> blk_tf;    // one decoded block (tf)
+  std::vector<int32_t> cand;      // candidate docs
+  std::vector<double> partial;    // theta-maintenance scratch
+  // registered ranked-path output buffers (mri_serve_set_topk_out)
+  // plus the prepared-query registry (mri_serve_topk_prep) — borrowed
+  // pointers, owned by the Python wrapper
+  int32_t* out_docs = nullptr;
+  double* out_scores = nullptr;
+  int64_t* out_stats = nullptr;
+  std::unordered_map<int64_t, ServePrep> preps;
+  int64_t next_prep = 1;
+};
+
+inline uint32_t ServeNextEpoch(ServeState* st) {
+  if (st->epoch > UINT32_MAX - 8) {
+    std::fill(st->mark.begin(), st->mark.end(), 0u);
+    st->epoch = 0;
+  }
+  return ++st->epoch;
+}
+
+// decode one block's doc ids into out (>= blk_cnt[b] slots); returns cnt
+inline int ServeDecodeIds(const ServeState& st, int64_t b, int32_t* out) {
+  const int cnt = st.blk_cnt[b];
+  const int32_t first = st.blk_first[b];
+  const int w = st.blk_width[b];
+  if (cnt <= 1) {
+    out[0] = first;
+    return cnt;
+  }
+  if (w == 0) {  // all stored deltas are 0 -> consecutive ids
+    for (int j = 0; j < cnt; ++j) out[j] = first + j;
+    return cnt;
+  }
+  const uint32_t* words = st.post_words + st.blk_woff[b];
+  uint32_t* scratch = const_cast<ServeState&>(st).vals.data();
+  kServeUnpack[w](words, cnt - 1, scratch);
+  ServePrefixIds(scratch, cnt - 1, first, out);
+  return cnt;
+}
+
+// decode one block's term frequencies into out (>= cnt slots)
+inline void ServeDecodeTf(const ServeState& st, int64_t b, int cnt,
+                          int32_t* out) {
+  const int w = st.blk_tf_width[b];
+  if (w == 0) {  // stored (tf - 1) all zero -> tf 1 everywhere
+    for (int j = 0; j < cnt; ++j) out[j] = 1;
+    return;
+  }
+  const uint32_t* words = st.tf_words + st.blk_tf_woff[b];
+  uint32_t* scratch = const_cast<ServeState&>(st).vals.data();
+  kServeUnpack[w](words, cnt, scratch);
+  for (int j = 0; j < cnt; ++j)
+    out[j] = static_cast<int32_t>(scratch[j]) + 1;
+}
+
+// 3-distance prefetch for a forward walk over a term's blocks: run
+// geometry far ahead, the posting payload those offsets feed closer
+// in, the tf payload (touched right after the ids) last.
+inline void ServePrefetchBlocks(const ServeState& st, int64_t bb,
+                                int64_t b1) {
+  if (bb + 8 < b1) {
+    __builtin_prefetch(&st.blk_woff[bb + 8]);
+    __builtin_prefetch(&st.blk_tf_woff[bb + 8]);
+    __builtin_prefetch(&st.blk_first[bb + 8]);
+  }
+  if (bb + 2 < b1)
+    __builtin_prefetch(st.post_words + st.blk_woff[bb + 2]);
+  if (bb + 1 < b1)
+    __builtin_prefetch(st.tf_words + st.blk_tf_woff[bb + 1]);
+}
+
+// BM25 contribution with the numpy scorer's exact expression and
+// association order (see the header comment).
+inline double ServeContrib(double idf, double tf, double dl, double om,
+                           double k1, double b, double avgdl,
+                           double k1p1) {
+  const double denom = tf + k1 * (om + (b * dl) / avgdl);
+  return ((idf * tf) * k1p1) / denom;
+}
+
+// decode + score one whole term into a cache entry; false on a doc id
+// outside [0, num_docs) (corrupt artifact — never index doc_lens with
+// it)
+bool ServeFillEntry(ServeState* st, int32_t term, double idf,
+                    ServeTermEntry* e) {
+  const int64_t b0 = st->term_block_off[term];
+  const int64_t b1 = st->term_block_off[term + 1];
+  const int64_t nb = b1 - b0;
+  const int64_t df = nb <= 0 ? 0
+      : (nb - 1) * st->block_size + st->blk_cnt[b1 - 1];
+  e->docs.resize(df);
+  e->contrib.resize(df);
+  e->idf = idf;
+  const double om = 1.0 - st->b;
+  const double k1p1 = st->k1 + 1.0;
+  int64_t o = 0;
+  for (int64_t bb = b0; bb < b1; ++bb) {
+    ServePrefetchBlocks(*st, bb, b1);
+    const int cnt = ServeDecodeIds(*st, bb, e->docs.data() + o);
+    if (e->docs[o] < 0 || e->docs[o + cnt - 1] >= st->num_docs)
+      return false;
+    ServeDecodeTf(*st, bb, cnt, st->blk_tf.data());
+    for (int j = 0; j < cnt; ++j) {
+      e->contrib[o + j] = ServeContrib(
+          idf, static_cast<double>(st->blk_tf[j]),
+          st->doc_lens[e->docs[o + j]], om, st->k1, st->b, st->avgdl,
+          k1p1);
+    }
+    o += cnt;
+  }
+  e->sorted_desc = e->contrib;
+  std::sort(e->sorted_desc.begin(), e->sorted_desc.end(),
+            std::greater<double>());
+  return true;
+}
+
+// cached entry for a term, decoding + scoring on miss.  The cap sweep
+// happens ONLY between queries (callers resolve all entries up front),
+// so pointers into the node-based map never dangle mid-query.
+ServeTermEntry* ServeGetEntry(ServeState* st, int32_t term, double idf) {
+  auto it = st->cache.find(term);
+  if (it != st->cache.end()) {
+    if (it->second.idf == idf) return &it->second;
+    st->cache.erase(it);  // idf changed (corpus override): rescore
+  }
+  // fill a local entry first: a bad_alloc mid-fill must never leave a
+  // half-built entry behind for the next query to trust
+  ServeTermEntry tmp;
+  if (!ServeFillEntry(st, term, idf, &tmp)) return nullptr;
+  ServeTermEntry* e = &st->cache[term];
+  *e = std::move(tmp);
+  return e;
+}
+
+// first index in a[lo, hi) with a[i] >= key (galloping from lo: the
+// serve walks probe ascending keys, so lo is monotone)
+template <typename T>
+inline int64_t ServeGallopLower(const T* a, int64_t lo, int64_t hi,
+                                T key) {
+  if (lo >= hi || a[lo] >= key) return lo;
+  int64_t prev = lo, step = 1;
+  while (lo + step < hi && a[lo + step] < key) {
+    prev = lo + step;
+    step <<= 1;
+  }
+  int64_t l = prev + 1, h = std::min(lo + step, hi);
+  while (l < h) {
+    const int64_t mid = (l + h) >> 1;
+    if (a[mid] < key) l = mid + 1; else h = mid;
+  }
+  return l;
+}
+
+// quantized per-block score column (u8 or u16-LE per score_bits)
+inline uint32_t ServeScoreCol(const uint8_t* p, int score_bits,
+                              int64_t i) {
+  if (score_bits == 8) return p[i];
+  return static_cast<uint32_t>(p[2 * i])
+      | (static_cast<uint32_t>(p[2 * i + 1]) << 8);
+}
+
+// per-block BM25 upper bound — mirror of planner.block_upper_bounds:
+// evaluate the contribution at (max tf, min dl); a saturated max-tf
+// cell takes the tf->inf limit idf*(k1+1)
+inline double ServeBlockUb(const ServeState& st, int64_t b, double idf) {
+  const uint32_t cap = (1u << st.score_bits) - 1;
+  const uint32_t mtf = ServeScoreCol(st.blk_max_tf, st.score_bits, b);
+  if (mtf >= cap) return idf * (st.k1 + 1.0);
+  const uint32_t mdl = ServeScoreCol(st.blk_min_dl, st.score_bits, b);
+  return ServeContrib(idf, static_cast<double>(mtf),
+                      static_cast<double>(mdl), 1.0 - st.b, st.k1,
+                      st.b, st.avgdl, st.k1 + 1.0);
+}
+
+struct ServeHit {
+  double score;
+  int32_t doc;
+};
+
+inline bool ServeHitBetter(const ServeHit& a, const ServeHit& b) {
+  if (a.score != b.score) return a.score > b.score;
+  return a.doc < b.doc;
+}
+
+// top-k selection with the oracle's order: score descending, ties by
+// ascending doc id (np.lexsort((cand, -scores)) semantics)
+inline int64_t ServeSelectTopK(std::vector<ServeHit>* hits, int32_t k,
+                               int32_t* out_docs, double* out_scores) {
+  if (static_cast<int64_t>(hits->size()) > k) {
+    std::nth_element(hits->begin(), hits->begin() + k, hits->end(),
+                     ServeHitBetter);
+    hits->resize(k);
+  }
+  std::sort(hits->begin(), hits->end(), ServeHitBetter);
+  const int64_t n = static_cast<int64_t>(hits->size());
+  for (int64_t j = 0; j < n; ++j) {
+    out_docs[j] = (*hits)[j].doc;
+    out_scores[j] = (*hits)[j].score;
+  }
+  return n;
+}
+
+//: per-query term view for the ranked evaluator
+struct ServeQTerm {
+  int32_t term = 0;
+  int32_t w = 0;             // occurrence count in the query
+  double idf = 0.0;
+  ServeTermEntry* e = nullptr;  // null: not decoded (bound-only)
+  double u = 0.0;            // w * (max contribution upper bound)
+  int64_t b0 = 0, b1 = 0;
+};
+
+// stream the union of one or two doc-ascending contribution lists,
+// calling f(score, doc) once per doc in ascending doc order.  Shared
+// docs sum list-0-then-list-1 (the oracle's occurrence order); with
+// ``dbl`` list 0 is a duplicated query term and every emit doubles
+// (c + c — exactly w * c for w == 2).  Sequential scans only: the
+// 1-2 term fast path runs through here with no dense accumulator,
+// no epoch marks, and no candidate vector.
+template <typename F>
+inline void ServeScan2(const int32_t* d0, const double* c0, int64_t n0,
+                       const int32_t* d1, const double* c1, int64_t n1,
+                       bool dbl, F&& f) {
+  int64_t i = 0, j = 0;
+  while (i < n0 && j < n1) {
+    const int32_t a = d0[i], b = d1[j];
+    if (a < b) {
+      f(c0[i], a);
+      ++i;
+    } else if (b < a) {
+      f(c1[j], b);
+      ++j;
+    } else {
+      f(c0[i] + c1[j], a);
+      ++i;
+      ++j;
+    }
+  }
+  if (dbl) {
+    for (; i < n0; ++i) f(c0[i] + c0[i], d0[i]);
+  } else {
+    for (; i < n0; ++i) f(c0[i], d0[i]);
+  }
+  for (; j < n1; ++j) f(c1[j], d1[j]);
+}
+
+}  // namespace
+
+extern "C" {
+
+void* mri_serve_new(
+    const int32_t* blk_max, const int32_t* blk_first,
+    const uint8_t* blk_width, const uint8_t* blk_tf_width,
+    const uint8_t* blk_max_tf, const uint8_t* blk_min_dl,
+    const uint32_t* post_words, const uint32_t* tf_words,
+    const double* doc_lens, const int64_t* term_block_off,
+    const int32_t* blk_cnt, const int64_t* blk_woff,
+    const int64_t* blk_tf_woff, int32_t vocab, int64_t num_blocks,
+    int32_t block_size, int32_t score_bits, int64_t num_docs,
+    double avgdl, double k1, double b, int32_t cache_cap) try {
+  if (vocab < 0 || num_blocks < 0 || num_docs < 0 || block_size < 2 ||
+      (block_size & (block_size - 1)) != 0 || avgdl <= 0.0)
+    return nullptr;
+  if (!blk_max || !blk_first || !blk_width || !blk_tf_width ||
+      !post_words || !tf_words || !doc_lens || !term_block_off ||
+      !blk_cnt || !blk_woff || !blk_tf_woff)
+    return nullptr;
+  if (score_bits != 0 && score_bits != 8 && score_bits != 16)
+    return nullptr;
+  ServeState* st = new ServeState();
+  st->blk_max = blk_max;
+  st->blk_first = blk_first;
+  st->blk_width = blk_width;
+  st->blk_tf_width = blk_tf_width;
+  st->blk_max_tf = blk_max_tf;
+  st->blk_min_dl = blk_min_dl;
+  st->post_words = post_words;
+  st->tf_words = tf_words;
+  st->doc_lens = doc_lens;
+  st->term_block_off = term_block_off;
+  st->blk_cnt = blk_cnt;
+  st->blk_woff = blk_woff;
+  st->blk_tf_woff = blk_tf_woff;
+  st->vocab = vocab;
+  st->num_blocks = num_blocks;
+  st->block_size = block_size;
+  st->score_bits = score_bits;
+  st->num_docs = num_docs;
+  st->avgdl = avgdl;
+  st->k1 = k1;
+  st->b = b;
+  st->cache_cap = std::max(cache_cap, 1);
+  st->acc.resize(num_docs, 0.0);
+  st->mark.resize(num_docs, 0u);
+  st->vals.resize(block_size);
+  st->blk_ids.resize(block_size);
+  st->blk_tf.resize(block_size);
+  return st;
+} catch (const std::bad_alloc&) {
+  return nullptr;
+}
+
+void mri_serve_free(void* h) {
+  delete static_cast<ServeState*>(h);
+}
+
+// decode the selected global block indices: out_ids is (n, block_size)
+// int32 row-major, entries past a block's count repeating its last
+// real doc id; out_tf (optional) likewise with 1s past the count —
+// both exactly the numpy Artifact.decode_blocks /decode_tf_blocks
+// padding so callers can swap backends per call.
+int32_t mri_serve_decode_blocks(void* h, const int64_t* sel, int64_t n,
+                                int32_t* out_ids, int32_t* out_tf,
+                                int32_t* out_cnt) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !sel || n < 0 || !out_ids || !out_cnt) return -1;
+  const int B = st->block_size;
+  for (int64_t r = 0; r < n; ++r) {
+    if (sel[r] < 0 || sel[r] >= st->num_blocks) return -1;
+    // 3-distance prefetch on the random block walk: geometry rows far
+    // ahead, posting payloads nearer, tf payloads last
+    if (r + 8 < n) {
+      __builtin_prefetch(&st->blk_woff[sel[r + 8]]);
+      __builtin_prefetch(&st->blk_first[sel[r + 8]]);
+    }
+    if (r + 2 < n)
+      __builtin_prefetch(st->post_words + st->blk_woff[sel[r + 2]]);
+    if (out_tf && r + 1 < n)
+      __builtin_prefetch(st->tf_words + st->blk_tf_woff[sel[r + 1]]);
+    int32_t* row = out_ids + r * B;
+    const int cnt = ServeDecodeIds(*st, sel[r], row);
+    const int32_t last = row[cnt - 1];
+    for (int j = cnt; j < B; ++j) row[j] = last;
+    if (out_tf) {
+      int32_t* trow = out_tf + r * B;
+      ServeDecodeTf(*st, sel[r], cnt, trow);
+      for (int j = cnt; j < B; ++j) trow[j] = 1;
+    }
+    out_cnt[r] = cnt;
+  }
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// decode one whole term: ascending doc ids (+ aligned tfs when out_tf
+// is non-null); returns df, or a negative error
+int64_t mri_serve_decode_postings(void* h, int32_t term,
+                                  int32_t* out_docs, int32_t* out_tf) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !out_docs || term < 0 || term >= st->vocab) return -1;
+  const int64_t b0 = st->term_block_off[term];
+  const int64_t b1 = st->term_block_off[term + 1];
+  int64_t o = 0;
+  for (int64_t bb = b0; bb < b1; ++bb) {
+    ServePrefetchBlocks(*st, bb, b1);
+    const int cnt = ServeDecodeIds(*st, bb, out_docs + o);
+    if (out_tf) ServeDecodeTf(*st, bb, cnt, out_tf + o);
+    o += cnt;
+  }
+  return o;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// intersect the ascending candidate list against one term: blk_max
+// routes each candidate to the single block that could hold it
+// (galloping, monotone), only those blocks are ever bit-unpacked, and
+// the in-block probe gallops too.  Returns the surviving count;
+// stats2 = {blocks decoded, blocks skipped}.
+int64_t mri_serve_and(void* h, const int32_t* cand, int64_t n,
+                      int32_t term, int32_t* out, int64_t* stats2) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || (!cand && n > 0) || n < 0 || !out || !stats2 ||
+      term < 0 || term >= st->vocab)
+    return -1;
+  const int64_t b0 = st->term_block_off[term];
+  const int64_t b1 = st->term_block_off[term + 1];
+  int64_t lo_blk = b0, cur_blk = -1, decoded = 0, m = 0, pos = 0;
+  int cur_cnt = 0;
+  for (int64_t t = 0; t < n; ++t) {
+    const int32_t c = cand[t];
+    lo_blk = ServeGallopLower(st->blk_max, lo_blk, b1, c);
+    if (lo_blk >= b1) break;
+    if (lo_blk != cur_blk) {
+      if (lo_blk + 1 < b1)
+        __builtin_prefetch(st->post_words + st->blk_woff[lo_blk + 1]);
+      cur_cnt = ServeDecodeIds(*st, lo_blk, st->blk_ids.data());
+      cur_blk = lo_blk;
+      ++decoded;
+      pos = 0;
+    }
+    pos = ServeGallopLower(st->blk_ids.data(), pos,
+                           static_cast<int64_t>(cur_cnt), c);
+    if (pos < cur_cnt && st->blk_ids[pos] == c) out[m++] = c;
+  }
+  stats2[0] = decoded;
+  stats2[1] = (b1 - b0) - decoded;
+  return m;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// BM25 top-k over the query's occurrence list (occ[i] = lex index of
+// the i-th scoring occurrence, absent terms already dropped; idf_occ
+// aligned).  mode: 0 exhaustive, 1 block-max WAND, 2 MaxScore.
+// Returns the result count (<= k), writing (doc, score) best-first
+// with ties doc-ascending — byte-identical to the numpy Engine's
+// top_k_scored.  stats3 = {blocks scored, blocks skipped, candidates}.
+int64_t mri_serve_topk_bm25(void* h, const int32_t* occ, int32_t n_occ,
+                            const double* idf_occ, int32_t k,
+                            int32_t mode, int32_t* out_docs,
+                            double* out_scores, int64_t* stats3) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !occ || !idf_occ || !out_docs || !out_scores || !stats3 ||
+      n_occ < 0 || mode < 0 || mode > 2)
+    return -1;
+  stats3[0] = stats3[1] = stats3[2] = 0;
+  if (n_occ == 0 || k <= 0) return 0;
+  for (int32_t i = 0; i < n_occ; ++i)
+    if (occ[i] < 0 || occ[i] >= st->vocab) return -1;
+  if (mode != 0 && (!st->blk_max_tf || !st->blk_min_dl ||
+                    st->score_bits == 0))
+    mode = 0;  // no bound columns: prune nothing, score everything
+  // cap sweep BEFORE any entry pointer is taken (mirrors the numpy
+  // memo's clear-at-cap; unordered_map nodes are stable under insert,
+  // so held pointers survive the fills below)
+  if (static_cast<int64_t>(st->cache.size()) + n_occ >
+      static_cast<int64_t>(st->cache_cap))
+    st->cache.clear();
+
+  const double margin = kServeThetaMargin;
+
+  // ---- fast path: <= 2 scoring occurrences ---------------------------
+  // sums of one or two floats are order-independent, and w*c == c+c
+  // exactly for w == 2, so a single dense accumulate in occurrence
+  // order already carries the exhaustive bits.  The Zipf-head query mix
+  // lives here, so the path is allocation-free: entries resolve into
+  // the node-stable cache and the selection runs as a bounded insertion
+  // into a stack array (same strict (score desc, doc asc) order as
+  // ServeSelectTopK) whenever k fits.
+  if (n_occ <= 2) {
+    ServeTermEntry* e0 = ServeGetEntry(st, occ[0], idf_occ[0]);
+    if (!e0) return -3;
+    const bool dup = n_occ == 2 && occ[1] == occ[0];
+    ServeTermEntry* e1 = nullptr;
+    if (n_occ == 2) {
+      e1 = dup ? e0 : ServeGetEntry(st, occ[1], idf_occ[1]);
+      if (!e1) return -3;
+    }
+    // theta seed: the best k-th single-term contribution is a floor on
+    // the k-th best final score (contributions are positive)
+    double theta = 0.0;
+    if (static_cast<int64_t>(e0->sorted_desc.size()) >= k) {
+      theta = e0->sorted_desc[k - 1];
+      if (dup) theta = 2.0 * theta;
+    }
+    if (e1 && !dup &&
+        static_cast<int64_t>(e1->sorted_desc.size()) >= k) {
+      const double t = e1->sorted_desc[k - 1];
+      if (t > theta) theta = t;
+    }
+    const double thr = theta * margin;
+    // union scores stream out of a sequential two-pointer merge (the
+    // lists are doc-ascending) — see ServeScan2.  Emission order is
+    // doc-ascending, so the bounded insertion below lands the same
+    // strict (score desc, doc asc) order as ServeSelectTopK.
+    const int32_t* d0 = e0->docs.data();
+    const double* c0 = e0->contrib.data();
+    const int64_t n0 = static_cast<int64_t>(e0->docs.size());
+    const bool two = e1 != nullptr && !dup;
+    const int32_t* d1 = two ? e1->docs.data() : nullptr;
+    const double* c1 = two ? e1->contrib.data() : nullptr;
+    const int64_t n1 = two ? static_cast<int64_t>(e1->docs.size()) : 0;
+    int64_t npass = 0;
+    if (k <= kServeStackK) {
+      ServeHit top[kServeStackK];
+      int32_t nk = 0;
+      ServeScan2(d0, c0, n0, d1, c1, n1, dup, [&](double s, int32_t d) {
+        if (theta > 0.0 && s < thr) return;
+        ++npass;
+        if (nk == k && !(s > top[k - 1].score ||
+                         (s == top[k - 1].score && d < top[k - 1].doc)))
+          return;
+        int32_t p = nk < k ? nk : k - 1;
+        while (p > 0 && (top[p - 1].score < s ||
+                         (top[p - 1].score == s && top[p - 1].doc > d))) {
+          top[p] = top[p - 1];
+          --p;
+        }
+        top[p] = ServeHit{s, d};
+        if (nk < k) ++nk;
+      });
+      stats3[2] = npass;
+      for (int32_t j = 0; j < nk; ++j) {
+        out_docs[j] = top[j].doc;
+        out_scores[j] = top[j].score;
+      }
+      return nk;
+    }
+    std::vector<ServeHit> big;
+    big.reserve(static_cast<size_t>(n0 + n1));
+    ServeScan2(d0, c0, n0, d1, c1, n1, dup, [&](double s, int32_t d) {
+      if (theta <= 0.0 || s >= thr) big.push_back(ServeHit{s, d});
+    });
+    stats3[2] = static_cast<int64_t>(big.size());
+    return ServeSelectTopK(&big, k, out_docs, out_scores);
+  }
+
+  // unique terms in first-occurrence order
+  std::vector<ServeQTerm> qt;
+  qt.reserve(n_occ);
+  for (int32_t i = 0; i < n_occ; ++i) {
+    bool seen = false;
+    for (ServeQTerm& q : qt)
+      if (q.term == occ[i]) {
+        ++q.w;
+        seen = true;
+        break;
+      }
+    if (seen) continue;
+    ServeQTerm q;
+    q.term = occ[i];
+    q.w = 1;
+    q.idf = idf_occ[i];
+    q.b0 = st->term_block_off[q.term];
+    q.b1 = st->term_block_off[q.term + 1];
+    qt.push_back(q);
+  }
+  std::vector<ServeHit> hits;
+
+  // ---- exhaustive (3+ occurrences) -----------------------------------
+  if (mode == 0) {
+    for (ServeQTerm& q : qt) {
+      q.e = ServeGetEntry(st, q.term, q.idf);
+      if (!q.e) return -3;
+    }
+    const uint32_t ep = ServeNextEpoch(st);
+    st->cand.clear();
+    // dense accumulate per OCCURRENCE in occurrence order — the
+    // oracle's exact float addition order (duplicate terms add their
+    // contribution once per occurrence, not w-multiplied)
+    for (int32_t i = 0; i < n_occ; ++i) {
+      const ServeTermEntry* e = nullptr;
+      for (const ServeQTerm& q : qt)
+        if (q.term == occ[i]) {
+          e = q.e;
+          break;
+        }
+      const int64_t df = static_cast<int64_t>(e->docs.size());
+      for (int64_t j = 0; j < df; ++j) {
+        const int32_t d = e->docs[j];
+        if (st->mark[d] != ep) {
+          st->mark[d] = ep;
+          st->acc[d] = e->contrib[j];
+          st->cand.push_back(d);
+        } else {
+          st->acc[d] += e->contrib[j];
+        }
+      }
+    }
+    hits.reserve(st->cand.size());
+    for (const int32_t d : st->cand)
+      hits.push_back(ServeHit{st->acc[d], d});
+    const int64_t n = ServeSelectTopK(&hits, k, out_docs, out_scores);
+    stats3[2] = n;
+    return n;
+  }
+
+  // ---- BMW / MaxScore (3+ occurrences) -------------------------------
+  // Terms sort by descending weighted upper bound; while the remaining
+  // bounds can still reach theta a term is essential (every posting
+  // admitted), past that point no new candidate can enter the top k.
+  // Survivor scores are then re-accumulated in occurrence order, so
+  // the output carries the exhaustive bits.
+  int64_t scored_blocks = 0, skipped_blocks = 0;
+  double theta = 0.0;
+  for (ServeQTerm& q : qt) {
+    auto it = st->cache.find(q.term);
+    if (it != st->cache.end() && it->second.idf == q.idf) {
+      q.e = &it->second;
+      const std::vector<double>& srt = q.e->sorted_desc;
+      q.u = srt.empty() ? 0.0
+          : static_cast<double>(q.w) * srt[0];
+      if (static_cast<int64_t>(srt.size()) >= k) {
+        const double t = static_cast<double>(q.w) * srt[k - 1];
+        if (t > theta) theta = t;
+      }
+    } else {
+      double umax = 0.0;
+      for (int64_t bb = q.b0; bb < q.b1; ++bb) {
+        const double ub = ServeBlockUb(*st, bb, q.idf);
+        if (ub > umax) umax = ub;
+      }
+      q.u = static_cast<double>(q.w) * umax;
+    }
+  }
+  std::vector<int32_t> order(qt.size());
+  for (size_t p = 0; p < qt.size(); ++p)
+    order[p] = static_cast<int32_t>(p);
+  std::sort(order.begin(), order.end(), [&](int32_t a, int32_t bq) {
+    if (qt[a].u != qt[bq].u) return qt[a].u > qt[bq].u;
+    return qt[a].term < qt[bq].term;
+  });
+  const size_t nt = qt.size();
+  std::vector<double> suffix(nt + 1, 0.0);
+  for (size_t p = nt; p-- > 0;)
+    suffix[p] = suffix[p + 1] + qt[order[p]].u;
+
+  const uint32_t ep = ServeNextEpoch(st);
+  st->cand.clear();
+  size_t boundary = nt;
+  for (size_t p = 0; p < nt; ++p) {
+    if (theta > 0.0 && suffix[p] < theta * margin) {
+      boundary = p;
+      break;
+    }
+    ServeQTerm& q = qt[order[p]];
+    if (!q.e) {
+      q.e = ServeGetEntry(st, q.term, q.idf);
+      if (!q.e) return -3;
+    }
+    scored_blocks += q.b1 - q.b0;
+    const double w = static_cast<double>(q.w);
+    const int64_t df = static_cast<int64_t>(q.e->docs.size());
+    for (int64_t j = 0; j < df; ++j) {
+      const int32_t d = q.e->docs[j];
+      const double add = q.w == 1 ? q.e->contrib[j]
+                                  : w * q.e->contrib[j];
+      if (st->mark[d] != ep) {
+        st->mark[d] = ep;
+        st->acc[d] = add;
+        st->cand.push_back(d);
+      } else {
+        st->acc[d] += add;
+      }
+    }
+    // dynamic theta: the k-th best partial is a floor on the k-th
+    // best final score (remaining contributions only add)
+    if (static_cast<int64_t>(st->cand.size()) >= k) {
+      st->partial.clear();
+      st->partial.reserve(st->cand.size());
+      for (const int32_t d : st->cand)
+        st->partial.push_back(st->acc[d]);
+      std::nth_element(st->partial.begin(), st->partial.begin() + (k - 1),
+                       st->partial.end(), std::greater<double>());
+      const double kth = st->partial[k - 1];
+      if (kth > theta) theta = kth;
+    }
+  }
+  // drop candidates that provably cannot reach theta even with every
+  // remaining (non-essential) term's full bound
+  const double tail = suffix[boundary];
+  const double thr = theta * margin;
+  std::vector<int32_t>& cands = st->cand;
+  if (theta > 0.0) {
+    size_t m = 0;
+    for (const int32_t d : cands)
+      if (st->acc[d] + tail >= thr) cands[m++] = d;
+    cands.resize(m);
+  }
+  std::sort(cands.begin(), cands.end());
+  stats3[2] = static_cast<int64_t>(cands.size());
+
+  // exact rescore in occurrence order = the exhaustive addition order
+  std::vector<double> scores(cands.size(), 0.0);
+  const double om = 1.0 - st->b;
+  const double k1p1 = st->k1 + 1.0;
+  std::vector<bool> counted(nt, false);
+  for (int32_t i = 0; i < n_occ && !cands.empty(); ++i) {
+    ServeQTerm* q = nullptr;
+    size_t qpos = 0;
+    for (size_t p = 0; p < nt; ++p)
+      if (qt[p].term == occ[i]) {
+        q = &qt[p];
+        qpos = p;
+        break;
+      }
+    if (q->e) {
+      // gallop-probe the term's decoded run at each candidate
+      const int32_t* docs = q->e->docs.data();
+      const int64_t df = static_cast<int64_t>(q->e->docs.size());
+      int64_t pos = 0;
+      int64_t touched = 0, last_blk = -1;
+      const int shift = __builtin_ctz(st->block_size);
+      for (size_t j = 0; j < cands.size(); ++j) {
+        pos = ServeGallopLower(docs, pos, df, cands[j]);
+        if (pos >= df) break;
+        if (docs[pos] == cands[j]) {
+          scores[j] += q->e->contrib[pos];
+          const int64_t blk = pos >> shift;
+          if (blk != last_blk) {
+            ++touched;
+            last_blk = blk;
+          }
+        }
+      }
+      if (!counted[qpos]) {
+        counted[qpos] = true;
+        bool essential = false;
+        for (size_t p = 0; p < boundary; ++p)
+          if (order[p] == static_cast<int32_t>(qpos)) {
+            essential = true;
+            break;
+          }
+        if (!essential) {
+          // probe economy of a memoized non-essential term
+          scored_blocks += touched;
+          skipped_blocks += (q->b1 - q->b0) - touched;
+        }
+      }
+    } else {
+      // never decoded: route candidates through blk_max, decode only
+      // the blocks they land in, score those postings on the fly with
+      // the same expression (elementwise bit-equal to a full decode)
+      int64_t lo_blk = q->b0, cur_blk = -1, decoded = 0, pos = 0;
+      int cur_cnt = 0;
+      for (size_t j = 0; j < cands.size(); ++j) {
+        const int32_t c = cands[j];
+        lo_blk = ServeGallopLower(st->blk_max, lo_blk, q->b1, c);
+        if (lo_blk >= q->b1) break;
+        if (lo_blk != cur_blk) {
+          cur_cnt = ServeDecodeIds(*st, lo_blk, st->blk_ids.data());
+          if (st->blk_ids[0] < 0 ||
+              st->blk_ids[cur_cnt - 1] >= st->num_docs)
+            return -3;
+          ServeDecodeTf(*st, lo_blk, cur_cnt, st->blk_tf.data());
+          cur_blk = lo_blk;
+          ++decoded;
+          pos = 0;
+        }
+        pos = ServeGallopLower(st->blk_ids.data(), pos,
+                               static_cast<int64_t>(cur_cnt), c);
+        if (pos < cur_cnt && st->blk_ids[pos] == c) {
+          scores[j] += ServeContrib(
+              q->idf, static_cast<double>(st->blk_tf[pos]),
+              st->doc_lens[c], om, st->k1, st->b, st->avgdl, k1p1);
+        }
+      }
+      if (!counted[qpos]) {
+        counted[qpos] = true;
+        scored_blocks += decoded;
+        skipped_blocks += (q->b1 - q->b0) - decoded;
+      }
+    }
+  }
+  hits.reserve(cands.size());
+  for (size_t j = 0; j < cands.size(); ++j)
+    if (scores[j] > 0.0)
+      hits.push_back(ServeHit{scores[j], cands[j]});
+  stats3[0] = scored_blocks;
+  stats3[1] = skipped_blocks;
+  return ServeSelectTopK(&hits, k, out_docs, out_scores);
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// register reusable ranked-path output buffers on the handle — the
+// warm-query entry points below then take only scalar arguments, so
+// ctypes marshals 4 integers instead of 9 mixed pointers per call
+// (argument conversion is a measurable share of a warm ranked query)
+int64_t mri_serve_set_topk_out(void* h, int32_t* out_docs,
+                               double* out_scores, int64_t* stats3) {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !out_docs || !out_scores || !stats3) return -1;
+  st->out_docs = out_docs;
+  st->out_scores = out_scores;
+  st->out_stats = stats3;
+  return 0;
+}
+
+// freeze one query's (occ, idf) argument arrays into the handle;
+// returns a prep id (>= 1) for mri_serve_topk_run, < 0 on error
+int64_t mri_serve_topk_prep(void* h, const int32_t* occ, int32_t n_occ,
+                            const double* idf_occ) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !occ || !idf_occ || n_occ <= 0) return -1;
+  for (int32_t i = 0; i < n_occ; ++i)
+    if (occ[i] < 0 || occ[i] >= st->vocab) return -1;
+  const int64_t id = st->next_prep++;
+  ServePrep& p = st->preps[id];
+  p.occ.assign(occ, occ + n_occ);
+  p.idf.assign(idf_occ, idf_occ + n_occ);
+  return id;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// drop every prepared query (the engine clears its prep memo at the
+// same cap as its other per-query memos)
+int64_t mri_serve_topk_prep_clear(void* h) {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st) return -1;
+  st->preps.clear();
+  return 0;
+}
+
+// drop one prepared query (un-memoizable one-shot callers)
+int64_t mri_serve_topk_prep_free(void* h, int64_t prep) {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st) return -1;
+  st->preps.erase(prep);
+  return 0;
+}
+
+// ranked query over a prepared id, writing into the buffers registered
+// by mri_serve_set_topk_out
+int64_t mri_serve_topk_run(void* h, int64_t prep, int32_t k,
+                           int32_t mode) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !st->out_docs) return -1;
+  auto it = st->preps.find(prep);
+  if (it == st->preps.end()) return -1;
+  const ServePrep& p = it->second;
+  return mri_serve_topk_bm25(h, p.occ.data(),
+                             static_cast<int32_t>(p.occ.size()),
+                             p.idf.data(), k, mode, st->out_docs,
+                             st->out_scores, st->out_stats);
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// coalesced ranked batch: answer nq prepared queries in ONE library
+// crossing.  Query i writes its hits at out_docs/out_scores[i * k]
+// and its hit count into out_n[i]; stats3 accumulates the batch's
+// block economy (blocks scored, blocks skipped, candidates) across
+// all queries.  Every query must resolve to a valid prep id — any
+// failure returns < 0 and the caller re-runs the batch per query.
+int64_t mri_serve_topk_batch(void* h, const int64_t* preps,
+                             const int32_t* modes, int32_t nq,
+                             int32_t k, int32_t* out_docs,
+                             double* out_scores, int32_t* out_n,
+                             int64_t* stats3) try {
+  ServeState* st = static_cast<ServeState*>(h);
+  if (!st || !preps || !modes || !out_docs || !out_scores || !out_n ||
+      !stats3 || nq <= 0 || k <= 0)
+    return -1;
+  stats3[0] = stats3[1] = stats3[2] = 0;
+  int64_t q_stats[3];
+  for (int32_t i = 0; i < nq; ++i) {
+    auto it = st->preps.find(preps[i]);
+    if (it == st->preps.end()) return -1;
+    const ServePrep& p = it->second;
+    const int64_t n = mri_serve_topk_bm25(
+        h, p.occ.data(), static_cast<int32_t>(p.occ.size()),
+        p.idf.data(), k, modes[i], out_docs + int64_t{i} * k,
+        out_scores + int64_t{i} * k, q_stats);
+    if (n < 0) return n;
+    out_n[i] = static_cast<int32_t>(n);
+    stats3[0] += q_stats[0];
+    stats3[1] += q_stats[1];
+    stats3[2] += q_stats[2];
+  }
+  return nq;
+} catch (const std::bad_alloc&) {
+  return -2;
 }
 
 }  // extern "C"

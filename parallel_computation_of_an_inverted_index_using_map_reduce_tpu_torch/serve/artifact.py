@@ -784,6 +784,44 @@ def device_columns(art: Artifact) -> dict:
     return cols
 
 
+def serve_columns(art: Artifact) -> dict:
+    """Zero-copy column views for the native serve kernels (the host
+    engine's ``NativeServe``): every entry is a view into the artifact's
+    map, or a geometry array the loader built, so the dict is valid only
+    while the artifact is open.  The native unpack reads one u32 word
+    past each block's payload; that read stays in the file because the
+    v2 layout puts ``tf_data`` / ``doc_lens`` / ``df_order`` after
+    ``post_data`` and ``doc_lens`` / ``df_order`` after ``tf_data``, so
+    no pad word is added — and a trimmed copy (``np.fromfile``,
+    ``.copy()``) must never stand in for a view.  ``blk_max_tf`` /
+    ``blk_min_dl`` go as raw bytes (``None`` on plain v2): the C side
+    reads u8 or u16-LE by ``score_bits``.
+    """
+    if art.version < VERSION_V2:
+        raise ArtifactError(
+            f"{art.path}: native serve kernels need a v2+ artifact "
+            f"(got version {art.version})")
+    has_scores = art.score_bits != 0
+    return {
+        "blk_max": art.blk_max,
+        "blk_first": art.blk_first,
+        "blk_width": art.blk_width,
+        "blk_tf_width": art.blk_tf_width,
+        "blk_max_tf": art.blk_max_tf.view(np.uint8) if has_scores else None,
+        "blk_min_dl": art.blk_min_dl.view(np.uint8) if has_scores else None,
+        "post_words": art.post_words,
+        "tf_words": art.tf_words,
+        "term_block_off": art.term_block_off,
+        "blk_cnt": art.blk_cnt,
+        "blk_woff": art.blk_woff,
+        "blk_tf_woff": art.blk_tf_woff,
+        "vocab": art.vocab,
+        "num_blocks": art.num_blocks,
+        "block_size": art.block_size,
+        "score_bits": art.score_bits,
+    }
+
+
 def bm25_corpus(art: Artifact) -> tuple[np.ndarray, int, float]:
     """``(doc_lens float64, ndocs, avgdl)`` for BM25 scoring.
 

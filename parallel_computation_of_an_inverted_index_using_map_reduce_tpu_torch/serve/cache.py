@@ -1,34 +1,118 @@
-"""The hot-term posting cache's counters (the JAX package's
-``serve/cache.py`` ``LRUCache``), as far as the device engine uses it.
+"""LRU hot-term cache for decoded posting runs (the JAX package's
+``serve/cache.py``).
 
-The device engine decodes on the card and never fills the cache; it
-keeps one so ``describe()["cache"]`` has the JAX keys.  The lookups and
-the LRU eviction arrive with the host engine (ROADMAP A9c).
+The artifact stores postings delta-encoded; decoding is one cumsum per
+term.  Under a Zipf workload a few hundred hot terms cover most lookups,
+so the engine keeps their decoded arrays here — bounded by entry count
+(hot terms are the frequent ones, so bounding by count bounds bytes by
+roughly ``capacity * mean_hot_df * 4``).
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
+from ..obs import attribution as obs_attrib
 from ..obs import metrics as obs_metrics
+
+_MISSING = object()
 
 
 class LRUCache:
-    """An empty cache of ``capacity`` entries with hit/miss/eviction
-    counters on a registry."""
+    """Ordered-dict LRU with hit/miss counters.
 
-    def __init__(self, capacity: int, *, registry: obs_metrics.Registry | None = None,
-                 prefix: str = "mri_cache", max_bytes: int = 0):
+    Thread-safe: the serve daemon shares one Engine (and therefore one
+    cache) across every connection, so ``get``/``put`` race between the
+    dispatcher and admin-stat readers.  A plain lock around the tiny
+    OrderedDict ops costs ~100ns — noise next to the postings cumsum
+    the cache exists to skip.
+    """
+
+    def __init__(self, capacity: int, *,
+                 registry: obs_metrics.Registry | None = None,
+                 prefix: str = "mri_cache"):
         if capacity < 0:
             raise ValueError(f"cache capacity must be >= 0, got {capacity}")
-        if max_bytes < 0:
-            raise ValueError(f"cache max_bytes must be >= 0, got {max_bytes}")
         self.capacity = capacity
-        self.max_bytes = max_bytes
+        self._data: OrderedDict = OrderedDict()  # guarded by: self._lock
+        self._lock = threading.Lock()
+        # hit/miss/eviction tallies are obs counters (each with its own
+        # lock) so the engine's registry exposes them in the Prometheus
+        # text; ``registry=None`` keeps them private to this cache.
         reg = registry if registry is not None else obs_metrics.Registry()
+        self._prefix = prefix
         self._hits = reg.counter(f"{prefix}_hits_total")
         self._misses = reg.counter(f"{prefix}_misses_total")
         self._evictions = reg.counter(f"{prefix}_evictions_total")
 
+    @property
+    def hits(self) -> int:
+        return self._hits.value
+
+    @property
+    def misses(self) -> int:
+        return self._misses.value
+
+    @property
+    def evictions(self) -> int:
+        return self._evictions.value
+
+    def get(self, key, default=None):
+        # the attribution feed sits beside the counter inc it mirrors:
+        # the per-request cache tally can never drift from the registry
+        coll = obs_attrib.active()
+        with self._lock:
+            value = self._data.get(key, _MISSING)
+            if value is _MISSING:
+                self._misses.inc()
+                if coll is not None:
+                    coll.cache_event(key, False, self._prefix)
+                return default
+            self._data.move_to_end(key)
+            self._hits.inc()
+        if coll is not None:
+            coll.cache_event(key, True, self._prefix)
+        return value
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            if self.capacity == 0:
+                return
+            if key in self._data:
+                self._data.move_to_end(key)
+            self._data[key] = value
+            while len(self._data) > self.capacity:
+                self._data.popitem(last=False)
+                self._evictions.inc()
+
+    def peek(self, key, default=None):
+        """``get`` without recency promotion or hit/miss accounting —
+        for callers that only want to know whether paying the decode
+        can be avoided (e.g. the v2 skip-AND arm)."""
+        with self._lock:
+            value = self._data.get(key, _MISSING)
+            return default if value is _MISSING else value
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._data)
+
+    def __contains__(self, key) -> bool:  # no counter side effects
+        with self._lock:
+            return key in self._data
+
+    def purge(self) -> int:
+        """Drop every entry but keep the cumulative hit/miss/eviction
+        tallies — the invalidation path, where history must survive the
+        flush.  Returns the number of entries dropped."""
+        with self._lock:
+            n = len(self._data)
+            self._data.clear()
+        return n
+
     def clear(self) -> None:
+        self.purge()
         self._hits.reset()
         self._misses.reset()
         self._evictions.reset()
@@ -36,11 +120,15 @@ class LRUCache:
     def stats(self) -> dict:
         hits, misses = self._hits.value, self._misses.value
         total = hits + misses
+        with self._lock:
+            entries = len(self._data)
+        # "bytes" and "max_bytes" keep the JAX stats' keys: its byte bound
+        # is set by none of the engines, so both are always 0 there too
         return {
             "capacity": self.capacity,
-            "entries": 0,
+            "entries": entries,
             "bytes": 0,
-            "max_bytes": self.max_bytes,
+            "max_bytes": 0,
             "hits": hits,
             "misses": misses,
             "evictions": self._evictions.value,

@@ -656,7 +656,7 @@ class DeviceEngine:
                 widf_parts.append(np.full(len(sel), np.float32(idf), np.float32))
         if not bl_parts:
             self._c_blocks_skipped.inc(nb_total)
-            self.planner.note_ranked(mode, 0, nb_total)
+            self.planner.note_ranked(mode, 0, nb_total, 0, backend="torch")
             return []
         bl = np.concatenate(bl_parts).astype(np.int32)
         widf = np.concatenate(widf_parts)
@@ -674,7 +674,7 @@ class DeviceEngine:
             self._d_blk_tf_width, self._d_blk_tf_woff, self._d_tf_words,
             self._upload(bl), self._upload(cnt), self._upload(widf), doc_lens_d, avgdl,
             k=k_eff, block_size=self._block_size, segments=segments)
-        self.planner.note_ranked(mode, S, nb_total - S)
+        self.planner.note_ranked(mode, S, nb_total - S, 0, backend="torch")
         ids, vals = self._fetch(ids, vals)
         return [(int(d), float(s)) for d, s in zip(ids, vals) if s > 0.0]
 
@@ -690,13 +690,13 @@ class DeviceEngine:
             D = int(doc_lens.shape[0])
             if k <= 0 or D == 0 or not found.any():
                 if k > 0:
-                    self.planner.note_ranked("exhaustive", 0, 0)
+                    self.planner.note_ranked("exhaustive", 0, 0, 0, backend="torch")
                 return []
             occ = idx[found]
             mode = self.planner.plan_ranked(self.artifact, dfv[found].tolist(), k)
             if mode != "exhaustive":
                 return self._top_k_scored_pruned(occ.tolist(), k, mode)
-            self.planner.note_ranked("exhaustive", 0, 0)
+            self.planner.note_ranked("exhaustive", 0, 0, 0, backend="torch")
             self._note_decode(occ)
             # duplicates accumulate (host parity): every found lane is a row
             n = dfv[found].astype(np.int32)

@@ -32,6 +32,16 @@ _KNOBS: dict[str, _Knob] = {
     # test hook: raise after this device-stream window (0: disabled)
     "MRI_TPU_STREAM_CRASH_AFTER_WINDOWS": _Knob(int, 0),
     # -- query serving --
+    # engine when 'query' gets no --engine flag: host, device or auto
+    # (validated by serve.engine.resolve_engine; unset: device)
+    "MRI_SERVE_ENGINE": _Knob(str, None),
+    # native (C++) serve kernels for v2 decode/AND/BM25: auto (on when
+    # the library loads), 1 (required: engine creation fails without
+    # it) or 0 (numpy only); answers are byte-identical either way
+    "MRI_SERVE_NATIVE": _Knob(str, "auto", choices=("auto", "0", "1")),
+    # --engine auto host->device batch-size crossover: unset probes it,
+    # 0 pins the host, N > 0 routes batches >= N to the device engine
+    "MRI_SERVE_CROSSOVER": _Knob(int, None, minimum=0),
     # artifact format the builders write: 1 (delta postings), 2 (block
     # bitpacked) or 3 (v2.1: v2 plus per-block max-score columns)
     "MRI_SERVE_FORMAT": _Knob(int, 3, choices=(1, 2, 3)),

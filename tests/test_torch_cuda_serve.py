@@ -5,8 +5,11 @@ df, postings, AND, OR and top-k equal at batches 1 to 8192; BM25 docs
 equal and scores within rel 1e-5 under each planner; BM25 bit-equal from
 run to run on the card; and every public op under
 ``torch.cuda.set_sync_debug_mode("error")``, so none waits for the card
-beyond its explicit fetches.  Every test needs a CUDA device and skips
-without one; none needs JAX:
+beyond its explicit fetches.  Then the router on the card: ``auto``
+with its device engine on ``cuda`` (small batches on the host, one probe
+at 8192, ``MRI_SERVE_CROSSOVER`` 1 and 0), ``create_engine``'s default
+and the ``query`` CLI's three engines printing the same bytes.  Every
+test needs a CUDA device and skips without one; none needs JAX:
 ``python -m pytest --noconftest tests/test_torch_cuda_serve.py -m cuda``."""
 
 import random
@@ -21,8 +24,11 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus
     synthetic as tsyn,
 )
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+    AutoEngine,
     DeviceEngine,
+    Engine,
     artifact as TA,
+    create_engine,
 )
 
 pytestmark = [pytest.mark.cuda, pytest.mark.serve]
@@ -176,3 +182,84 @@ def test_cuda_ops_never_wait_for_the_card(artifacts, kind, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
         eng.close()
+
+
+def _device_calls(auto):
+    dev = auto.device_engine
+    return 0 if dev is None else sum(v["calls"] for v in dev.op_stats().values())
+
+
+@pytest.mark.parametrize("kind", ["1", "3"])
+def test_cuda_auto_probe_and_routing(artifacts, kind, monkeypatch):
+    _need_cuda()
+    monkeypatch.delenv("MRI_SERVE_CROSSOVER", raising=False)
+    paths, vocabs = artifacts
+    vocab = vocabs[kind]
+    with AutoEngine(paths[kind]) as auto, Engine(paths[kind]) as host:
+        for n in (1, 32, 1024):
+            b = auto.encode_batch(_terms(vocab, n, n))
+            assert auto.df(b).tolist() == host.df(b).tolist()
+        assert auto.device_engine is None
+        b = auto.encode_batch(_terms(vocab, 8192, 9))
+        assert auto.df(b).tolist() == host.df(b).tolist()
+        d = auto.describe()["auto"]
+        assert d["device_ready"]
+        assert d["probe"]["batch"] == 8192 and d["probe"]["winner"] in ("host", "device")
+        assert auto.device_engine.describe()["device"]["platform"] == "cuda"
+        for g, h in zip(auto.postings(b[:500]), host.postings(b[:500])):
+            assert (g is None and h is None) or np.array_equal(g, h)
+        q = auto.encode_batch(vocab[:3])
+        assert auto.query_and(q).tolist() == host.query_and(q).tolist()
+        assert auto.top_k_scored(q, 10) == host.top_k_scored(q, 10)
+
+
+@pytest.mark.parametrize("kind", ["2", "3"])
+def test_cuda_auto_crossover_knob(artifacts, kind, monkeypatch):
+    _need_cuda()
+    paths, vocabs = artifacts
+    vocab = vocabs[kind]
+    monkeypatch.setenv("MRI_SERVE_CROSSOVER", "1")
+    with AutoEngine(paths[kind]) as auto, Engine(paths[kind]) as host:
+        for n in (1, 7, 64):
+            b = auto.encode_batch(_terms(vocab, n, n + 2))
+            before = _device_calls(auto)
+            assert auto.df(b).tolist() == host.df(b).tolist()
+            for g, h in zip(auto.postings(b), host.postings(b)):
+                assert (g is None and h is None) or np.array_equal(g, h)
+            assert _device_calls(auto) == before + 2
+    monkeypatch.setenv("MRI_SERVE_CROSSOVER", "0")
+    with AutoEngine(paths[kind]) as auto:
+        auto.df(auto.encode_batch(_terms(vocab, 8192, 1)))
+        assert auto.describe()["auto"]["device_ready"] is False
+
+
+def test_cuda_create_engine_default_is_the_card(artifacts, monkeypatch):
+    _need_cuda()
+    monkeypatch.delenv("MRI_SERVE_ENGINE", raising=False)
+    with create_engine(artifacts[0]["3"]) as eng:
+        assert type(eng) is DeviceEngine
+        assert eng.describe()["device"]["platform"] == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["1", "2", "3"])
+def test_cuda_query_cli_engines_print_the_same(artifacts, kind, monkeypatch):
+    _need_cuda()
+    import contextlib
+    import io
+
+    monkeypatch.delenv("MRI_SERVE_ENGINE", raising=False)
+    paths, vocabs = artifacts
+    vocab = vocabs[kind]
+    words = [vocab[3], "Zebra", "nope", vocab[-1], "x1y2", vocab[40], vocab[3]]
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tcli.main(argv)
+        return rc, out.getvalue()
+
+    for extra in ([], ["--op", "and"], ["--op", "or"], ["--top-k", "5", "--letter", "b"]):
+        got = {e: run(["query", str(paths[kind]), "--engine", e, *words, *extra])
+               for e in ("host", "device", "auto")}
+        assert got["host"][0] == 0 and got["host"][1]
+        assert got["host"] == got["device"] == got["auto"], extra
