@@ -90,7 +90,22 @@ Phases, each failing loudly (exit 1, no result line):
    per call and with the LRU purged before each call, and the auto
    engine's postings at 8192 on the probe's winner.  No kernel of
    ``csrc/``.
-11. Kernels: each CUDA kernel against its plain PyTorch version on the
+11. Path J — the multi-shard builds on Path B's corpus, each a
+   ``--device-shards 4`` CLI build with 4 logical shards on the one card
+   and its md5 equal to Path C's: J1 the pipelined plan with
+   ``--artifact`` (``index.mri`` byte-equal to Path H's v2.1), J2
+   ``--emit-ownership letter``, J3 ``--pipeline-chunk-docs 0 --skew``
+   (the one-shot ``dist_index``, ``bucket_histogram`` launched twice),
+   J4 ``--stream-chunk-docs 5000``, J5 ``--device-tokenize``, J6
+   ``--device-tokenize --emit-ownership letter``, J7 ``--device-tokenize
+   --stream-chunk-docs 2500``; each recorded by torch.profiler and
+   printed with ``device_shards``, ``dist_fetched_bytes``,
+   ``dist_valid_pairs``, peak device memory and the card.  Then the
+   exchange alone: ``dist_sort_prov_windows`` on distinct keys at Path
+   C's pair count, at n = 1, 2, 4 and 8 shards and capacity factors 2.0
+   and 0.25 (where the overflow retry must run), each equal to
+   ``sort_prov_chunks`` on one device, by CUDA events and the host clock.
+12. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -101,7 +116,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-12. Engine: the warm device time of each engine program a path runs, at
+13. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -110,6 +125,10 @@ Phases, each failing loudly (exit 1, no result line):
    and by CUDA events; and one DeviceStreamEngine.feed of Path F's last
    window, synchronized after each stage (upload, window_rows, merge),
    with the warm time of the finalize program on Path F's accumulator.
+
+``python3 chip_smoke.py --mesh-only`` runs the build, the single-device
+default build with ``--artifact`` on Path B's corpus and Path J alone, on
+every card the machine has (4 shards, shard i on card i % cards).
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
@@ -611,7 +630,10 @@ def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
         "device_tokenize_width", "sort_cols", "fetched_bytes", "device_tokenize_fallback",
         "stream_windows", "accumulator_mode", "accumulator_capacity", "vocab_curve",
         "unique_rows_curve", "resumed_from_window", "checkpoint_saves", "checkpoint_ms",
-        "checkpoint_ms_per_save", "checkpoint_skips", "overlap_tail_fraction", "device_pairs")
+        "checkpoint_ms_per_save", "checkpoint_skips", "overlap_tail_fraction", "device_pairs",
+        "device_shards", "dist_fetched_bytes", "dist_valid_pairs", "emit_ownership",
+        "letter_owners", "exchange_retries", "exchange_capacity", "merge_retries",
+        "accumulator_capacity_per_owner")
         if k in stats}
     print(f"phase {name}: {json.dumps(fields)} md5={stats['md5']} launches={launches} "
           + " ".join(f"{k}={v}" for k, v in extra.items())
@@ -1213,6 +1235,178 @@ def path_i(torch, cli, paths: dict, served: dict, card: str, device: str = "cuda
     return out
 
 
+# Path J: the multi-shard builds, each a --device-shards 4 CLI build on
+# Path B's corpus: (label, extra CLI args, stat checks)
+MESH_LEGS = (
+    ("J1", ["--artifact"], {"upload_windows": 2}),
+    ("J2", ["--emit-ownership", "letter"], {"letter_owners": 4, "emit_ownership": "letter"}),
+    ("J3", ["--pipeline-chunk-docs", "0", "--skew"], {"engine": "dist"}),
+    ("J4", ["--stream-chunk-docs", "5000"], {"stream_windows": 4}),
+    ("J5", ["--device-tokenize"], {"sort_cols": 3}),
+    ("J6", ["--device-tokenize", "--emit-ownership", "letter"],
+     {"letter_owners": 4, "emit_ownership": "letter"}),
+    ("J7", ["--device-tokenize", "--stream-chunk-docs", "2500"], {"stream_windows": 8}),
+)
+
+
+def path_j(torch, K, cli, formatter, list_b: Path, tmp: Path, md5_c: str, h_artifact: Path,
+           card: str, device: str = "cuda") -> dict:
+    """Path J — the multi-shard builds on the card: the seven legs of
+    :data:`MESH_LEGS`, each with 4 logical shards on the one card, its
+    letter-file md5 equal to Path C's (J1's ``index.mri`` byte-equal to
+    Path H's v2.1 artifact), recorded by torch.profiler.  Returns the
+    launches by leg."""
+    launches_by_leg = {}
+    t0 = time.perf_counter()
+    for label, extra, want in MESH_LEGS:
+        out = tmp / f"{label}_out"
+        stats, launches = drive_path(
+            torch, K, formatter,
+            cli_run(cli, f"path {label}", list_b, out,
+                    ["--device-shards", "4", "--device", device, *extra]),
+            out, f"path {label}", trace=tmp / f"{label}_trace.json")
+        check(stats.get("device_shards") == 4,
+              f"path {label}: device_shards {stats.get('device_shards')}, want 4")
+        for key, value in want.items():
+            check(stats.get(key) == value, f"path {label}: {key} {stats.get(key)}, want {value}")
+        check("device_tokenize_fallback" not in stats and "pipelined_fallback" not in stats,
+              f"path {label} restarted on another plan")
+        check(stats["md5"] == md5_c, f"path {label} md5 {stats['md5']} != path C {md5_c}")
+        if label == "J1":
+            check((out / "index.mri").read_bytes() == h_artifact.read_bytes(),
+                  "path J1: index.mri differs from Path H's v2.1 artifact")
+        if label == "J3":
+            check(launches["bucket_histogram"] == 2,
+                  f"path J3 launched bucket_histogram {launches['bucket_histogram']} times, want 2")
+        print_path(f"path_{label.lower()}", stats, launches, card=repr(card), path_c_md5=md5_c)
+        busy = stats["device_busy_ms"]
+        print(f"phase path_{label.lower()}_summary: " + json.dumps({
+            "card": card, "total_ms": stats["total_ms"], "phases_ms": stats["phases_ms"],
+            **{k: stats.get(k) for k in ("device_shards", "dist_fetched_bytes",
+                                         "dist_valid_pairs")},
+            "max_memory_allocated": stats["max_memory_allocated"], "device_busy_ms": busy,
+            "idle_share": (1 - busy / stats["wall_ms"]) if busy is not None
+            else "not measured (no device events in the trace)"}), flush=True)
+        launches_by_leg[label] = launches
+    print(f"phase path_j_done: card={card} seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return launches_by_leg
+
+
+def path_j_exchange(torch, c_pairs: int, c_vocab: int, max_doc: int, card: str) -> dict:
+    """The mesh exchange alone on the card: ``dist_sort_prov_windows``
+    over two windows of ``c_pairs`` distinct provisional keys (Path C's
+    pair count, vocabulary and stride; terms and docs uniform), at n =
+    1, 2, 4 and 8 logical
+    shards and capacity factors 2.0 and 0.25 (where the overflow retry
+    must run), each result equal to ``sort_prov_chunks`` on one device.
+    Times: CUDA events around the whole call (it ends in host reads) and
+    the host clock, beside the single-device sort's warm event time."""
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        engine as E)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
+        dist_engine as DE, mesh as M)
+
+    stride = max_doc + 2
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    draws = c_pairs + c_pairs // 8
+    terms = torch.randint(0, c_vocab, (draws,), device="cuda", generator=gen, dtype=torch.int32)
+    docs = torch.randint(1, max_doc + 1, (draws,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    keys = torch.unique(terms * stride + docs)  # distinct, as the combiner feeds them
+    keys = keys[torch.randperm(keys.shape[0], device="cuda", generator=gen)[:c_pairs]]
+    check(keys.shape[0] == c_pairs, f"exchange leg: only {keys.shape[0]} distinct keys")
+    host_keys = keys.cpu().numpy()
+    half = c_pairs // 2
+    windows = []
+    for part in (host_keys[:half], host_keys[half:]):
+        buf = np.full(round_up(part.size, 1 << 14), INT32_MAX, np.int32)
+        buf[: part.size] = part
+        windows.append(buf)
+    df = np.bincount(host_keys // stride, minlength=c_vocab).astype(np.int64)
+    offsets = np.cumsum(df) - df
+    one_dev = [torch.from_numpy(w).cuda() for w in windows]
+    want = E.host_u16(E.sort_prov_chunks(one_dev, stride=stride, out_size=c_pairs).cpu().numpy())
+    out = {"pairs": c_pairs, "single_device_sort_ms": cuda_ms(
+        torch, lambda: E.sort_prov_chunks(one_dev, stride=stride, out_size=c_pairs), iters=10)[0]}
+    exchanges = []
+    real = DE._exchange_owned
+
+    def counted(*a, **kw):
+        exchanges.append(kw["capacity"])
+        return real(*a, **kw)
+
+    DE._exchange_owned = counted
+    try:
+        for n in (1, 2, 4, 8):
+            mesh = M.make_mesh(n, "cuda")
+            for factor in (2.0, 0.25):
+                shards = [M.shard(w, mesh) for w in windows]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                runs = []
+                for _ in range(3):  # the first is the warm-up
+                    del exchanges[:]
+                    stats = {}
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    t = time.perf_counter()
+                    start.record()
+                    got = DE.dist_sort_prov_windows(
+                        shards, stride=stride, mesh=mesh, offsets_prov=offsets,
+                        num_pairs=c_pairs, capacity_factor=factor, stats=stats)
+                    end.record()
+                    torch.cuda.synchronize()
+                    runs.append((start.elapsed_time(end), (time.perf_counter() - t) * 1e3))
+                    check(np.array_equal(got, want),
+                          f"exchange leg n={n} factor={factor}: postings differ from the "
+                          "single-device sort")
+                check(stats["dist_valid_pairs"] == c_pairs,
+                      f"exchange leg n={n} factor={factor}: {stats['dist_valid_pairs']} pairs")
+                retried = len(exchanges) == 2
+                check(retried or n == 1 or factor == 2.0,
+                      f"exchange leg n={n} factor={factor}: the overflow retry did not run")
+                row = {"n": n, "factor": factor, "exchanges": len(exchanges),
+                       "event_ms": [round(r[0], 4) for r in runs[1:]],
+                       "host_ms": [round(r[1], 3) for r in runs[1:]],
+                       "dist_fetched_bytes": stats["dist_fetched_bytes"],
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+                out[f"n{n}_f{factor}"] = row
+                print(f"phase path_j_exchange: card={card} {json.dumps(row)}", flush=True)
+                del shards
+    finally:
+        DE._exchange_owned = real
+    print(f"phase path_j_exchange_single: card={card} pairs={c_pairs} "
+          f"sort_prov_chunks_event_ms={out['single_device_sort_ms']:.4f}", flush=True)
+    return out
+
+
+def mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
+                  ) -> int:
+    """``--mesh-only``: Path J alone, on however many cards the machine
+    has (shard i on card i % cards), against the single-device default
+    build with ``--artifact`` on Path B's corpus (Path C and Path H's
+    v2.1 artifact in one build).  For a machine with several cards; the
+    run with no arguments needs one card and drives every path."""
+    with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+            num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+        stats_c, launches_c = drive_path(
+            torch, K, formatter,
+            cli_run(cli, "path C", list_b, tmp / "C_out", ["--device-shards", "1", "--artifact"]),
+            tmp / "C_out", "path C", trace=tmp / "C_trace.json")
+        check_pipelined(stats_c, "path C")
+        print_path("path_c", stats_c, launches_c, card=repr(card))
+        path_j(torch, K, cli, formatter, list_b, tmp, stats_c["md5"], tmp / "C_out" / "index.mri",
+               card)
+        path_j_exchange(torch, stats_c["unique_pairs"], stats_c["unique_terms"], 20_000, card)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import threading
 
@@ -1240,10 +1434,13 @@ def main() -> int:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True)
-        card = smi.stdout.strip().splitlines()[0]
+        cards = smi.stdout.strip().splitlines()
+        card = cards[0]
         kind = torch.cuda.get_device_name(0)
+        if len(cards) > 1:
+            print(f"phase cards: {json.dumps(cards)}", flush=True)
         print(f"phase card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-              f"| {kind}", flush=True)
+              f"| {kind} | cards {torch.cuda.device_count()}", flush=True)
         # g++ for the host scan runs beside nvcc's kernel builds
         native_build = {}
 
@@ -1263,6 +1460,9 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "error" in line.lower():
                     print(f"  ptxas {stem}: {line.strip()}")
+        if sys.argv[1:] == ["--mesh-only"]:
+            return mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
+        check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --mesh-only)")
 
         launches_by_path = {}
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
@@ -1518,6 +1718,12 @@ def main() -> int:
                                      "bucket_histogram": K.bucket_histogram.launches}
             check(not any(launches_by_path["I"].values()),
                   f"path I launched a kernel of csrc/: {launches_by_path['I']}")
+
+            # -- Path J: the multi-shard builds, 4 shards on the card ---------
+            launches_by_path.update(path_j(torch, K, cli, formatter, list_b, tmp,
+                                           stats_c["md5"], h_paths[3], card))
+            path_j_exchange(torch, stats_c["unique_pairs"], stats_c["unique_terms"], 20_000,
+                            card)
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

@@ -7,6 +7,7 @@ plus flags for the device engine:
 
     python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch \\
         4 26 list.txt --output-dir=out --stats [--artifact]
+        [--device-shards N [--emit-ownership letter]]
 
 and the query side over an ``--artifact`` build's ``index.mri``:
 
@@ -74,6 +75,11 @@ def make_parser() -> argparse.ArgumentParser:
                         "for tokens longer than --device-tokenize-width)")
     p.add_argument("--device-tokenize-width", type=int, default=48,
                    help="device word-row bytes (multiple of 4)")
+    p.add_argument("--device-shards", type=int, default=None,
+                   help="mesh size: shard the device engine over this many "
+                        "logical shards, round-robin on the visible cards "
+                        "(default: one per visible card of --device; 1 = "
+                        "single device)")
     p.add_argument("--overlap-tail-fraction", type=float, default=None,
                    help="windowed overlap plan: this fraction of corpus "
                         "bytes (the last doc range) is indexed on the host "
@@ -95,6 +101,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-threads", type=int, default=None,
                    help="native scan threads (default: num_mappers if > 1, "
                         "else min(cores, 8)); output-invariant")
+    p.add_argument("--emit-ownership", choices=("merged", "letter"), default="merged",
+                   help="merged: one host writes all 26 files; letter: "
+                        "the mesh's owners emit their own letter ranges "
+                        "(the reference's reducer ownership)")
     p.add_argument("--emit-backend", choices=("auto", "native", "python"), default="auto",
                    help="letter-file writer: auto = native emit when available, "
                         "python = the pure-Python writer; byte-identical either way")
@@ -261,6 +271,8 @@ def main(argv: list[str] | None = None) -> int:
             stream_chunk_docs=args.stream_chunk_docs,
             device_tokenize=args.device_tokenize,
             device_tokenize_width=args.device_tokenize_width,
+            device_shards=args.device_shards,
+            emit_ownership=args.emit_ownership,
             host_threads=args.host_threads,
             emit_backend=args.emit_backend,
             overlap_tail_fraction=args.overlap_tail_fraction,

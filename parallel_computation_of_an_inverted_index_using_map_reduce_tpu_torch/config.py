@@ -8,8 +8,9 @@ pipelined plan (native scan, provisional-key windows, one device sort)
 and its overlap variant (``overlap_tail_fraction``), the one-shot plan,
 the streaming plan (``stream_chunk_docs``), the all-device plan
 (``device_tokenize``) and the two together, the streaming all-device
-plan with its resumable stream checkpoints, and the serving artifact
-(``artifact``) every plan but the overlap plan packs.
+plan with its resumable stream checkpoints, the serving artifact
+(``artifact``) every plan but the overlap plan packs, and the
+multi-shard builds (``device_shards``, ``emit_ownership``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ class IndexConfig:
     # torch device of the engine.  "cuda" (default) needs a card and
     # raises without one; "cpu" runs the kernels' plain versions.
     device: str = "cuda"
+    # Logical shards of the multi-shard engines (parallel/): None = one
+    # per visible card of ``device`` (1 on the CPU, so the single-device
+    # plans); 1 forces the single-device plans; N > 1 runs the mesh
+    # plans with shard i on card i % cards (N shards may share a card).
+    device_shards: int | None = None
     # Host scan: C++ (native/tokenizer.cc, built with g++ on first use)
     # with automatic fallback to the vectorized numpy tokenizer.
     use_native: bool = True
@@ -107,8 +113,15 @@ class IndexConfig:
     # ``index.mri`` next to the letter files at emit time, so the query
     # engine (``query DIR``, serve.DeviceEngine) never re-parses text.
     # Needs the merged postings on one host: incompatible with the
-    # overlap plan's split emit.
+    # letter-ownership emit and the overlap plan's split emit.
     artifact: bool = False
+    # Emit-side ownership of the multi-shard builds:
+    #   "merged" — one host assembles and writes all 26 files (default)
+    #   "letter" — pairs are exchanged by *letter owner*
+    #              (corpus/scheduler.plan_letter_ranges — the reference's
+    #              reducer ownership, main.c:129-150) and each owner
+    #              emits only its own letter files; no global merge.
+    emit_ownership: str = "merged"
 
     def resolved_host_threads(self) -> int:
         """The map-phase thread count this run will actually use."""
@@ -161,11 +174,24 @@ class IndexConfig:
                     "overlap_tail_fraction is incompatible with "
                     "stream_chunk_docs (the streaming engine has its own "
                     "window pipeline)")
-        if self.artifact and self.overlap_tail_fraction is not None:
+        if self.device_shards is not None and self.device_shards < 1:
             raise ValueError(
-                "artifact is incompatible with overlap_tail_fraction "
-                "(the overlap plan emits from two disjoint partial "
-                "indexes, never materializing merged postings)")
+                f"device_shards must be >= 1 or None (auto), got {self.device_shards}")
+        if self.overlap_tail_fraction is not None and self.emit_ownership == "letter":
+            raise ValueError(
+                "overlap_tail_fraction is single-device; "
+                "emit_ownership='letter' is the multi-shard emit path")
+        if self.artifact:
+            if self.emit_ownership == "letter":
+                raise ValueError(
+                    "artifact requires the merged emit (one host holds "
+                    "the global postings); emit_ownership='letter' "
+                    "splits them across owners")
+            if self.overlap_tail_fraction is not None:
+                raise ValueError(
+                    "artifact is incompatible with overlap_tail_fraction "
+                    "(the overlap plan emits from two disjoint partial "
+                    "indexes, never materializing merged postings)")
         if self.overlap_device_windows not in (1, 2):
             raise ValueError(
                 f"overlap_device_windows must be 1 or 2, "
@@ -203,11 +229,19 @@ class IndexConfig:
             raise ValueError(
                 f"stream_checkpoint_every must be >= 1, "
                 f"got {self.stream_checkpoint_every}")
-        if self.stream_checkpoint is not None and not (
-                self.device_tokenize and self.stream_chunk_docs is not None):
-            raise ValueError(
-                "stream_checkpoint requires the streaming all-device "
-                "engine (device_tokenize=True with stream_chunk_docs)")
+        if self.stream_checkpoint is not None:
+            if not (self.device_tokenize and self.stream_chunk_docs is not None):
+                raise ValueError(
+                    "stream_checkpoint requires the streaming all-device "
+                    "engine (device_tokenize=True with stream_chunk_docs)")
+            # None is allowed here and refused at run time if it resolves
+            # to several shards (the mesh streaming engine has no
+            # checkpoint); the JAX config asks for an explicit 1
+            if self.device_shards is not None and self.device_shards > 1:
+                raise ValueError(
+                    "stream_checkpoint is single-device only: the mesh "
+                    "streaming engine has no checkpoint; got "
+                    f"device_shards={self.device_shards}")
         if self.stream_chunk_docs is not None:
             if self.stream_chunk_docs < 1:
                 raise ValueError(
@@ -227,3 +261,19 @@ class IndexConfig:
             raise ValueError(
                 f"emit_backend must be 'auto', 'native' or 'python', "
                 f"got {self.emit_backend!r}")
+        if self.emit_ownership not in ("merged", "letter"):
+            raise ValueError(
+                f"emit_ownership must be 'merged' or 'letter', got {self.emit_ownership!r}")
+        if self.emit_ownership == "letter":
+            if self.backend != "cuda":
+                raise ValueError(
+                    f"emit_ownership='letter' requires backend='cuda', "
+                    f"got backend={self.backend!r}")
+            if self.stream_chunk_docs is not None:
+                raise ValueError(
+                    "emit_ownership='letter' requires the pipelined multi-shard "
+                    "path (incompatible with stream_chunk_docs)")
+            if self.pipeline_chunk_docs == 0:
+                raise ValueError(
+                    "emit_ownership='letter' requires the pipelined multi-shard "
+                    "path (pipeline_chunk_docs=0 disables it)")

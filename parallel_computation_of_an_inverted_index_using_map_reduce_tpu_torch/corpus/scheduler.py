@@ -7,11 +7,16 @@ its range arrays stay uninitialized.  Here the cut is total: every
 document lands in exactly one range, and surplus ranges are empty.
 The pipelined plan's upload windows use it, and the native scan's
 per-thread ranges (native/tokenizer.cc PlanRanges) mirror it; the
-overlap plan cuts uneven byte shares the same way.
+overlap plan cuts uneven byte shares the same way.  The multi-shard
+letter emit takes the reference's reducer letter ranges
+(:func:`plan_letter_ranges`).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from ..config import ALPHABET_SIZE
 from .manifest import Manifest
 
 
@@ -69,6 +74,37 @@ def plan_fraction_windows(manifest: Manifest,
         cuts.append(d)
     cuts.append(n)
     return tuple((cuts[t], cuts[t + 1]) for t in range(len(fr)))
+
+
+def plan_letter_ranges(num_reducers: int) -> tuple[tuple[int, int], ...]:
+    """Contiguous letter ranges per reduce partition.
+
+    Mirrors the reference's arithmetic (main.c:129-130) *including* its
+    degenerate R > 26 behavior (empty ranges for all but the last
+    partition), since it is part of the observable contract (SURVEY.md
+    §2.3).
+    """
+    if num_reducers < 1:
+        raise ValueError("num_reducers must be >= 1")
+    per = ALPHABET_SIZE // num_reducers
+    ranges = []
+    for r in range(num_reducers):
+        start = per * r
+        end = per * (r + 1) if r < num_reducers - 1 else ALPHABET_SIZE
+        ranges.append((start, max(start, end)))
+    return tuple(ranges)
+
+
+def owner_of_letter_table(num_owners: int):
+    """``(ranges, owner_of_letter)``: the letter-ownership map every
+    per-owner emit shares — ``owner_of_letter[l]`` is the partition
+    owning letter ``l`` under :func:`plan_letter_ranges` (one table, so
+    the host-scan and device-scan letter emits cannot diverge)."""
+    ranges = plan_letter_ranges(num_owners)
+    owner_of_letter = np.zeros(ALPHABET_SIZE, dtype=np.int32)
+    for o, (lo, hi) in enumerate(ranges):
+        owner_of_letter[lo:hi] = o
+    return ranges, owner_of_letter
 
 
 def _balance(loads: list[int]) -> dict:

@@ -30,6 +30,11 @@ with backends:
                  (ops/device_streaming.py), with resumable stream
                  checkpoints; a too-wide token restarts on the streaming
                  plan
+               On a mesh (``device_shards`` > 1, parallel/) the pipelined,
+               one-shot, streaming, all-device and streaming all-device
+               plans shard their pairs or bytes over logical shards and
+               exchange them by owner; ``emit_ownership="letter"`` has
+               each owner write its own letter files.
     "oracle" — pure-Python dict oracle (models/oracle.py)
 
 Output is byte-identical across backends and plans, to the JAX package,
@@ -41,6 +46,7 @@ the overlap plan also packs the serving artifact ``index.mri``
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import time
 
@@ -50,8 +56,9 @@ import torch
 from .. import native
 from ..config import IndexConfig
 from ..corpus.manifest import (DegradationReport, Manifest, iter_document_chunks,
-                               load_documents, prefetch_document_ranges)
-from ..corpus.scheduler import (plan_contiguous_windows, plan_fraction_windows,
+                               iter_document_ranges, load_documents, prefetch_document_ranges)
+from ..corpus.scheduler import (owner_of_letter_table, plan_contiguous_ranges,
+                                plan_contiguous_windows, plan_fraction_windows,
                                 window_balance_stats)
 from ..obs.timing import PhaseTimer
 from ..ops import device_tokenizer as DT
@@ -59,6 +66,11 @@ from ..ops import engine
 from ..ops import keys as K
 from ..ops.device_streaming import DeviceStreamEngine
 from ..ops.streaming import StreamingIndexEngine
+from ..parallel import dist_engine
+from ..parallel.dist_device_streaming import DistDeviceStreamEngine
+from ..parallel.dist_device_tokenizer import index_bytes_dist
+from ..parallel.dist_streaming import DistStreamingIndexEngine
+from ..parallel.mesh import make_mesh, shard
 from ..text import formatter
 from ..text.streaming import StreamingTokenizer
 from ..text.tokenizer import tokenize
@@ -81,28 +93,24 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
-def _pack_window(contents, ids, shard_len: int):
+def _pack_window(contents, ids, shard_len: int, docs_cap: int | None = None):
     """Pack the loaded docs into the device byte-feed layout:
     ``(buf[shard_len] space-padded, ends, ids)``, one ``ends`` and
-    ``ids`` entry per doc.  One join + one copy — no per-doc Python
-    loop.  Every call returns fresh arrays, so no buffer a copy to the
-    card may still read is ever refilled."""
+    ``ids`` entry per doc, padded to ``docs_cap`` entries when given
+    (padded ends stay at ``shard_len``: the pad region is all spaces, so
+    those "docs" emit nothing; padded ids are 1).  One join + one copy —
+    no per-doc Python loop.  Every call returns fresh arrays, so no
+    buffer a copy to the card may still read is ever refilled."""
     joined = b"".join(contents)
     buf = np.full(shard_len, 0x20, np.uint8)
     buf[: len(joined)] = np.frombuffer(joined, np.uint8)
+    cap = len(contents) if docs_cap is None else docs_cap
+    ends = np.full(cap, shard_len, np.int32)
+    idv = np.full(cap, 1, np.int32)
     lens = np.fromiter((len(c) for c in contents), np.int64, len(contents))
-    return buf, np.cumsum(lens).astype(np.int32), np.array(ids, np.int32)
-
-
-def _host_view(a: np.ndarray) -> np.ndarray:
-    """A fetched array as the host reads it: int16 tensors carry uint16
-    bits (no uint16 arithmetic on the card), so they are read as uint16."""
-    return engine.host_u16(a) if a.dtype == np.int16 else a
-
-
-def _leaves(v) -> list:
-    """The tensors of a tensor or a nested tuple of them, in order."""
-    return [v] if isinstance(v, torch.Tensor) else [t for x in v for t in _leaves(x)]
+    ends[: len(contents)] = np.cumsum(lens)
+    idv[: len(ids)] = np.asarray(ids, np.int32)
+    return buf, ends, idv
 
 
 class InvertedIndexModel:
@@ -153,11 +161,28 @@ class InvertedIndexModel:
         device = resolve_device(cfg.device)
         device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         timer.count("device", device_name)
+        num_shards = self._num_shards()
+        letter = cfg.emit_ownership == "letter"
         if cfg.device_tokenize:
             try:
                 if cfg.stream_chunk_docs is not None:
+                    if num_shards > 1:
+                        if cfg.stream_checkpoint:
+                            raise ValueError(
+                                "stream_checkpoint is single-device only: "
+                                f"device_shards=None resolved to {num_shards} shards "
+                                "(the mesh streaming engine has no checkpoint); pass "
+                                "device_shards=1")
+                        return self._run_device_tokenize_stream_dist(manifest, out_dir,
+                                                                     timer, report)
                     return self._run_device_tokenize_stream(manifest, out_dir, timer, report,
                                                             device)
+                if num_shards > 1:
+                    return self._run_device_tokenize_dist(manifest, out_dir, timer, report)
+                if letter:
+                    raise ValueError(
+                        "emit_ownership='letter' requires a multi-shard mesh "
+                        "(device_shards > 1)")
                 return self._run_device_tokenize(manifest, out_dir, timer, report, device)
             except DT.WidthOverflow as e:
                 # exactness guard tripped: restart on the host-scan plans
@@ -175,19 +200,40 @@ class InvertedIndexModel:
                 timer.phases["aborted_device_tokenize"] = aborted_s
                 report.skips.clear()  # the host plan reloads and records them anew
         if cfg.stream_chunk_docs is not None:
+            if num_shards > 1:
+                return self._run_streaming_dist(manifest, out_dir, timer, report)
             return self._run_streaming(manifest, out_dir, timer, report, device)
-        if cfg.overlap_tail_fraction is not None and not self._pipelined_eligible(manifest):
-            # fail loudly rather than run a plan the config does not name
-            raise ValueError(
-                "overlap_tail_fraction requires the pipelined path: "
-                "native tokenizer available, no checkpoint/skew flags, "
-                "no streaming, and <= 65534 documents")
+        # the refusals below fail loudly rather than run a plan the
+        # config does not name
+        if letter:
+            if num_shards < 2:
+                raise ValueError(
+                    "emit_ownership='letter' requires a multi-shard mesh "
+                    "(device_shards > 1)")
+            if not self._pipelined_eligible(manifest):
+                raise ValueError(
+                    "emit_ownership='letter' requires the pipelined path "
+                    "(native tokenizer available, no checkpoint/skew flags)")
+        if cfg.overlap_tail_fraction is not None:
+            if num_shards > 1:
+                raise ValueError(
+                    "overlap_tail_fraction is a single-device plan "
+                    "(device_shards > 1 selects the multi-shard engine)")
+            if not self._pipelined_eligible(manifest):
+                raise ValueError(
+                    "overlap_tail_fraction requires the pipelined path: "
+                    "native tokenizer available, no checkpoint/skew flags, "
+                    "no streaming, and <= 65534 documents")
         if self._pipelined_eligible(manifest):
             try:
                 if cfg.overlap_tail_fraction is not None:
                     return self._run_overlap(manifest, out_dir, timer, report, device)
                 return self._run_pipelined(manifest, out_dir, timer, report, device)
             except native.KeyOverflow:
+                if letter:
+                    raise ValueError(
+                        "emit_ownership='letter' cannot fall back to the "
+                        "one-shot engine after packed-key overflow") from None
                 # prov_id * stride outgrew int32 keys mid-stream: restart
                 # on the one-shot plan, whose engine picks its key width
                 # from the final vocab.  The aborted attempt's wall time
@@ -200,18 +246,27 @@ class InvertedIndexModel:
                 report.skips.clear()  # the one-shot reload records them anew
         return self._run_one_shot(manifest, out_dir, timer, report, device)
 
+    def _num_shards(self) -> int:
+        """Logical shards of this run: ``device_shards``, else one per
+        visible card of ``config.device`` (1 on the CPU)."""
+        cfg = self.config
+        if cfg.device_shards is not None:
+            return cfg.device_shards
+        return torch.cuda.device_count() if cfg.device == "cuda" else 1
+
     def _pipelined_eligible(self, manifest: Manifest) -> bool:
         """Whether the provisional-key pipelined plan applies: it needs
-        the native scan, no streaming plan, no skew statistics (which
-        need the token arrays on the host) and uint16 postings (doc ids
-        < 0xFFFF)."""
+        the native scan, no streaming plan and no skew statistics (which
+        need the token arrays on the host).  On one device it also needs
+        uint16 postings (doc ids < 0xFFFF); the mesh variant fetches
+        int32 and has no doc cap."""
         cfg = self.config
         return (
             cfg.pipeline_chunk_docs != 0
             and cfg.use_native
             and cfg.stream_chunk_docs is None
             and not cfg.collect_skew_stats
-            and len(manifest) <= 0xFFFE
+            and (self._num_shards() > 1 or len(manifest) <= 0xFFFE)
             and native.available()
         )
 
@@ -229,10 +284,17 @@ class InvertedIndexModel:
         After the last window, one sort and one fetch are the whole
         critical path; emit order, df and offsets are resolved on the
         host in prov space from the combiner's counts.
+
+        On a mesh the windows are int32 keys split over the shards, and
+        the finalize is a hash-bucket exchange and owner-side sort
+        (parallel/dist_engine.dist_sort_prov_windows), or a letter-owner
+        exchange and per-owner emit with ``emit_ownership="letter"``.
         """
         cfg = self.config
         max_doc_id = len(manifest)
         stride = max_doc_id + 2
+        num_shards = self._num_shards()
+        mesh = make_mesh(num_shards, cfg.device) if num_shards > 1 else None
         if cfg.pipeline_chunk_docs:
             n = len(manifest)
             windows = tuple((s, min(s + cfg.pipeline_chunk_docs, n))
@@ -247,8 +309,10 @@ class InvertedIndexModel:
         wstats = window_balance_stats(manifest, windows)
         timer.count("window_plan_bytes", wstats["bytes_per_shard"])
         timer.count("window_imbalance", wstats["max_over_mean"])
-        granule = min(1 << 14, cfg.pad_multiple)
-        chunks_dev: list[torch.Tensor] = []
+        # sharded windows must also split evenly over the mesh (lcm: a
+        # power-of-two granule on a power-of-two mesh needs no padding)
+        granule = math.lcm(min(1 << 14, cfg.pad_multiple), num_shards)
+        chunks_dev: list = []  # one tensor per window, or its per-shard list
         staged: list[torch.Tensor] = []  # pinned windows, held until the fetch
         modes: list[str] = []
         # per window: ms the reader thread took to read it, ms the scan
@@ -265,9 +329,14 @@ class InvertedIndexModel:
                 for contents, ids in reader:
                     t_got = time.perf_counter()
                     docs_loaded += len(contents)
-                    # the native scan assembles the uint16 upload buffer
-                    # itself (int32 keys once prov ids outgrow uint16)
-                    mode, buf, nvalid, _ = stream.feed_u16(contents, ids, granule=granule)
+                    if mesh is None:
+                        # the native scan assembles the uint16 upload
+                        # buffer itself (int32 keys once prov ids outgrow
+                        # uint16)
+                        mode, buf, nvalid, _ = stream.feed_u16(contents, ids, granule=granule)
+                    else:  # the mesh path feeds int32 keys, never uint16
+                        buf, _ = stream.feed(contents, ids)
+                        mode, nvalid = "keys", int(buf.size)
                     if nvalid:
                         if mode == "u16":
                             padded = buf.shape[0] // 2
@@ -276,7 +345,8 @@ class InvertedIndexModel:
                             padded = _round_up(nvalid, granule)
                             host = np.full(padded, K.INT32_MAX, dtype=np.int32)
                             host[:nvalid] = buf
-                        chunks_dev.append(engine.upload(host, device, staged))
+                        chunks_dev.append(engine.upload(host, device, staged) if mesh is None
+                                          else shard(host, mesh, staged))
                         modes.append(mode)
                         keys_capacity += padded
                         num_pairs += nvalid
@@ -291,6 +361,7 @@ class InvertedIndexModel:
         timer.count("documents", docs_loaded)
         timer.count("tokens", raw_tokens)
         timer.count("unique_terms", vocab_size)
+        timer.count("device_shards", num_shards)
         timer.count("upload_windows", len(chunks_dev))
         timer.count("window_modes", modes)
         timer.count("window_read_ms", read_ms)
@@ -301,6 +372,11 @@ class InvertedIndexModel:
                 formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
 
+        if mesh is not None:
+            return self._finish_pipelined_mesh(
+                chunks_dev, mesh=mesh, stride=stride, vocab=vocab, letters=letters,
+                remap=remap, df_prov=df_prov, emit_order=emit_order, num_pairs=num_pairs,
+                max_doc_id=max_doc_id, out_dir=out_dir, timer=timer)
         nfetch = min(keys_capacity, _round_up(num_pairs, 1 << 14))
         with timer.phase("device_index"):
             pending = engine.PendingFetch(
@@ -317,6 +393,77 @@ class InvertedIndexModel:
             host["postings"] = engine.host_u16(pending.wait())
         del chunks_dev, staged
         return self._emit_and_report(vocab, letters, host, out_dir, timer, max_doc_id)
+
+    def _finish_pipelined_mesh(self, chunks_dev, *, mesh, stride: int, vocab, letters, remap,
+                               df_prov, emit_order, num_pairs: int, max_doc_id: int,
+                               out_dir: str, timer: PhaseTimer) -> dict:
+        """The pipelined plan's mesh tail: per-rank views in prov space,
+        then the exchange and the host merge (merged emit) or the
+        letter-owner exchange and per-owner emit."""
+        vocab_size = int(vocab.shape[0])
+        prov_of_rank = np.empty(vocab_size, dtype=np.int64)
+        prov_of_rank[remap] = np.arange(vocab_size)
+        df64 = df_prov.astype(np.int64)
+        offsets_prov = np.cumsum(df64) - df64
+        df_rank = df64[prov_of_rank]
+        if self.config.emit_ownership == "letter":
+            return self._emit_per_owner(
+                chunks_dev, stride=stride, mesh=mesh, vocab=vocab, letters=letters,
+                remap=remap, df64=df64, order=emit_order, df_rank=df_rank,
+                prov_of_rank=prov_of_rank, out_dir=out_dir, timer=timer,
+                max_doc_id=max_doc_id, num_pairs=num_pairs)
+        dist_stats: dict = {}
+        with timer.phase("device_index"):
+            # exchange + fetch + host merge in one blocking call
+            postings = dist_engine.dist_sort_prov_windows(
+                chunks_dev, stride=stride, mesh=mesh, offsets_prov=offsets_prov,
+                num_pairs=num_pairs, stats=dist_stats)
+        for k, v in dist_stats.items():
+            timer.count(k, v)
+        host = {"df": df_rank, "order": emit_order, "offsets": offsets_prov[prov_of_rank],
+                "postings": postings, "num_unique": num_pairs}
+        return self._emit_and_report(vocab, letters, host, out_dir, timer, max_doc_id)
+
+    def _emit_per_owner(self, chunks_dev, *, stride: int, mesh, vocab, letters, remap, df64,
+                        order, df_rank, prov_of_rank, out_dir: str, timer: PhaseTimer,
+                        max_doc_id: int, num_pairs: int) -> dict:
+        """Per-owner letter emission.
+
+        One ``all_to_all`` keyed by *letter owner* — the reference's
+        reducer ownership (contiguous letter ranges including the R > 26
+        collapse, main.c:129-150) via corpus/scheduler.plan_letter_ranges
+        — then every owner emits only its own letter files from its own
+        pairs; nothing merges the global postings.  This single
+        controller runs every owner's emit in turn.
+        """
+        n = mesh.size
+        ranges, owner_of_letter = owner_of_letter_table(n)
+        letters = np.asarray(letters)
+        owner_of_prov = owner_of_letter[letters[np.asarray(remap)]]
+        dist_stats: dict = {}
+        with timer.phase("device_index"):
+            rows = dist_engine.dist_letter_windows(
+                chunks_dev, owner_of_prov, stride=stride, mesh=mesh, stats=dist_stats)
+        for k, v in dist_stats.items():
+            timer.count(k, v)
+        lines = 0
+        with timer.phase("emit"):
+            for o, row in sorted(rows.items()):
+                df_o = np.where(owner_of_prov == o, df64, 0)
+                offsets_local = np.cumsum(df_o) - df_o
+                postings_o = dist_engine.merge_owner_runs(
+                    [row], stride, offsets_local, int(df_o.sum()))
+                stats_o = formatter.emit_index(
+                    out_dir, vocab=vocab, letter_of_term=letters, order=order, df=df_rank,
+                    offsets=offsets_local[prov_of_rank], postings=postings_o,
+                    max_doc_id=max_doc_id, letter_range=ranges[o],
+                    backend=self._emit_backend())
+                lines += stats_o["lines_written"]
+        timer.count("emit_ownership", "letter")
+        timer.count("letter_owners", n)
+        timer.count("unique_pairs", num_pairs)
+        timer.count("lines_written", lines)
+        return timer.report()
 
     # -- overlap plan --------------------------------------------------
 
@@ -400,6 +547,7 @@ class InvertedIndexModel:
         timer.count("documents", docs_loaded)
         timer.count("tokens", raw_tokens)
         timer.count("unique_terms", vocab_size)
+        timer.count("device_shards", 1)
         timer.count("upload_windows", len(dev_handles))
         timer.count("overlap_tail_fraction", tail_f)
         timer.count("device_pairs", sum(n for _, n in dev_handles))
@@ -522,6 +670,7 @@ class InvertedIndexModel:
         num_docs = len(contents)
         total = sum(len(c) for c in contents)
         timer.count("documents", num_docs)
+        timer.count("device_shards", 1)
         timer.count("device_tokenize_width", width)
         if num_docs == 0 or total == 0:
             with timer.phase("emit"):
@@ -602,9 +751,9 @@ class InvertedIndexModel:
                      if ngroups_fetch > 1 and num_long else 0)
             packed = DT.fetch_pack(out, nu=nu, npairs=npairs, nlong=nlong, k=k,
                                    live=ngroups_fetch, narrow=narrow)
-            pending = {name: [engine.PendingFetch(t) for t in _leaves(v)]
+            pending = {name: [engine.PendingFetch(t) for t in engine.leaves(v)]
                        for name, v in packed.items()}
-            host = {name: [_host_view(p.wait()) for p in ps] for name, ps in pending.items()}
+            host = {name: [engine.host_view(p.wait()) for p in ps] for name, ps in pending.items()}
             df = host["df"][0][:num_words].astype(np.int32)
             postings = DT.unpack_postings(host["post"][0], num_pairs, k)
             g0 = tuple(h[:num_words] for h in host["g0"])
@@ -648,6 +797,7 @@ class InvertedIndexModel:
         width = cfg.device_tokenize_width
         max_doc_id = len(manifest)
         timer.count("device_tokenize_width", width)
+        timer.count("device_shards", 1)
         timer.count("documents", len(manifest))
         eng = DeviceStreamEngine(width=width, device=device)
         fed_tokens = 0
@@ -772,6 +922,279 @@ class InvertedIndexModel:
             num_long=num_long, sort_cols=sort_cols, max_doc_id=max_doc_id,
             out_dir=out_dir, timer=timer)
 
+    # -- mesh plans ----------------------------------------------------
+
+    def _run_streaming_dist(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                            report: DegradationReport) -> dict:
+        """Streaming on a mesh: each window is exchanged by term hash
+        into per-owner bounded accumulators (parallel/dist_streaming.py),
+        so memory per shard is O(unique pairs / n)."""
+        cfg = self.config
+        num_shards = self._num_shards()
+        mesh = make_mesh(num_shards, cfg.device)
+        max_doc_id = len(manifest)
+        stride = max_doc_id + 2
+        threads = cfg.resolved_host_threads()
+        timer.count("host_threads", threads)
+        timer.count("device_shards", num_shards)
+        tok = StreamingTokenizer(use_native=cfg.use_native, num_threads=threads)
+        eng = DistStreamingIndexEngine(max_doc_id=max_doc_id, mesh=mesh,
+                                       window_pad=cfg.pad_multiple)
+        docs_loaded = raw_tokens = 0
+        vocab_curve: list[int] = []
+        with timer.phase("stream"):
+            for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
+                chunk = tok.feed(contents, ids)
+                docs_loaded += len(contents)
+                raw_tokens += chunk.raw_tokens
+                eng.feed(chunk.prov_term_ids, chunk.doc_ids, tok.vocab_size)
+                vocab_curve.append(tok.vocab_size)
+        with timer.phase("finalize_vocab"):
+            vocab, remap, letters = tok.finalize()
+        vocab_size = int(vocab.shape[0])
+        timer.count("documents", docs_loaded)
+        timer.count("tokens", raw_tokens)
+        timer.count("unique_terms", vocab_size)
+        timer.count("vocab_curve", vocab_curve)
+        timer.count("stream_windows", eng.windows_fed)
+        timer.count("accumulator_capacity_per_owner", eng.capacity)
+        timer.count("accumulator_mode", eng.mode)
+        timer.count("merge_retries", eng.merge_retries)
+
+        dist_stats: dict = {}
+        with timer.phase("fetch"):
+            mode, rows = eng.finalize(stats=dist_stats)
+        for k, v in dist_stats.items():
+            timer.count(k, v)
+        num_pairs = int(sum((r[0].size if mode == "pairs" else r.size) for r in rows.values()))
+        if num_pairs == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
+            return timer.report()
+        # vocab-scale views in prov space, then the O(N) owner-run merge
+        # (the pipelined mesh tail's math)
+        if mode == "pairs":
+            terms = np.concatenate([r[0].astype(np.int64) for r in rows.values()])
+        else:
+            terms = np.concatenate([r // stride for r in rows.values()])
+        df_prov = np.bincount(terms, minlength=vocab_size).astype(np.int64)
+        offsets_prov = np.cumsum(df_prov) - df_prov
+        if mode == "pairs":
+            postings = dist_engine.merge_owner_pair_runs(rows.values(), offsets_prov, num_pairs)
+        else:
+            postings = dist_engine.merge_owner_runs(rows.values(), stride, offsets_prov,
+                                                    num_pairs)
+        prov_of_rank = np.empty(vocab_size, dtype=np.int64)
+        prov_of_rank[remap] = np.arange(vocab_size)
+        df_rank = df_prov[prov_of_rank]
+        order, _ = engine.host_order_offsets(letters, df_rank)
+        host = {"df": df_rank, "order": order, "offsets": offsets_prov[prov_of_rank],
+                "postings": postings, "num_unique": num_pairs}
+        return self._emit_and_report(vocab, letters, host, out_dir, timer, max_doc_id)
+
+    def _run_device_tokenize_dist(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                                  report: DegradationReport) -> dict:
+        """All-device plan on a mesh: each shard tokenizes a contiguous
+        doc range's bytes; one ``all_to_all`` exchanges whole word rows
+        by content hash (or by letter owner); owners dedup and count
+        their terms (parallel/dist_device_tokenizer.py).  The host
+        decodes per-owner vocab blocks and merges at vocab scale, or,
+        with ``emit_ownership="letter"``, each owner writes its own
+        letter files."""
+        cfg = self.config
+        width = cfg.device_tokenize_width
+        n = self._num_shards()
+        mesh = make_mesh(n, cfg.device)
+        max_doc_id = len(manifest)
+        with timer.phase("load"):
+            shards = list(iter_document_ranges(
+                manifest, plan_contiguous_windows(manifest, n), report))
+        num_docs = sum(len(c) for c, _ in shards)
+        total = sum(len(b) for c, _ in shards for b in c)
+        timer.count("documents", num_docs)
+        timer.count("device_shards", n)
+        timer.count("device_tokenize_width", width)
+        if num_docs == 0 or total == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
+            return timer.report()
+
+        with timer.phase("feed"):
+            shard_len = _round_up(max(max(sum(len(b) for b in c) for c, _ in shards), 1),
+                                  cfg.pad_multiple)
+            docs_cap = max(max(len(c) for c, _ in shards), 1)
+            bufs, ends_l, ids_l = [], [], []
+            tok_count = host_max_len = 0
+            for contents, ids in shards:
+                buf, ends, idv = _pack_window(contents, ids, shard_len, docs_cap)
+                cnt, ml = DT.host_token_stats(buf, ends)
+                tok_count = max(tok_count, cnt)
+                host_max_len = max(host_max_len, ml)
+                bufs.append(buf)
+                ends_l.append(ends)
+                ids_l.append(idv)
+            tok_cap = _round_up(tok_count + 1, 1 << 14)
+            if host_max_len > width:
+                raise DT.WidthOverflow(
+                    f"cleaned token of {host_max_len} letters exceeds "
+                    f"device_tokenize_width={width}")
+            sort_cols = -(-max(host_max_len, 1) // 4)  # ceil div
+            timer.count("sort_cols", sort_cols)
+
+        letter_mode = cfg.emit_ownership == "letter"
+        owner_of_letter = ranges = None
+        if letter_mode:
+            ranges, owner_of_letter = owner_of_letter_table(n)
+            timer.count("emit_ownership", "letter")
+
+        dist_stats: dict = {}
+        with timer.phase("device_index"):
+            owners, (max_len, _) = index_bytes_dist(
+                bufs, ends_l, ids_l, width=width, tok_cap=tok_cap, mesh=mesh,
+                stats=dist_stats, sort_cols=sort_cols, max_doc_id=max_doc_id,
+                owner_of_letter=owner_of_letter)
+            if max_len != host_max_len:
+                raise AssertionError(
+                    f"device max word len {max_len} != host {host_max_len}: "
+                    "classifier divergence (bug)")
+        for k, v in dist_stats.items():
+            timer.count(k, v)
+
+        if not letter_mode:
+            return self._merge_emit_owner_blocks(owners, max_doc_id=max_doc_id,
+                                                 out_dir=out_dir, timer=timer)
+        # per-owner letter emit: owner o holds every word of its letter
+        # range (the reference's reducer ownership, main.c:129-150, at
+        # raw-text level), so each owner's block writes its own files
+        lines = 0
+        with timer.phase("host_views_emit"):
+            for o, ow in sorted(owners.items()):
+                if ow["num_words"] == 0:
+                    formatter.emit_index(
+                        out_dir, vocab=np.empty(0, "S1"), letter_of_term=np.empty(0, np.int64),
+                        order=np.empty(0, np.int64), df=np.empty(0, np.int64),
+                        offsets=np.empty(0, np.int64), postings=np.empty(0, np.int32),
+                        max_doc_id=max_doc_id, letter_range=ranges[o])
+                    continue
+                vocab_o = DT.decode_word_groups(ow["unique_groups"], width)
+                df_o = ow["df"].astype(np.int64)
+                letters_o = vocab_o.view(np.uint8).reshape(ow["num_words"], width)[:, 0] - ord("a")
+                order_o = np.lexsort((vocab_o, -df_o, letters_o))
+                stats_o = formatter.emit_index(
+                    out_dir, vocab=vocab_o, letter_of_term=letters_o, order=order_o, df=df_o,
+                    offsets=np.cumsum(df_o) - df_o, postings=ow["postings"].astype(np.int32),
+                    max_doc_id=max_doc_id, letter_range=ranges[o],
+                    backend=self._emit_backend())
+                lines += stats_o["lines_written"]
+        timer.count("letter_owners", n)
+        timer.count("unique_terms", sum(ow["num_words"] for ow in owners.values()))
+        timer.count("unique_pairs", sum(ow["num_pairs"] for ow in owners.values()))
+        timer.count("lines_written", lines)
+        return timer.report()
+
+    def _merge_emit_owner_blocks(self, owners, *, max_doc_id: int, out_dir: str,
+                                 timer: PhaseTimer) -> dict:
+        """Merged-emit tail of the mesh device plans: decode the
+        per-owner vocab blocks and merge at vocab scale — token-scale
+        data never re-sorts on the host."""
+        width = self.config.device_tokenize_width
+        with timer.phase("host_views"):
+            vocab_parts, df_parts, off_parts, post_parts = [], [], [], []
+            base = 0
+            for o in sorted(owners):
+                ow = owners[o]
+                if ow["num_words"] == 0:
+                    continue
+                vocab_parts.append(DT.decode_word_groups(ow["unique_groups"], width))
+                df_o = ow["df"].astype(np.int64)
+                off_parts.append(np.cumsum(df_o) - df_o + base)
+                df_parts.append(df_o)
+                post_parts.append(ow["postings"].astype(np.int32))
+                base += ow["num_pairs"]
+            num_words = sum(len(v) for v in vocab_parts)
+            num_pairs = base
+            timer.count("unique_terms", num_words)
+            timer.count("unique_pairs", num_pairs)
+            timer.count("tokens", num_pairs)
+            if num_pairs == 0:
+                with timer.phase("emit"):
+                    formatter.emit_grouped(out_dir, {},
+                                           artifact_path=self._artifact_path(out_dir))
+                return timer.report()
+            vocab = np.concatenate(vocab_parts)
+            df64 = np.concatenate(df_parts)
+            offsets = np.concatenate(off_parts)
+            postings = np.concatenate(post_parts)
+            letters = vocab.view(np.uint8).reshape(num_words, width)[:, 0] - ord("a")
+            # global emit order across the owner blocks: (letter asc, df
+            # desc, word asc) — the words themselves break ties (owner
+            # blocks are hash-ordered, not rank-ordered)
+            order = np.lexsort((vocab, -df64, letters))
+        with timer.phase("emit"):
+            emit_stats = formatter.emit_index(
+                out_dir, vocab=vocab, letter_of_term=letters, order=order, df=df64,
+                offsets=offsets, postings=postings, max_doc_id=max_doc_id,
+                backend=self._emit_backend(), artifact_path=self._artifact_path(out_dir))
+        timer.count("lines_written", emit_stats["lines_written"])
+        self._count_artifact_stats(timer, emit_stats)
+        return timer.report()
+
+    def _run_device_tokenize_stream_dist(self, manifest: Manifest, out_dir: str,
+                                         timer: PhaseTimer, report: DegradationReport) -> dict:
+        """Streaming all-device plan on a mesh: each window's raw bytes
+        are split over the shards, tokenized per shard, exchanged by
+        content hash and folded into bounded per-owner row accumulators
+        (parallel/dist_device_streaming.py).  Every shard's window is
+        packed into fresh arrays."""
+        cfg = self.config
+        width = cfg.device_tokenize_width
+        n = self._num_shards()
+        mesh = make_mesh(n, cfg.device)
+        max_doc_id = len(manifest)
+        timer.count("device_tokenize_width", width)
+        timer.count("device_shards", n)
+        timer.count("documents", len(manifest))
+        eng = DistDeviceStreamEngine(width=width, mesh=mesh)
+        with timer.phase("stream_feed"):
+            for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
+                # byte-balanced contiguous doc split of this window — the
+                # scheduler's one greedy-cut policy
+                parts = [(contents[lo:hi], ids[lo:hi])
+                         for lo, hi in plan_contiguous_ranges([len(c) for c in contents], n)]
+                shard_len = _round_up(
+                    max(max((sum(len(c) for c in cs) for cs, _ in parts), default=1), 1),
+                    cfg.pad_multiple)
+                docs_cap = max(max(len(c) for c, _ in parts), 1)
+                bufs, ends_l, ids_l = [], [], []
+                tok_count = max_len = 0
+                for contents_s, ids_s in parts:
+                    buf, ends, idv = _pack_window(contents_s, ids_s, shard_len, docs_cap)
+                    cnt, ml = DT.host_token_stats(buf, ends)
+                    tok_count = max(tok_count, cnt)
+                    max_len = max(max_len, ml)
+                    bufs.append(buf)
+                    ends_l.append(ends)
+                    ids_l.append(idv)
+                if max_len > width:
+                    raise DT.WidthOverflow(
+                        f"cleaned token of {max_len} letters exceeds "
+                        f"device_tokenize_width={width}")
+                eng.feed(bufs, ends_l, ids_l, tok_count=tok_count, max_len=max_len)
+        timer.count("stream_windows", eng.windows_fed)
+        if eng.windows_fed == 0:
+            with timer.phase("emit"):
+                formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
+            return timer.report()
+        sort_cols = -(-max(eng.max_word_len, 1) // 4)  # ceil div
+        timer.count("sort_cols", sort_cols)
+        dist_stats: dict = {}
+        with timer.phase("device_index"):
+            owners = eng.finalize(sort_cols=sort_cols, max_doc_id=max_doc_id, stats=dist_stats)
+        for k, v in dist_stats.items():
+            timer.count(k, v)
+        return self._merge_emit_owner_blocks(owners, max_doc_id=max_doc_id, out_dir=out_dir,
+                                             timer=timer)
+
     # -- one-shot plan -------------------------------------------------
 
     def _run_one_shot(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
@@ -807,12 +1230,20 @@ class InvertedIndexModel:
             return timer.report()
 
         packed = K.can_pack(vocab_size, max_doc_id)
+        num_shards = self._num_shards()
+        use_dist = num_shards > 1 and packed
         # half-bandwidth path: uint16 feed + fetch
-        use_u16 = packed and vocab_size <= 0xFFFF and max_doc_id <= 0xFFFE
+        use_u16 = not use_dist and packed and vocab_size <= 0xFFFF and max_doc_id <= 0xFFFE
         prededuped = use_u16 and corpus.pairs_deduped
         padded = _round_up(num_tokens, cfg.pad_multiple)
+        mesh = None
+        if use_dist:
+            padded = _round_up(padded, num_shards)
+            mesh = make_mesh(num_shards, cfg.device)
+        timer.count("device_shards", num_shards if use_dist else 1)
         timer.count("engine", "u16_prededuped" if prededuped else "u16" if use_u16
-                    else "packed" if packed else "pairs")
+                    else "dist" if use_dist else "packed" if packed else "pairs")
+        staged: list = []  # pinned shard uploads (mesh), held until the fetch
         with timer.phase("feed"):
             if use_u16:
                 feed = engine.u16_feed_tensor(
@@ -824,7 +1255,10 @@ class InvertedIndexModel:
                     host_keys = np.full(padded, K.INT32_MAX, dtype=np.int32)
                     np.multiply(corpus.term_ids, max_doc_id + 2, out=host_keys[:num_tokens])
                     host_keys[:num_tokens] += corpus.doc_ids
-                    keys = torch.from_numpy(host_keys).to(device)
+                    if use_dist:
+                        keys = shard(host_keys, mesh, staged)
+                    else:
+                        keys = torch.from_numpy(host_keys).to(device)
                 else:
                     terms = torch.from_numpy(np.concatenate([corpus.term_ids, pad])).to(device)
                     docs = torch.from_numpy(np.concatenate([corpus.doc_ids, pad])).to(device)
@@ -853,6 +1287,11 @@ class InvertedIndexModel:
         with timer.phase("device_index"):
             if use_u16:
                 out = engine.index_u16(feed, vocab_size=vocab_size, max_doc_id=max_doc_id)
+            elif use_dist:
+                # postings come back assembled on the host
+                out = dist_engine.dist_index(
+                    keys, letters, vocab_size=vocab_size, max_doc_id=max_doc_id,
+                    mesh=mesh)
             elif packed:
                 out = engine.index_packed(
                     keys, letters, vocab_size=vocab_size, max_doc_id=max_doc_id)
@@ -876,7 +1315,8 @@ class InvertedIndexModel:
                 host = {"df": df, "order": order, "offsets": offsets,
                         "postings": postings, "num_unique": num_unique}
             else:
-                host = {k: v.cpu().numpy() for k, v in out.items()}
+                host = {k: v if isinstance(v, np.ndarray) else v.cpu().numpy()
+                        for k, v in out.items()}
 
         return self._emit_and_report(corpus.vocab, corpus.letter_of_term, host, out_dir,
                                      timer, max_doc_id)

@@ -446,10 +446,16 @@ class NativeKeyStream:
             pass
 
 
-def emit_native(out_dir, vocab: np.ndarray, order, df, offsets, postings) -> int:
+def emit_native(out_dir, vocab: np.ndarray, order, df, offsets, postings,
+                letter_range: tuple[int, int] = (0, 26),
+                idx_bounds: tuple[int, int] | None = None) -> int:
     """Native letter-file emit; byte-identical to the Python writer in
     ``text.formatter.emit_index``.  ``vocab`` is the sorted 'S' array;
-    postings may be uint16 or int32.  Returns total bytes written."""
+    postings may be uint16 or int32.  ``letter_range`` restricts the
+    emit to letters ``[lo, hi)`` with ``idx_bounds`` the matching slice
+    of ``order`` (required for a partial range; defaults to the whole
+    permutation) — the multi-shard per-owner emit.  Returns total bytes
+    written."""
     lib = _require()
     os.makedirs(out_dir, exist_ok=True)
     vocab_size = int(vocab.shape[0])
@@ -474,7 +480,9 @@ def emit_native(out_dir, vocab: np.ndarray, order, df, offsets, postings) -> int
         ptr(vbuf, ctypes.c_uint8), ctypes.c_int32(vocab_size), ctypes.c_int32(width),
         ptr(order64, ctypes.c_int64), ptr(df64, ctypes.c_int64), ptr(off64, ctypes.c_int64),
         p16, p32, str(out_dir).encode(),
-        ctypes.c_int32(0), ctypes.c_int32(26), ctypes.c_int64(0), ctypes.c_int64(vocab_size))
+        ctypes.c_int32(letter_range[0]), ctypes.c_int32(letter_range[1]),
+        ctypes.c_int64(idx_bounds[0] if idx_bounds is not None else 0),
+        ctypes.c_int64(idx_bounds[1] if idx_bounds is not None else vocab_size))
     if rc < 0:
         raise OSError(f"native emit failed writing to {str(out_dir)!r}")
     return int(rc)

@@ -211,8 +211,10 @@ class PendingFetch:
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
+            # on the stream of the tensor's own card, which runs the copy
+            # (a mesh shard may live on another card than the current one)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t
 
@@ -226,6 +228,17 @@ def host_u16(a: np.ndarray) -> np.ndarray:
     """The uint16 values of a fetched int16 tensor (the bits are the
     same; torch has no uint16 arithmetic on the card)."""
     return a.view(np.uint16)
+
+
+def host_view(a: np.ndarray) -> np.ndarray:
+    """A fetched array as the host reads it: int16 tensors carry uint16
+    bits (no uint16 arithmetic on the card), so they are read as uint16."""
+    return host_u16(a) if a.dtype == np.int16 else a
+
+
+def leaves(v) -> list:
+    """The tensors of a tensor or a nested tuple of them, in order."""
+    return [v] if isinstance(v, torch.Tensor) else [t for x in v for t in leaves(x)]
 
 
 def index_prededuped_u16(feed_i16: torch.Tensor, *, max_doc_id: int,

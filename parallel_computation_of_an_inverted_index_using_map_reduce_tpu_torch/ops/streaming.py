@@ -42,27 +42,28 @@ from . import keys as K
 from .segment import compact, first_occurrence_mask
 
 
-def _merge_unique(acc: torch.Tensor, window: torch.Tensor, cap: int) -> torch.Tensor:
-    """Fold a packed-key window into the sorted-unique accumulator."""
+def _merge_unique(acc: torch.Tensor, window: torch.Tensor, cap: int):
+    """Fold a packed-key window into the sorted-unique accumulator;
+    returns it and the unique count (above ``cap``, rows were dropped)."""
     s = torch.sort(torch.cat([acc, window])).values
     first = first_occurrence_mask(s) & (s < K.INT32_MAX)
-    return compact(s, first, cap, K.INT32_MAX)
+    return compact(s, first, cap, K.INT32_MAX), first.sum(dtype=torch.int32)
 
 
-def _merge_unique_pairs(acc_t: torch.Tensor, acc_d: torch.Tensor, feed: torch.Tensor,
-                        cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pair-mode merge: ``feed`` is one ``[terms | docs]`` int32 buffer.
-    Both fields are nonnegative int32, so ``term << 31 | doc`` sorts in
-    (term, doc) order and is equal exactly where both fields are."""
-    half = feed.shape[0] // 2
-    t = torch.cat([acc_t, feed[:half]]).to(torch.int64)
-    d = torch.cat([acc_d, feed[half:]]).to(torch.int64)
+def _merge_unique_pairs(acc_t: torch.Tensor, acc_d: torch.Tensor, win_t: torch.Tensor,
+                        win_d: torch.Tensor, cap: int):
+    """Pair-mode merge of a (terms, docs) window; returns the (terms,
+    docs) accumulator and the unique count.  Both fields are nonnegative
+    int32, so ``term << 31 | doc`` sorts in (term, doc) order and is
+    equal exactly where both fields are."""
+    t = torch.cat([acc_t, win_t]).to(torch.int64)
+    d = torch.cat([acc_d, win_d]).to(torch.int64)
     key = torch.sort((t << 31) | d).values
     t_s = (key >> 31).to(torch.int32)
     d_s = (key & K.INT32_MAX).to(torch.int32)
     first = first_occurrence_mask(key) & (t_s < K.INT32_MAX)
-    return (compact(t_s, first, cap, K.INT32_MAX),
-            compact(d_s, first, cap, K.INT32_MAX))
+    return ((compact(t_s, first, cap, K.INT32_MAX), compact(d_s, first, cap, K.INT32_MAX)),
+            first.sum(dtype=torch.int32))
 
 
 def _regrow(acc: torch.Tensor, cap: int) -> torch.Tensor:
@@ -175,14 +176,15 @@ class StreamingIndexEngine:
             host = np.full(padded, K.INT32_MAX, np.int32)
             np.multiply(prov_term_ids, self._stride, out=host[:n])
             host[:n] += doc_ids
-            self._acc = _merge_unique(
+            self._acc, _ = _merge_unique(
                 self._acc, engine.upload(host, self._device, staged), self._cap)
         else:
             host = np.full(2 * padded, K.INT32_MAX, np.int32)
             host[:n] = prov_term_ids
             host[padded : padded + n] = doc_ids
-            self._acc_pair = _merge_unique_pairs(
-                *self._acc_pair, engine.upload(host, self._device, staged), self._cap)
+            feed = engine.upload(host, self._device, staged)
+            self._acc_pair, _ = _merge_unique_pairs(
+                *self._acc_pair, feed[:padded], feed[padded:], self._cap)
         self.windows_fed += 1
 
     def finalize(self, remap: np.ndarray, letter_of_term: np.ndarray,

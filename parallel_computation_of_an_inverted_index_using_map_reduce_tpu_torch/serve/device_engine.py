@@ -286,7 +286,7 @@ class DeviceEngine:
         if shards is not None and shards > 1:
             raise ValueError(
                 f"{SHARDS_ENV}={shards}: this device engine runs on one device; "
-                "batch sharding across devices is ROADMAP A10")
+                "batch sharding across devices is ROADMAP A10b")
         self._device = torch.device("cuda" if device is None else device)
         resolve_device(self._device.type)
         self._decode_budget = int(decode_budget if decode_budget is not None

@@ -50,9 +50,15 @@ def emit_index(
     max_doc_id: int,
     backend: str = "python",
     artifact_path: str | Path | None = None,
+    letter_range: tuple[int, int] = (0, ALPHABET_SIZE),
 ) -> dict:
     """Write the 26 letter files from the device engine's output arrays,
     and the serving artifact at ``artifact_path`` when it is set.
+
+    ``letter_range`` restricts the emit to letters ``[lo, hi)`` — the
+    per-owner emit of the multi-shard letter ownership (the reference's
+    reducer letter ranges, main.c:129-150): each owner writes only its
+    own files, so no host assembles the global index.
 
     ``backend`` selects the writer: ``"native"`` requires the C++ emit
     (native/tokenizer.cc), ``"auto"`` uses it when the library loads,
@@ -63,6 +69,11 @@ def emit_index(
     os.makedirs(output_dir, exist_ok=True)
     if backend not in ("python", "auto", "native"):
         raise ValueError(f"unknown emit backend {backend!r}")
+    lr = (int(letter_range[0]), int(letter_range[1]))
+    if artifact_path is not None and lr != (0, ALPHABET_SIZE):
+        raise ValueError(
+            "artifact_path requires the full letter range: a partial "
+            "emit does not hold the whole index")
 
     def _pack_artifact() -> dict:
         if artifact_path is None:
@@ -80,9 +91,20 @@ def emit_index(
         from .. import native
 
         if native.load() is not None:
+            if lr == (0, ALPHABET_SIZE):
+                idx_bounds = None
+                lines = int(np.asarray(order).shape[0])
+            else:
+                # the order is letter-partitioned: the range's slice is
+                # bounded by its letters' first and last positions
+                letters_in_order = np.asarray(letter_of_term)[order]
+                s, e = np.searchsorted(letters_in_order, [lr[0], lr[1]])
+                idx_bounds = (int(s), int(e))
+                lines = int(e - s)
             bytes_written = native.emit_native(output_dir, np.asarray(vocab), order, df,
-                                               offsets, postings)
-            return {"lines_written": int(np.asarray(order).shape[0]),
+                                               offsets, postings, letter_range=lr,
+                                               idx_bounds=idx_bounds)
+            return {"lines_written": lines, "letters": lr[1] - lr[0],
                     "bytes_written": bytes_written, "emit_backend": "native",
                     **_pack_artifact()}
         if backend == "native":
@@ -97,7 +119,8 @@ def emit_index(
 
     letters_in_order = np.asarray(letter_of_term)[order]
     bounds = np.searchsorted(letters_in_order, np.arange(ALPHABET_SIZE + 1))
-    for letter in range(ALPHABET_SIZE):
+    lines_written = 0
+    for letter in range(*lr):
         lo, hi = int(bounds[letter]), int(bounds[letter + 1])
         out = bytearray()
         for t in order[lo:hi].tolist():
@@ -108,8 +131,9 @@ def emit_index(
             out += b" ".join(id_strs[postings[start : start + n]])
             out += b"]\n"
         _write_letter_atomic(output_dir / letter_filename(letter), bytes(out))
-    return {"lines_written": int(bounds[-1] - bounds[0]), "emit_backend": "python",
-            **_pack_artifact()}
+        lines_written += hi - lo
+    return {"lines_written": lines_written, "letters": lr[1] - lr[0],
+            "emit_backend": "python", **_pack_artifact()}
 
 
 def emit_grouped(output_dir: str | Path,
