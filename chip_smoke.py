@@ -105,7 +105,31 @@ Phases, each failing loudly (exit 1, no result line):
    C's pair count, at n = 1, 2, 4 and 8 shards and capacity factors 2.0
    and 0.25 (where the overflow retry must run), each equal to
    ``sort_prov_chunks`` on one device, by CUDA events and the host clock.
-12. Kernels: each CUDA kernel against its plain PyTorch version on the
+12. Path K — the build's resilience and integrity options, on Path B's
+   corpus, each leg checked by md5 and exit code: K1 ``--checkpoint`` on
+   Path B's argv (saved, then resumed: phase ``resume``, no read, the
+   kernels launched as Path B launches them; a torn copy exits 2 under
+   ``--resume strict`` and is quarantined under ``--resume auto``, whose
+   rebuild also carries K2's transient fault and K5's options); K2
+   ``--fault-spec`` read faults: a transient fault on every 97th document
+   (Path B's md5, two retries a hit document) and a permanent one on doc
+   id 5 on Path D's argv (exit 3, that id skipped, the md5 of Path C's
+   files with doc 5 taken out); K3 Path F's argv with a stream checkpoint
+   every two windows, killed in a child process by ``sigkill:window=5``
+   (the rerun resumes after window 4), and crashed in the engine by
+   ``stream-crash:window=3`` with its save torn by ``ckpt-corrupt:save=1``
+   (the rerun quarantines it), each rerun with ``--resume auto`` to Path
+   B's md5; K4 the emit of Path A's default build killed after 7 letters
+   (``MRI_EMIT_KILL_AFTER_LETTERS``, native and Python writers, child
+   processes): a.txt..g.txt equal to Path A's, no truncated file; K5
+   ``--artifact --audit --trace-out`` on K1's auto rebuild, then
+   ``--verify`` (0 untouched, 2 naming a flipped letter file and a flipped
+   ``index.mri``; the trace valid JSON); K6 ``--profile-dir`` on K2's skip
+   build (a torch.profiler trace with CUDA kernel events).  The emit kills
+   run beside K1; the stream kill runs alone (the host reads files slowly
+   while two processes read); ``phase path_k_done`` prints Path K's
+   seconds.
+13. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -116,7 +140,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-13. Engine: the warm device time of each engine program a path runs, at
+14. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -1381,6 +1405,270 @@ def path_j_exchange(torch, c_pairs: int, c_vocab: int, max_doc: int, card: str) 
     return out
 
 
+# -- Path K: the build's resilience options on the card ---------------------
+
+def start_child(argv: list[str], log: Path, **env_extra) -> subprocess.Popen:
+    """The port's CLI in a child process (its output into ``log``)."""
+    with open(log, "wb") as f:
+        return subprocess.Popen([sys.executable, "-m", PKG, *argv], cwd=str(ROOT),
+                                env={**os.environ, "PYTHONPATH": str(ROOT), **env_extra},
+                                stdout=f, stderr=subprocess.STDOUT)
+
+
+def wait_child(proc: subprocess.Popen, log: Path, label: str, timeout: float = 300) -> int:
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"{label}: child hung past {timeout} s: "
+                           f"{log.read_text(errors='replace')[-2000:]}")
+
+
+def md5_without_doc(formatter, out_dir: Path, doc_id: int) -> str:
+    """md5 of the letter files in ``out_dir`` with ``doc_id`` taken out of
+    every postings list — terms left with none dropped, each letter
+    re-sorted by (df desc, word asc), the reference's order
+    (main.c:55-64): the index of the same corpus without that document."""
+    import hashlib
+
+    h = hashlib.md5()
+    needle = f" {doc_id} ".encode()
+    for letter in range(26):
+        rows = []
+        for line in (out_dir / formatter.letter_filename(letter)).read_bytes().splitlines():
+            word, ids = line[:-1].split(b":[", 1)
+            padded = b" " + ids + b" "
+            if needle in padded:
+                ids = padded.replace(needle, b" ", 1).strip()
+            if ids:
+                rows.append((-(ids.count(b" ") + 1), word, ids))
+        rows.sort()
+        h.update(b"".join(w + b":[" + i + b"]\n" for _, w, i in rows))
+    return h.hexdigest()
+
+
+def verify_cli(cli, out_dir: Path) -> tuple[int, str]:
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        rc = cli.main(["--verify", str(out_dir)])
+    return rc, err.getvalue()
+
+
+def path_k(torch, K, cli, formatter, faults, list_a: Path, list_b: Path, tmp: Path,
+           stats_b: dict, md5_c: str, a_out: Path, card: str) -> dict:
+    """Path K: the resilience and integrity options on Path B's corpus
+    (the emit kill on Path A's, in two child processes beside K1).  The
+    card's host reads files slowly while two processes read at once, so
+    the child killed at stream window 5 runs alone.  Returns K1's resume
+    launches."""
+    import shutil
+    import signal
+
+    t0 = time.perf_counter()
+    md5_b = stats_b["md5"]
+    ndocs = int(list_b.read_text().split()[0])
+
+    def build(label: str, list_path: Path, out: Path, extra: list[str], want_rc: int = 0):
+        rc, stats = run_cli(cli, ["4", "26", str(list_path), "--stats",
+                                  "--output-dir", str(out), *extra])
+        check(rc == want_rc, f"{label}: CLI exit {rc}, want {want_rc}")
+        if stats is not None:
+            stats["md5"] = formatter.letters_md5(out)
+        return stats
+
+    # the emit kills read Path A's 355 files: they run beside K1
+    ck_kill = tmp / "K3_kill.ckpt.npz"
+    f_argv = ["--device-tokenize", "--stream-chunk-docs", "2500", "--stream-checkpoint-every",
+              "2", "--resume", "auto"]
+    children = {}
+    for backend in ("native", "python"):
+        children[f"K4_{backend}"] = start_child(
+            ["4", "26", str(list_a), "--output-dir", str(tmp / f"K4_{backend}"),
+             "--emit-backend", backend], tmp / f"K4_{backend}.log",
+            MRI_EMIT_KILL_AFTER_LETTERS="7")
+    try:
+        # -- K1: the pairs checkpoint, saved then resumed ---------------------
+        ck1 = tmp / "K1_pairs.npz"
+        k1_argv = ["--skew", "--checkpoint", str(ck1)]
+        s_save = build("path K1 save", list_b, tmp / "K1_save", k1_argv)
+        check("checkpoint" in s_save["phases_ms"] and s_save["md5"] == md5_b,
+              f"path K1 save: phases {sorted(s_save['phases_ms'])}, md5 {s_save['md5']}")
+        s_res, launches = drive_path(torch, K, formatter,
+                                     cli_run(cli, "path K1 resume", list_b, tmp / "K1_resume",
+                                             k1_argv), tmp / "K1_resume", "path K1 resume")
+        check(s_res.get("resumed_from") == str(ck1) and "resume" in s_res["phases_ms"]
+              and not {"load", "tokenize"} & set(s_res["phases_ms"]),
+              f"path K1 resume did not resume: phases {sorted(s_res['phases_ms'])}")
+        check(launches == {"unique_mask_count": 1, "bucket_histogram": 2},
+              f"path K1 resume launches {launches}, want Path B's 1 and 2")
+        check((s_res["unique_pairs"], s_res["unique_terms"])
+              == (stats_b["unique_pairs"], stats_b["unique_terms"]),
+              "path K1 resume: the kernels' inputs differ from Path B's")
+        check(s_res["md5"] == md5_b, f"path K1 resume md5 {s_res['md5']} != path B {md5_b}")
+        with open(ck1, "r+b") as f:
+            f.truncate(ck1.stat().st_size // 3)
+        build("path K1 strict", list_b, tmp / "K1_strict", k1_argv, want_rc=2)
+        k4_rc = {backend: wait_child(children[f"K4_{backend}"], tmp / f"K4_{backend}.log",
+                                     f"path K4 {backend}") for backend in ("native", "python")}
+        # K3's child killed at stream window 5, alone on the host's reads
+        t = time.perf_counter()
+        children["K3_sigkill"] = start_child(
+            ["4", "26", str(list_b), "--output-dir", str(tmp / "K3k_out"), *f_argv,
+             "--stream-checkpoint", str(ck_kill)], tmp / "K3_sigkill.log",
+            MRI_FAULTS="sigkill:window=5")
+        md5_skip = md5_without_doc(formatter, tmp / "C_out", 5)
+        skip_ref_ms = (time.perf_counter() - t) * 1e3
+        rc_kill = wait_child(children["K3_sigkill"], tmp / "K3_sigkill.log", "path K3 sigkill")
+        kill_child_ms = (time.perf_counter() - t) * 1e3
+        # the --resume auto rebuild also carries K2's transient read fault
+        # (the retries absorb it: the output stays Path B's) and K5's
+        # --audit and --trace-out, on an --artifact build
+        trace_path = tmp / "K5_trace.json"
+        try:
+            s_auto = build("path K1 auto", list_b, tmp / "K5_out",
+                           [*k1_argv, "--resume", "auto", "--artifact", "--audit",
+                            "--trace-out", str(trace_path),
+                            "--fault-spec", "read-error:every=97:times=2"])
+        finally:
+            faults.install(None)
+        check(s_auto.get("quarantined_checkpoint") == f"{ck1}.corrupt"
+              and s_auto["md5"] == md5_b,
+              f"path K1 auto: quarantined {s_auto.get('quarantined_checkpoint')}, "
+              f"md5 {s_auto['md5']}")
+        print(f"phase path_k1: card={card} save_ms={s_save['total_ms']} "
+              f"save_phases_ms={json.dumps(s_save['phases_ms'])} "
+              f"resume_ms={s_res['total_ms']} resume_phases_ms={json.dumps(s_res['phases_ms'])} "
+              f"launches={launches} auto_ms={s_auto['total_ms']} "
+              f"checkpoint_bytes={ck1.stat().st_size} "
+              f"md5={md5_b}", flush=True)
+
+        # -- K2: the transient fault rode K1's auto rebuild; the permanent
+        # one on Path D's argv, recorded by torch.profiler (K6) ---------------
+        try:
+            sp = build("path K2 skip", list_b, tmp / "K6_out",
+                       ["--device-tokenize", "--profile-dir", str(tmp / "K6_prof"),
+                        "--fault-spec", "read-error:doc=4:times=-1"], want_rc=3)
+        finally:
+            faults.install(None)
+        deg, deg_s = s_auto["degradation"], sp["degradation"]
+        check(s_auto["md5"] == md5_c and deg["skipped_docs"] == []
+              and deg["read_retries"] == 2 * len(range(0, ndocs, 97)),
+              f"path K2 transient: md5 {s_auto['md5']}, degradation {deg}")
+        check(deg_s["skipped_docs"] == [5] and deg_s["read_retries"] == 2
+              and sp["md5"] == md5_skip,
+              f"path K2 skip: {deg_s}, md5 {sp['md5']} != {md5_skip}")
+        print(f"phase path_k2: card={card} transient_total_ms={s_auto['total_ms']} "
+              f"transient_phases_ms={json.dumps(s_auto['phases_ms'])} "
+              f"read_retries={deg['read_retries']} skip_total_ms={sp['total_ms']} "
+              f"skip_phases_ms={json.dumps(sp['phases_ms'])} skipped_docs={deg_s['skipped_docs']} "
+              f"md5_transient={s_auto['md5']} md5_skip={sp['md5']} "
+              f"skip_reference_ms={skip_ref_ms:.1f}", flush=True)
+
+        # -- K3: crash and resume on the streaming all-device plan -----------
+        ck3 = tmp / "K3.ckpt.npz"
+        k3_argv = [*f_argv, "--stream-checkpoint", str(ck3)]
+        # the engine crashes at window 3 with its window-2 save torn: the
+        # rerun quarantines the torn file and rebuilds
+        faults.install("ckpt-corrupt:save=1; stream-crash:window=3")
+        try:
+            run_cli(cli, ["4", "26", str(list_b), "--output-dir", str(tmp / "K3_out"), *k3_argv])
+        except RuntimeError as e:
+            check("injected stream crash after window 3" in str(e), f"path K3 crash: {e}")
+        else:
+            raise SmokeFailure("path K3 crash: the injected crash did not fire")
+        finally:
+            faults.install(None)
+        check(ck3.exists(), "path K3 stream-crash left no checkpoint")
+        s_cc = build("path K3 crash rerun", list_b, tmp / "K3_out", k3_argv)
+        check(s_cc.get("quarantined_checkpoint") == f"{ck3}.corrupt"
+              and "resumed_from_window" not in s_cc and s_cc["md5"] == md5_b
+              and not ck3.exists(),
+              f"path K3 crash rerun: {s_cc.get('quarantined_checkpoint')}, md5 {s_cc['md5']}")
+        rc = rc_kill
+        check(rc == -signal.SIGKILL and ck_kill.exists(),
+              f"path K3 sigkill: child exit {rc}, checkpoint {ck_kill.exists()}: "
+              f"{(tmp / 'K3_sigkill.log').read_text(errors='replace')[-1500:]}")
+        s_kill = build("path K3 sigkill resume", list_b, tmp / "K3k_out",
+                       [*f_argv, "--stream-checkpoint", str(ck_kill)])
+        check(s_kill.get("resumed_from_window") == 4 and s_kill["md5"] == md5_b
+              and not ck_kill.exists(),
+              f"path K3 sigkill resume: window {s_kill.get('resumed_from_window')}, "
+              f"md5 {s_kill['md5']}")
+        print(f"phase path_k3: card={card} crash_rerun_ms={s_cc['total_ms']} "
+              f"sigkill_resume_ms={s_kill['total_ms']} sigkill_child_exit={rc} "
+              f"sigkill_child_ms={kill_child_ms:.1f} "
+              f"checkpoint_ms_per_save={s_kill.get('checkpoint_ms_per_save')} md5={md5_b}",
+              flush=True)
+
+        # -- K4: the emit killed after 7 letters ------------------------------
+        k4 = {}
+        for backend in ("native", "python"):
+            out = tmp / f"K4_{backend}"
+            rc = k4_rc[backend]
+            check(rc == -signal.SIGKILL, f"path K4 {backend}: child exit {rc}")
+            whole = []
+            for letter in range(26):
+                name = formatter.letter_filename(letter)
+                if (out / name).exists():
+                    check((out / name).read_bytes() == (a_out / name).read_bytes(),
+                          f"path K4 {backend}: {name} differs from Path A's")
+                    whole.append(name)
+                else:
+                    left = sorted(p.name for p in out.glob(name + "*"))
+                    check(left in ([], [name + ".tmp"]), f"path K4 {backend}: left {left}")
+            check(whole == [formatter.letter_filename(i) for i in range(7)],
+                  f"path K4 {backend}: letters {whole}, want a.txt..g.txt")
+            k4[backend] = len(whole)
+        print(f"phase path_k4: card={card} whole_letters={json.dumps(k4)} child_exit="
+              f"{-signal.SIGKILL}", flush=True)
+
+        # -- K5: the auto rebuild's manifest and --verify --------------------
+        manifest = json.loads((tmp / "K5_out" / "index.manifest.json").read_text())
+        names = [formatter.letter_filename(i) for i in range(26)] + ["index.mri"]
+        check(sorted(manifest["files"]) == sorted(names) and "audit_ms" in s_auto,
+              f"path K5: manifest {sorted(manifest['files'])}, audit_ms {s_auto.get('audit_ms')}")
+        doc = json.loads(trace_path.read_text())
+        check(s_auto.get("trace_out") == str(trace_path) and "traceEvents" in doc,
+              f"path K5 trace: trace_out {s_auto.get('trace_out')}")
+        t = time.perf_counter()
+        rc, err = verify_cli(cli, tmp / "K5_out")
+        verify_ms = (time.perf_counter() - t) * 1e3
+        check(rc == 0, f"path K5: --verify of the untouched dir exit {rc}: {err}")
+        shutil.copytree(tmp / "K5_out", tmp / "K5_copy")
+        for name in ("a.txt", "index.mri"):
+            p = tmp / "K5_copy" / name
+            data = bytearray(p.read_bytes())
+            data[len(data) // 2] ^= 0x01
+            p.write_bytes(bytes(data))
+            rc, err = verify_cli(cli, tmp / "K5_copy")
+            check(rc == 2 and f"verify: {name}: checksum mismatch" in err,
+                  f"path K5: --verify with {name} flipped: exit {rc}: {err}")
+            data[len(data) // 2] ^= 0x01
+            p.write_bytes(bytes(data))
+        shutil.rmtree(tmp / "K5_copy")
+        print(f"phase path_k5: card={card} audit_ms={s_auto['audit_ms']} verify_ms={verify_ms:.3f} "
+              f"files={len(manifest['files'])} trace_events={len(doc['traceEvents'])} "
+              f"md5={s_auto['md5']}", flush=True)
+
+        # -- K6: the skip build's torch.profiler trace --------------------------
+        traces = sorted((tmp / "K6_prof").glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"path K6: traces {traces}")
+        busy = device_busy(traces[0])
+        check(busy["by_cat"].get("kernel", (0, 0))[0] > 0,
+              f"path K6: no CUDA kernel event in {traces[0].name}: {busy['by_cat']}")
+        print(f"phase path_k6: card={card} profiled_total_ms={sp['total_ms']} "
+              f"device_busy={json.dumps(busy)} md5={sp['md5']}", flush=True)
+    finally:
+        faults.install(None)
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase path_k_done: card={card} seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
 def mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
                   ) -> int:
     """``--mesh-only``: Path J alone, on however many cards the machine
@@ -1418,7 +1706,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
-            IndexConfig, build_index, cli, native)
+            IndexConfig, build_index, cli, faults, native)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
             manifest as manifest_mod, scheduler, synthetic)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
@@ -1724,6 +2012,10 @@ def main() -> int:
                                            stats_c["md5"], h_paths[3], card))
             path_j_exchange(torch, stats_c["unique_pairs"], stats_c["unique_terms"], 20_000,
                             card)
+
+            # -- Path K: resilience on the card --------------------------------
+            launches_by_path["K1"] = path_k(torch, K, cli, formatter, faults, list_a, list_b,
+                                            tmp, stats_b, stats_c["md5"], tmp / "A2_out", card)
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

@@ -8,6 +8,12 @@ plus flags for the device engine:
     python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch \\
         4 26 list.txt --output-dir=out --stats [--artifact]
         [--device-shards N [--emit-ownership letter]]
+        [--checkpoint PATH] [--fault-spec SPEC] [--audit]
+        [--trace-out FILE] [--profile-dir DIR]
+
+``--verify DIR`` re-checks an ``--audit`` run's output directory
+against its ``index.manifest.json`` (exit 0 when it matches, 2 naming
+each mismatched file),
 
 and the query side over an ``--artifact`` build's ``index.mri``:
 
@@ -24,18 +30,20 @@ import json
 import os
 import sys
 
+from . import faults
+from .audit import AuditError, verify_output_dir
 from .config import IndexConfig
 from .corpus.manifest import read_manifest
+from .faults import EXIT_DEGRADED
 from .models.inverted_index import DeviceUnavailable, build_index
 from .utils.checkpoint import CheckpointCorrupt
-
-EXIT_DEGRADED = 3
 
 _EPILOG = """\
 exit codes:
   0  clean run
-  2  error (bad arguments, I/O failure, a corrupt --stream-checkpoint
-     under --resume strict, no CUDA device for --device cuda)
+  2  error (bad arguments or fault spec, I/O failure, a corrupt
+     --checkpoint or --stream-checkpoint under --resume strict, an audit
+     failure, a --verify mismatch, no CUDA device for --device cuda)
   3  degraded (completed, but skipped unreadable documents; see the
      'degradation' block of --stats)
 """
@@ -57,6 +65,10 @@ def make_parser() -> argparse.ArgumentParser:
                    help="cuda: device engine; oracle: pure-Python conformance backend")
     p.add_argument("--output-dir", default=".", help="where a.txt..z.txt are written (default: CWD)")
     p.add_argument("--pad-multiple", type=int, default=1 << 16)
+    p.add_argument("--checkpoint", default=None,
+                   help="save/resume the tokenized map-phase pairs at this path")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the device phases here")
     p.add_argument("--stats", action="store_true", help="print a JSON stats line to stdout")
     p.add_argument("--skew", action="store_true",
                    help="also measure letter vs hash-bucket partition skew on the device")
@@ -109,14 +121,30 @@ def make_parser() -> argparse.ArgumentParser:
                    help="letter-file writer: auto = native emit when available, "
                         "python = the pure-Python writer; byte-identical either way")
     p.add_argument("--resume", choices=("strict", "auto"), default="strict",
-                   help="stream-checkpoint trust policy: strict = a corrupt "
-                        "checkpoint is an error; auto = move it aside to "
-                        "<path>.corrupt and restart fresh")
+                   help="checkpoint-trust policy: strict = a corrupt "
+                        "checkpoint is a hard error; auto = quarantine it "
+                        "to <path>.corrupt and restart fresh (crash-safe "
+                        "rerun after SIGKILL mid-save)")
+    p.add_argument("--fault-spec", default=None,
+                   help="arm the deterministic fault injector (faults.py "
+                        "grammar, e.g. 'read-error:doc=2:times=2' or "
+                        "'sigkill:window=2;seed=7'; also readable from "
+                        f"${faults.ENV_VAR}) — test/bench only, never "
+                        "needed for production runs")
     p.add_argument("--artifact", action="store_true",
                    help="also pack the compact mmap serving artifact "
                         "(index.mri) next to the letter files at emit "
                         "time — what 'query' loads (serve/artifact.py "
                         "format; MRI_SERVE_FORMAT picks v1, v2 or v2.1)")
+    p.add_argument("--audit", action="store_true",
+                   help="integrity audit: an index.manifest.json output "
+                        "manifest (per-file adler32) after the emit, which "
+                        "--verify DIR re-checks; audit failures exit 2, never "
+                        "silently wrong bytes")
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="write a Chrome trace_event JSON timeline of the "
+                        "build here (load in chrome://tracing or "
+                        "ui.perfetto.dev)")
     return p
 
 
@@ -245,6 +273,18 @@ def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "query":
         return _query_main(argv[1:])
+    # --verify DIR is a standalone mode (no reference positionals)
+    if "--verify" in argv:
+        i = argv.index("--verify")
+        if i + 1 >= len(argv):
+            print("error: --verify needs an output directory", file=sys.stderr)
+            return 2
+        ok, problems = verify_output_dir(argv[i + 1])
+        for line in problems:
+            print(f"verify: {line}", file=sys.stderr)
+        if ok:
+            print(f"verify: {argv[i + 1]} matches its index manifest")
+        return 0 if ok else 2
     args = make_parser().parse_args(argv)
     # validate the reference positionals up front with ONE clear line on
     # stderr, not an IndexConfig traceback
@@ -257,6 +297,12 @@ def main(argv: list[str] | None = None) -> int:
     if not os.path.exists(args.file_list):
         print(f"error: input list {args.file_list!r} does not exist", file=sys.stderr)
         return 2
+    if args.fault_spec is not None:
+        try:
+            faults.install(args.fault_spec)
+        except faults.FaultSpecError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     try:
         manifest = read_manifest(args.file_list)
         config = IndexConfig(
@@ -265,6 +311,8 @@ def main(argv: list[str] | None = None) -> int:
             backend=args.backend,
             output_dir=args.output_dir,
             pad_multiple=args.pad_multiple,
+            checkpoint_path=args.checkpoint,
+            profile_dir=args.profile_dir,
             collect_skew_stats=args.skew,
             device=args.device,
             pipeline_chunk_docs=args.pipeline_chunk_docs,
@@ -281,10 +329,14 @@ def main(argv: list[str] | None = None) -> int:
             stream_checkpoint=args.stream_checkpoint,
             stream_checkpoint_every=args.stream_checkpoint_every,
             resume=args.resume,
+            audit=args.audit,
             artifact=args.artifact,
+            trace_out=args.trace_out,
         )
         stats = build_index(manifest, config)
-    except (OSError, ValueError, DeviceUnavailable, CheckpointCorrupt) as e:
+    except (AuditError, OSError, ValueError, DeviceUnavailable, CheckpointCorrupt) as e:
+        # ValueError covers the knobs too: a bad MRI_READ_* value is a
+        # one-line configuration error, not a reader-thread traceback
         print(f"error: {e}", file=sys.stderr)
         return 2
     if args.stats:

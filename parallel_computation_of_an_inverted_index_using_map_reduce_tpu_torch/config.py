@@ -10,7 +10,11 @@ the streaming plan (``stream_chunk_docs``), the all-device plan
 (``device_tokenize``) and the two together, the streaming all-device
 plan with its resumable stream checkpoints, the serving artifact
 (``artifact``) every plan but the overlap plan packs, and the
-multi-shard builds (``device_shards``, ``emit_ownership``).
+multi-shard builds (``device_shards``, ``emit_ownership``), and the
+build's resilience and integrity options: the one-shot plan's pairs
+checkpoint (``checkpoint_path``), a torch.profiler trace
+(``profile_dir``), the output manifest (``audit``) and the Chrome trace
+of the build (``trace_out``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,14 @@ class IndexConfig:
     # Pad the token count up to a multiple of this, so feed buffers keep
     # a few stable sizes across similarly-sized corpora.
     pad_multiple: int = 1 << 16
+    # Write a torch.profiler Chrome trace of the device phases here (CPU
+    # activity, and CUDA activity on the card).
+    profile_dir: str | None = None
+    # One-shot plan: save the tokenized map-phase pairs here
+    # (utils/checkpoint.py, atomic); a rerun with the same manifest
+    # resumes from them without reading the corpus.  Selects the
+    # one-shot plan.
+    checkpoint_path: str | None = None
     # Measure letter vs hash-bucket partition skew on the device
     # (utils/stats.py).  Off the hot path, so opt-in.
     collect_skew_stats: bool = False
@@ -122,6 +134,14 @@ class IndexConfig:
     #              reducer ownership, main.c:129-150) and each owner
     #              emits only its own letter files; no global merge.
     emit_ownership: str = "merged"
+    # Integrity audit (audit.py): an index.manifest.json output manifest
+    # (per-file adler32 of the letter files and index.mri) after the
+    # emit, which ``--verify DIR`` re-checks.  Off by default; its cost
+    # is recorded as ``audit_ms``.
+    audit: bool = False
+    # Chrome trace_event JSON of the build (obs/chrometrace.py); the
+    # device plans write the sparse trace the JAX device plans write.
+    trace_out: str | None = None
 
     def resolved_host_threads(self) -> int:
         """The map-phase thread count this run will actually use."""
@@ -142,6 +162,13 @@ class IndexConfig:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.pad_multiple < 1:
             raise ValueError("pad_multiple must be >= 1")
+        if self.backend != "cuda":
+            # device-era options the oracle does not implement: fail
+            # loudly rather than silently ignore a flag the user passed
+            for flag in ("stream_chunk_docs", "checkpoint_path", "profile_dir"):
+                if getattr(self, flag) is not None:
+                    raise ValueError(
+                        f"{flag} requires backend='cuda', got backend={self.backend!r}")
         if self.backend != "cuda" and self.collect_skew_stats:
             raise ValueError(
                 "collect_skew_stats requires backend='cuda', "
@@ -213,7 +240,7 @@ class IndexConfig:
                 raise ValueError(
                     "device_tokenize requires backend='cuda', "
                     f"got backend={self.backend!r}")
-            for flag in ("pipeline_chunk_docs", "overlap_tail_fraction"):
+            for flag in ("checkpoint_path", "pipeline_chunk_docs", "overlap_tail_fraction"):
                 if getattr(self, flag) is not None:
                     raise ValueError(
                         f"device_tokenize is a complete engine; {flag} "
@@ -246,6 +273,10 @@ class IndexConfig:
             if self.stream_chunk_docs < 1:
                 raise ValueError(
                     f"stream_chunk_docs must be >= 1 or None, got {self.stream_chunk_docs}")
+            if self.checkpoint_path is not None:
+                raise ValueError(
+                    "stream_chunk_docs is incompatible with checkpoint_path "
+                    "(the accumulator itself is the evolving map-phase state)")
             if self.backend != "cuda":
                 raise ValueError(
                     "stream_chunk_docs requires backend='cuda', "

@@ -9,8 +9,11 @@ Reference behavior being reproduced (main.c:257-298):
 - each file is ``stat``-ed for its size (main.c:289-296); a missing file
   gets a warning and size 0 but stays in the manifest
 - an unreadable file at map time is warned about and skipped
-  (main.c:97-100) — :func:`load_documents` records each skip in a
-  :class:`DegradationReport`, and the CLI exits 3 when any was skipped
+  (main.c:97-100) — here each read first retries under the build's
+  :class:`faults.RetryPolicy` (honouring an armed fault injector), a
+  document that stays unreadable is recorded in the run's
+  :class:`faults.DegradationReport`, and the CLI exits 3 when any was
+  skipped
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ import dataclasses
 import logging
 import os
 from pathlib import Path
+
+from .. import faults
+from ..faults import DegradationReport
 
 log = logging.getLogger("mri_torch.corpus")
 
@@ -44,23 +50,6 @@ class Manifest:
         """Document bytes; raises OSError for an unreadable file."""
         with open(self.paths[index], "rb") as f:
             return f.read()
-
-
-class DegradationReport:
-    """What the loader skipped in one run; ``summary()`` rides the stats
-    dict into the CLI, which exits 3 when ``skipped_docs`` is not empty."""
-
-    def __init__(self):
-        self.skips: list[dict] = []
-
-    def record_skip(self, *, doc_id: int, path: str, reason: str) -> None:
-        self.skips.append({"doc_id": doc_id, "path": path, "reason": reason})
-
-    def summary(self) -> dict:
-        return {
-            "skipped_docs": [s["doc_id"] for s in self.skips],
-            "skip_reasons": {str(s["doc_id"]): s["reason"] for s in self.skips},
-        }
 
 
 def _stat_sizes(paths) -> tuple[int, ...]:
@@ -124,32 +113,57 @@ def manifest_from_dir(corpus_dir: str | Path, pattern: str = "**/*.txt") -> Mani
     return Manifest(paths=tuple(paths), sizes=_stat_sizes(paths))
 
 
+def _read_doc_resilient(manifest: Manifest, i: int, policy, report):
+    """One document read under the build's retry policy, honouring any
+    armed fault injector (faults.py).  Returns bytes, or None when the
+    document stays unreadable (recorded as a skip in ``report``)."""
+
+    def attempt() -> bytes:
+        inj = faults.active()
+        cap = None
+        if inj is not None:
+            cap = inj.on_read(i, manifest.paths[i])
+        data = manifest.read_doc(i)
+        return data if cap is None else data[:cap]
+
+    try:
+        return policy.run(attempt, doc_id=manifest.doc_id(i),
+                          path=manifest.paths[i], report=report)
+    except OSError as e:
+        report.record_skip(doc_id=manifest.doc_id(i),
+                           path=manifest.paths[i], reason=str(e))
+        return None
+
+
 def iter_document_ranges(manifest: Manifest, ranges,
-                         report: DegradationReport | None = None):
+                         report: DegradationReport | None = None, *, policy=None):
     """Yield ``(contents, doc_ids)`` for each ``[lo, hi)`` doc range.
 
-    Unreadable files are skipped inside their range (reference
-    main.c:97-100) — their doc id never appears in any postings list —
-    recorded in ``report``, and summarized in one warning line per
-    range.
+    Each read retries per ``policy`` (default: the env-tuned build
+    policy, faults.RetryPolicy); a persistently unreadable file is
+    skipped inside its range (reference main.c:97-100) — its doc id
+    never appears in any postings list — recorded in ``report``
+    (default: the run's, faults.current_report), and summarized in one
+    warning line per range.
     """
+    if policy is None:
+        policy = faults.default_policy()
+    if report is None:
+        report = faults.current_report()
     for lo, hi in ranges:
         contents: list[bytes] = []
         doc_ids: list[int] = []
         skipped = 0
         for i in range(lo, hi):
-            try:
-                data = manifest.read_doc(i)
-            except OSError as e:
+            data = _read_doc_resilient(manifest, i, policy, report)
+            if data is None:
                 skipped += 1
-                if report is not None:
-                    report.record_skip(doc_id=manifest.doc_id(i),
-                                       path=manifest.paths[i], reason=str(e))
                 continue
             contents.append(data)
             doc_ids.append(manifest.doc_id(i))
         if skipped:
-            log.warning("skipped %d unreadable document(s) in [%d, %d)", skipped, lo, hi)
+            log.warning("skipped %d unreadable document(s) in window "
+                        "[%d, %d) after retries", skipped, lo, hi)
         yield contents, doc_ids
 
 

@@ -41,6 +41,12 @@ Output is byte-identical across backends and plans, to the JAX package,
 and to the pthread reference.  With ``config.artifact`` every plan but
 the overlap plan also packs the serving artifact ``index.mri``
 (serve/artifact.py) from the arrays it emits.
+
+Every run records its read retries and skipped documents in one
+degradation report (faults.py); ``checkpoint_path`` saves or resumes the
+one-shot plan's tokenized pairs, ``profile_dir`` records the device
+phases with torch.profiler, ``trace_out`` writes a Chrome trace and
+``audit`` the output manifest (audit.py).
 """
 
 from __future__ import annotations
@@ -53,13 +59,14 @@ import time
 import numpy as np
 import torch
 
-from .. import native
+from .. import faults, native
 from ..config import IndexConfig
 from ..corpus.manifest import (DegradationReport, Manifest, iter_document_chunks,
                                iter_document_ranges, load_documents, prefetch_document_ranges)
 from ..corpus.scheduler import (owner_of_letter_table, plan_contiguous_ranges,
                                 plan_contiguous_windows, plan_fraction_windows,
                                 window_balance_stats)
+from ..obs import chrometrace
 from ..obs.timing import PhaseTimer
 from ..ops import device_tokenizer as DT
 from ..ops import engine
@@ -91,6 +98,21 @@ def resolve_device(name: str) -> torch.device:
             "device='cuda' but torch sees no CUDA device; "
             "pass device='cpu' (--device cpu) to run on the CPU")
     return torch.device(name)
+
+
+def _profile_ctx(profile_dir: str | None, device):
+    """One torch.profiler gate for every plan (the JAX package's
+    ``_profile_ctx``): CPU activity, and CUDA activity on the card,
+    written into ``profile_dir`` as a Chrome trace when the context
+    exits; a null context without a directory."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
 
 
 def _pack_window(contents, ids, shard_len: int, docs_cap: int | None = None):
@@ -128,7 +150,18 @@ class InvertedIndexModel:
 
     def run(self, manifest: Manifest, output_dir: str | None = None) -> dict:
         cfg = self.config
-        report = DegradationReport()
+        # one degradation report per run: every read records its retries
+        # and skipped documents here, and the summary rides the stats
+        # into the CLI (exit faults.EXIT_DEGRADED when documents were
+        # skipped)
+        report = faults.begin_run()
+        # Chrome trace export (--trace-out): written once, after the
+        # run; the device plans record no spans (the JAX device plans'
+        # sparse trace)
+        trace = None
+        if cfg.trace_out:
+            trace = chrometrace.TraceEvents()
+            trace.name_thread(chrometrace.MAIN, "main")
         timer = self._new_timer()
         out_dir = output_dir if output_dir is not None else cfg.output_dir
         if cfg.backend == "oracle":
@@ -138,7 +171,21 @@ class InvertedIndexModel:
             stats = {**stats, **timer.report()}
         else:
             stats = self._run_device(manifest, out_dir, timer, report)
+        if trace is not None:
+            trace.write(cfg.trace_out)
+            stats["trace_out"] = cfg.trace_out
+        if cfg.audit:
+            # the output manifest after the emit, so --verify can re-check
+            # the directory later; its time is the audit's whole cost
+            from .. import audit as audit_mod
+
+            t0 = time.perf_counter()
+            audit_mod.write_output_manifest(out_dir)
+            stats["audit_ms"] = round(
+                stats.get("audit_ms", 0.0) + (time.perf_counter() - t0) * 1e3, 3)
         stats["degradation"] = report.summary()
+        if report.degraded or report.worker_recoveries or report.reducer_takeovers:
+            report.log_summary()
         return stats
 
     def _artifact_path(self, out_dir) -> str | None:
@@ -198,7 +245,7 @@ class InvertedIndexModel:
                 timer.count("device", device_name)
                 timer.count("device_tokenize_fallback", str(e))
                 timer.phases["aborted_device_tokenize"] = aborted_s
-                report.skips.clear()  # the host plan reloads and records them anew
+                report.clear()  # the host plan rereads and records anew
         if cfg.stream_chunk_docs is not None:
             if num_shards > 1:
                 return self._run_streaming_dist(manifest, out_dir, timer, report)
@@ -243,7 +290,7 @@ class InvertedIndexModel:
                 timer.count("device", device_name)
                 timer.count("pipelined_fallback", "key_overflow")
                 timer.phases["aborted_pipelined"] = aborted_s
-                report.skips.clear()  # the one-shot reload records them anew
+                report.clear()  # the one-shot plan rereads and records anew
         return self._run_one_shot(manifest, out_dir, timer, report, device)
 
     def _num_shards(self) -> int:
@@ -256,15 +303,16 @@ class InvertedIndexModel:
 
     def _pipelined_eligible(self, manifest: Manifest) -> bool:
         """Whether the provisional-key pipelined plan applies: it needs
-        the native scan, no streaming plan and no skew statistics (which
-        need the token arrays on the host).  On one device it also needs
-        uint16 postings (doc ids < 0xFFFF); the mesh variant fetches
-        int32 and has no doc cap."""
+        the native scan, no streaming plan and neither a pairs checkpoint
+        nor skew statistics (which need the token arrays on the host).
+        On one device it also needs uint16 postings (doc ids < 0xFFFF);
+        the mesh variant fetches int32 and has no doc cap."""
         cfg = self.config
         return (
             cfg.pipeline_chunk_docs != 0
             and cfg.use_native
             and cfg.stream_chunk_docs is None
+            and cfg.checkpoint_path is None
             and not cfg.collect_skew_stats
             and (self._num_shards() > 1 or len(manifest) <= 0xFFFE)
             and native.available()
@@ -378,7 +426,7 @@ class InvertedIndexModel:
                 remap=remap, df_prov=df_prov, emit_order=emit_order, num_pairs=num_pairs,
                 max_doc_id=max_doc_id, out_dir=out_dir, timer=timer)
         nfetch = min(keys_capacity, _round_up(num_pairs, 1 << 14))
-        with timer.phase("device_index"):
+        with timer.phase("device_index"), _profile_ctx(cfg.profile_dir, device):
             pending = engine.PendingFetch(
                 engine.sort_prov_chunks(chunks_dev, stride=stride, out_size=nfetch))
             # overlapped with the in-flight sort and copy: per-rank views
@@ -389,6 +437,8 @@ class InvertedIndexModel:
             offsets_prov = np.cumsum(df64) - df64
             host = {"df": df64[prov_of_rank], "order": emit_order,
                     "offsets": offsets_prov[prov_of_rank], "num_unique": num_pairs}
+            if cfg.profile_dir:
+                pending.wait()  # keep the in-flight sort and copy inside the trace
         with timer.phase("fetch"):
             host["postings"] = engine.host_u16(pending.wait())
         del chunks_dev, staged
@@ -413,8 +463,10 @@ class InvertedIndexModel:
                 prov_of_rank=prov_of_rank, out_dir=out_dir, timer=timer,
                 max_doc_id=max_doc_id, num_pairs=num_pairs)
         dist_stats: dict = {}
-        with timer.phase("device_index"):
-            # exchange + fetch + host merge in one blocking call
+        # exchange + fetch + host merge in one blocking call, all inside
+        # the profiled device phase
+        with timer.phase("device_index"), _profile_ctx(self.config.profile_dir,
+                                                       self.config.device):
             postings = dist_engine.dist_sort_prov_windows(
                 chunks_dev, stride=stride, mesh=mesh, offsets_prov=offsets_prov,
                 num_pairs=num_pairs, stats=dist_stats)
@@ -441,7 +493,8 @@ class InvertedIndexModel:
         letters = np.asarray(letters)
         owner_of_prov = owner_of_letter[letters[np.asarray(remap)]]
         dist_stats: dict = {}
-        with timer.phase("device_index"):
+        with timer.phase("device_index"), _profile_ctx(self.config.profile_dir,
+                                                       self.config.device):
             rows = dist_engine.dist_letter_windows(
                 chunks_dev, owner_of_prov, stride=stride, mesh=mesh, stats=dist_stats)
         for k, v in dist_stats.items():
@@ -510,38 +563,46 @@ class InvertedIndexModel:
         prev_snap = np.zeros(0, np.int32)
         tail_keys = None
         num_pairs = docs_loaded = 0
-        with native.NativeKeyStream(stride, num_threads=threads) as stream:
-            with timer.phase("tokenize_feed"), contextlib.closing(
-                    prefetch_document_ranges(manifest, windows, report)) as reader:
-                for wi, (contents, ids) in enumerate(reader):
-                    docs_loaded += len(contents)
-                    if wi == len(windows) - 1:  # the host tail
-                        keys, _ = stream.feed(contents, ids)
-                        num_pairs += int(keys.size)
-                        if keys.size:
-                            tail_keys = keys
-                        continue
-                    mode, buf, nvalid, _ = stream.feed_u16(contents, ids, granule=granule)
-                    num_pairs += nvalid
-                    if nvalid == 0:
-                        continue
-                    if mode == "u16":
-                        host = buf.view(np.int16)
-                    else:  # prov ids outgrew uint16: int32 keys
-                        host = np.full(_round_up(nvalid, granule), K.INT32_MAX, np.int32)
-                        host[:nvalid] = buf
-                    post = engine.sort_prov_chunks(
-                        [engine.upload(host, device, staged)], stride=stride,
-                        out_size=_round_up(nvalid, granule))
-                    dev_handles.append((engine.PendingFetch(post), nvalid))
-                    # per-window per-term pair counts from combiner df
-                    # snapshot diffs (vocab scale), not token-scale counts
-                    snap = stream.df_snapshot(hint=max(1 << 16, prev_snap.shape[0] * 2))
-                    dev_snaps.append((prev_snap, snap))
-                    prev_snap = snap
-            with timer.phase("finalize_vocab"):
-                (vocab, letters, remap, df_prov, raw_tokens, _,
-                 emit_order) = stream.finalize()
+        # the trace spans dispatch through fetch: the device sorts and
+        # copies this plan overlaps end long after the feed loop
+        profile = contextlib.ExitStack()
+        profile.enter_context(_profile_ctx(cfg.profile_dir, device))
+        try:
+            with native.NativeKeyStream(stride, num_threads=threads) as stream:
+                with timer.phase("tokenize_feed"), contextlib.closing(
+                        prefetch_document_ranges(manifest, windows, report)) as reader:
+                    for wi, (contents, ids) in enumerate(reader):
+                        docs_loaded += len(contents)
+                        if wi == len(windows) - 1:  # the host tail
+                            keys, _ = stream.feed(contents, ids)
+                            num_pairs += int(keys.size)
+                            if keys.size:
+                                tail_keys = keys
+                            continue
+                        mode, buf, nvalid, _ = stream.feed_u16(contents, ids, granule=granule)
+                        num_pairs += nvalid
+                        if nvalid == 0:
+                            continue
+                        if mode == "u16":
+                            host = buf.view(np.int16)
+                        else:  # prov ids outgrew uint16: int32 keys
+                            host = np.full(_round_up(nvalid, granule), K.INT32_MAX, np.int32)
+                            host[:nvalid] = buf
+                        post = engine.sort_prov_chunks(
+                            [engine.upload(host, device, staged)], stride=stride,
+                            out_size=_round_up(nvalid, granule))
+                        dev_handles.append((engine.PendingFetch(post), nvalid))
+                        # per-window per-term pair counts from combiner df
+                        # snapshot diffs (vocab scale), not token-scale counts
+                        snap = stream.df_snapshot(hint=max(1 << 16, prev_snap.shape[0] * 2))
+                        dev_snaps.append((prev_snap, snap))
+                        prev_snap = snap
+                with timer.phase("finalize_vocab"):
+                    (vocab, letters, remap, df_prov, raw_tokens, _,
+                     emit_order) = stream.finalize()
+        except BaseException:
+            profile.close()
+            raise
 
         vocab_size = int(vocab.shape[0])
         timer.count("documents", docs_loaded)
@@ -553,6 +614,7 @@ class InvertedIndexModel:
         timer.count("device_pairs", sum(n for _, n in dev_handles))
         timer.count("unique_pairs", num_pairs)
         if num_pairs == 0:
+            profile.close()
             with timer.phase("emit"):
                 formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
             return timer.report()
@@ -583,6 +645,7 @@ class InvertedIndexModel:
 
         with timer.phase("fetch"):
             fetched = [engine.host_u16(p.wait()) for p, _ in dev_handles]
+        profile.close()
         del staged
 
         with timer.phase("emit"):
@@ -615,7 +678,7 @@ class InvertedIndexModel:
                                    window_pad=cfg.pad_multiple)
         docs_loaded = raw_tokens = pairs_fed = 0
         vocab_curve: list[int] = []  # unique terms after each window
-        with timer.phase("stream"):
+        with timer.phase("stream"), _profile_ctx(cfg.profile_dir, device):
             for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
                 chunk = tok.feed(contents, ids)
                 docs_loaded += len(contents)
@@ -678,39 +741,40 @@ class InvertedIndexModel:
             return timer.report()
 
         staged: list = []  # pinned uploads, held until the counts arrive
-        with timer.phase("feed"):
-            padded = _round_up(total, cfg.pad_multiple)
-            buf, ends, idv = _pack_window(contents, doc_ids, padded)
-            # one host pass: the exact token count (a snug tok_cap; note
-            # N//2+1 is NOT a bound — doc boundaries split tokens, so up
-            # to one token per byte) and the exact max cleaned length —
-            # abort a doomed launch before paying for it, and skip radix
-            # passes over provably all-zero word columns (sort_cols)
-            tok_count, host_max_len = DT.host_token_stats(buf, ends)
-            tok_cap = _round_up(tok_count + 1, 1 << 15)
-            if host_max_len > width:
-                raise DT.WidthOverflow(
-                    f"cleaned token of {host_max_len} letters "
-                    f"exceeds device_tokenize_width={width}")
-            sort_cols = -(-max(host_max_len, 1) // 4)  # ceil div
-            timer.count("sort_cols", sort_cols)
-            out = DT.index_bytes_device(
-                engine.upload(buf, device, staged), engine.upload(ends, device, staged),
-                engine.upload(idv, device, staged),
-                width=width, tok_cap=tok_cap, num_docs=num_docs, sort_cols=sort_cols)
-        with timer.phase("device_index"):
-            # the one sync: all five counts in one tensor
-            num_words, num_pairs, max_len, num_tokens, num_long = (
-                int(v) for v in out["counts"].cpu().numpy())
-            if num_tokens + 1 > tok_cap:
-                raise AssertionError(
-                    f"device token count {num_tokens} exceeded "
-                    f"tok_cap {tok_cap}: host mask count diverged "
-                    "from the device classifier (bug)")
-            if max_len != host_max_len:
-                raise AssertionError(
-                    f"device max word len {max_len} != host "
-                    f"{host_max_len}: classifier divergence (bug)")
+        with _profile_ctx(cfg.profile_dir, device):
+            with timer.phase("feed"):
+                padded = _round_up(total, cfg.pad_multiple)
+                buf, ends, idv = _pack_window(contents, doc_ids, padded)
+                # one host pass: the exact token count (a snug tok_cap; note
+                # N//2+1 is NOT a bound — doc boundaries split tokens, so up
+                # to one token per byte) and the exact max cleaned length —
+                # abort a doomed launch before paying for it, and skip radix
+                # passes over provably all-zero word columns (sort_cols)
+                tok_count, host_max_len = DT.host_token_stats(buf, ends)
+                tok_cap = _round_up(tok_count + 1, 1 << 15)
+                if host_max_len > width:
+                    raise DT.WidthOverflow(
+                        f"cleaned token of {host_max_len} letters "
+                        f"exceeds device_tokenize_width={width}")
+                sort_cols = -(-max(host_max_len, 1) // 4)  # ceil div
+                timer.count("sort_cols", sort_cols)
+                out = DT.index_bytes_device(
+                    engine.upload(buf, device, staged), engine.upload(ends, device, staged),
+                    engine.upload(idv, device, staged),
+                    width=width, tok_cap=tok_cap, num_docs=num_docs, sort_cols=sort_cols)
+            with timer.phase("device_index"):
+                # the one sync: all five counts in one tensor
+                num_words, num_pairs, max_len, num_tokens, num_long = (
+                    int(v) for v in out["counts"].cpu().numpy())
+                if num_tokens + 1 > tok_cap:
+                    raise AssertionError(
+                        f"device token count {num_tokens} exceeded "
+                        f"tok_cap {tok_cap}: host mask count diverged "
+                        "from the device classifier (bug)")
+                if max_len != host_max_len:
+                    raise AssertionError(
+                        f"device max word len {max_len} != host "
+                        f"{host_max_len}: classifier divergence (bug)")
         del staged
         timer.count("unique_terms", num_words)
         timer.count("unique_pairs", num_pairs)
@@ -835,7 +899,7 @@ class InvertedIndexModel:
         ckpt_stretch = envknobs.get("MRI_TPU_CKPT_STRETCH")
         ckpt_consec_skips = 0
 
-        with timer.phase("stream_feed"):
+        with _profile_ctx(cfg.profile_dir, device), timer.phase("stream_feed"):
             for win_i, (contents, ids) in enumerate(
                     iter_document_chunks(manifest, cfg.stream_chunk_docs, report), start=1):
                 if win_i <= resume_from:
@@ -883,6 +947,13 @@ class InvertedIndexModel:
                     raise RuntimeError(
                         f"injected stream crash after window {win_i} "
                         "(MRI_TPU_STREAM_CRASH_AFTER_WINDOWS)")
+                # fault hook (faults.py sigkill:window=K): kill this
+                # process at the window boundary, after any checkpoint
+                # save above; a rerun with resume='auto' must give the
+                # same bytes
+                inj = faults.active()
+                if inj is not None:
+                    inj.on_window_boundary(win_i)
         if ckpt_saves:
             # inside stream_feed's wall time, recorded apart so a
             # checkpointed run compares with an uncheckpointed one
@@ -942,7 +1013,7 @@ class InvertedIndexModel:
                                        window_pad=cfg.pad_multiple)
         docs_loaded = raw_tokens = 0
         vocab_curve: list[int] = []
-        with timer.phase("stream"):
+        with timer.phase("stream"), _profile_ctx(cfg.profile_dir, cfg.device):
             for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
                 chunk = tok.feed(contents, ids)
                 docs_loaded += len(contents)
@@ -1155,7 +1226,7 @@ class InvertedIndexModel:
         timer.count("device_shards", n)
         timer.count("documents", len(manifest))
         eng = DistDeviceStreamEngine(width=width, mesh=mesh)
-        with timer.phase("stream_feed"):
+        with _profile_ctx(cfg.profile_dir, cfg.device), timer.phase("stream_feed"):
             for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
                 # byte-balanced contiguous doc split of this window — the
                 # scheduler's one greedy-cut policy
@@ -1197,9 +1268,30 @@ class InvertedIndexModel:
 
     # -- one-shot plan -------------------------------------------------
 
-    def _run_one_shot(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
-                      report: DegradationReport, device: torch.device) -> dict:
+    def _tokenize_or_resume(self, manifest: Manifest, timer: PhaseTimer,
+                            report: DegradationReport):
+        """The one-shot plan's map phase: the pairs checkpoint when
+        ``checkpoint_path`` holds one for this manifest (no read, no
+        scan), else load and tokenize, then save the checkpoint when
+        ``checkpoint_path`` is set.  Returns ``(corpus, documents
+        loaded)``; a resume loads none."""
         cfg = self.config
+        ckpt = cfg.checkpoint_path
+        fp = checkpoint.manifest_fingerprint(manifest) if ckpt is not None else ""
+        if ckpt is not None and os.path.exists(ckpt):
+            try:
+                with timer.phase("resume"):
+                    corpus = checkpoint.load_pairs(ckpt, expect_fingerprint=fp)
+                timer.count("resumed_from", ckpt)
+                return corpus, 0
+            except checkpoint.CheckpointCorrupt:
+                # resume='auto': a torn or garbage checkpoint must not
+                # wedge the rerun — move it aside and tokenize afresh.  A
+                # version or fingerprint mismatch stays a ValueError in
+                # both modes (a wrong checkpoint is not a damaged one).
+                if cfg.resume != "auto":
+                    raise
+                timer.count("quarantined_checkpoint", checkpoint.quarantine(ckpt))
         threads = cfg.resolved_host_threads()
         timer.count("host_threads", threads)
         with timer.phase("load"):
@@ -1207,10 +1299,19 @@ class InvertedIndexModel:
         with timer.phase("tokenize"):
             corpus = tokenize(contents, doc_ids, use_native=cfg.use_native,
                               dedup_pairs=True, num_threads=threads)
+        if ckpt is not None:
+            with timer.phase("checkpoint"):
+                checkpoint.save_pairs(ckpt, corpus, fingerprint=fp)
+        return corpus, len(contents)
+
+    def _run_one_shot(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                      report: DegradationReport, device: torch.device) -> dict:
+        cfg = self.config
+        corpus, num_loaded = self._tokenize_or_resume(manifest, timer, report)
 
         max_doc_id = len(manifest)  # doc ids are 1..len(manifest)
         num_tokens, vocab_size = corpus.num_tokens, corpus.vocab_size
-        timer.count("documents", len(contents))
+        timer.count("documents", num_loaded)
         timer.count("tokens", corpus.raw_tokens if corpus.raw_tokens is not None else num_tokens)
         timer.count("unique_terms", vocab_size)
 
@@ -1268,7 +1369,7 @@ class InvertedIndexModel:
             # device program is one sort, and its fetch is issued at once
             # so the host derives df/order/offsets meanwhile
             nfetch = min(padded, _round_up(num_tokens, 1 << 14))
-            with timer.phase("device_index"):
+            with timer.phase("device_index"), _profile_ctx(cfg.profile_dir, device):
                 pending = engine.PendingFetch(engine.index_prededuped_u16(
                     feed, max_doc_id=max_doc_id, out_size=nfetch))
                 df = np.bincount(corpus.term_ids, minlength=vocab_size).astype(np.int64)
@@ -1276,15 +1377,18 @@ class InvertedIndexModel:
                 if len(df) != vocab_size or (vocab_size and int(df.max()) > max_doc_id):
                     raise ValueError(
                         "pairs_deduped feed violates its invariant "
-                        f"(df len {len(df)} vs vocab {vocab_size}); tokenizer bug")
+                        f"(df len {len(df)} vs vocab {vocab_size}); "
+                        "corrupt checkpoint or tokenizer bug")
                 order, offsets = engine.host_order_offsets(corpus.letter_of_term, df)
+                if cfg.profile_dir:
+                    pending.wait()  # keep the in-flight sort and copy inside the trace
             with timer.phase("fetch"):
                 host = {"df": df, "order": order, "offsets": offsets,
                         "postings": engine.host_u16(pending.wait()), "num_unique": num_tokens}
             return self._emit_and_report(corpus.vocab, corpus.letter_of_term, host, out_dir,
                                          timer, max_doc_id)
 
-        with timer.phase("device_index"):
+        with timer.phase("device_index"), _profile_ctx(cfg.profile_dir, device):
             if use_u16:
                 out = engine.index_u16(feed, vocab_size=vocab_size, max_doc_id=max_doc_id)
             elif use_dist:

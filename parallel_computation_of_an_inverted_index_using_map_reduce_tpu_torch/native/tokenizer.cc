@@ -61,6 +61,7 @@
 //   g++ -O3 -ffp-contract=off -shared -fPIC -o libmri_torch_scan.so tokenizer.cc
 
 #include <algorithm>
+#include <csignal>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -1508,6 +1509,12 @@ int64_t EmitLettersRuns(const uint8_t* vocab_packed, int32_t vocab_size,
       return -1;
     }
     total += static_cast<int64_t>(nbytes);
+    // Crash hook shared with text/formatter.py: after N complete
+    // letters, die without unwinding so the durability test observes
+    // exactly what a hard crash leaves on disk.
+    if (const char* kill_after = std::getenv("MRI_EMIT_KILL_AFTER_LETTERS")) {
+      if (letter + 1 == std::atoi(kill_after)) raise(SIGKILL);
+    }
   }
   return total;
 }

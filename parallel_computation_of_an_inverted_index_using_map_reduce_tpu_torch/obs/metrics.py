@@ -3,7 +3,9 @@ names them — the JAX package's serve-side metrics (``obs/metrics.py``)
 as far as the query engine, its cache and its planner use them.
 
 Registries are cheap instance objects: each engine owns one, and its
-``describe()`` dict is a view over it.
+``describe()`` dict is a view over it.  :func:`default_registry` is the
+one process-global registry, which holds the fault injector's firing
+counters (faults.py).
 """
 
 from __future__ import annotations
@@ -107,3 +109,12 @@ class Registry:
 
     def histogram(self, name: str) -> Histogram:
         return self._get(name, Histogram)
+
+
+_default = Registry()
+
+
+def default_registry() -> Registry:
+    """The process-global registry (fault firings only: everything on
+    the serving side lives on per-engine registries)."""
+    return _default

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import faults
 from ..utils.rounding import round_up
 from . import engine
 from .device_tokenizer import (INT32_MAX, groups_sort_perm, live_groups_for, num_groups_for,
@@ -305,6 +306,12 @@ class DeviceStreamEngine:
         del rows
         self._pending.append((engine.PendingFetch(count), tok_count, staged))
         self.windows_fed += 1
+        # fault hook (faults.py stream-crash:window=K): raise after this
+        # window's merge is queued on the card but before any later
+        # checkpoint — the worst crash position for the resume contract
+        inj = faults.active()
+        if inj is not None:
+            inj.on_stream_window(self.windows_fed)
         if stage_hook is not None:
             stage_hook("merge", count)
             while self._pending:

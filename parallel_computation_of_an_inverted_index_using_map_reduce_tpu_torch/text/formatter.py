@@ -19,6 +19,7 @@ from pathlib import Path
 import numpy as np
 
 from ..config import ALPHABET_SIZE
+from ..utils import envknobs
 
 
 def letter_filename(letter_index: int) -> str:
@@ -37,6 +38,17 @@ def _write_letter_atomic(path: Path, payload: bytes) -> None:
     with open(tmp, "wb") as f:
         f.write(payload)
     os.replace(tmp, path)
+
+
+def _maybe_kill_after(letters_done: int) -> None:
+    # crash hook of the kill-mid-emit durability test: after N complete
+    # letter files, die without unwinding (SIGKILL: no flush, no
+    # atexit), so the test sees exactly what a hard crash leaves on disk
+    target = envknobs.get("MRI_EMIT_KILL_AFTER_LETTERS")
+    if target is not None and letters_done == target:
+        import signal
+
+        os.kill(os.getpid(), signal.SIGKILL)
 
 
 def emit_index(
@@ -120,6 +132,7 @@ def emit_index(
     letters_in_order = np.asarray(letter_of_term)[order]
     bounds = np.searchsorted(letters_in_order, np.arange(ALPHABET_SIZE + 1))
     lines_written = 0
+    letters_done = 0
     for letter in range(*lr):
         lo, hi = int(bounds[letter]), int(bounds[letter + 1])
         out = bytearray()
@@ -132,6 +145,8 @@ def emit_index(
             out += b"]\n"
         _write_letter_atomic(output_dir / letter_filename(letter), bytes(out))
         lines_written += hi - lo
+        letters_done += 1
+        _maybe_kill_after(letters_done)
     return {"lines_written": lines_written, "letters": lr[1] - lr[0],
             "emit_backend": "python", **_pack_artifact()}
 
@@ -149,6 +164,7 @@ def emit_grouped(output_dir: str | Path,
         for word, ids in per_letter.get(letter, []):
             out += word + b":[" + " ".join(map(str, ids)).encode("ascii") + b"]\n"
         _write_letter_atomic(output_dir / letter_filename(letter), bytes(out))
+        _maybe_kill_after(letter + 1)
     if artifact_path is None:
         return {}
     from ..serve import artifact as artifact_mod

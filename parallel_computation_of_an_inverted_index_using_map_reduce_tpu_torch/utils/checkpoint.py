@@ -1,13 +1,23 @@
-"""Stream checkpoints of the streaming all-device plan.
+"""Build checkpoints: the one-shot plan's tokenized pairs and the
+streaming all-device plan's stream state.
 
 The reference's spill files persist after a run and make the reduce
-phase re-runnable (main.c:332-341).  Here the durable state is the
-verified valid prefix of the device stream's row accumulator
-(ops/device_streaming.DeviceStreamEngine.snapshot) plus the stream
-position, saved atomically every few windows so a rerun resumes at the
-last saved window.  The npz layout, format version and fingerprint
-string are the JAX package's, so a checkpoint written by either package
-loads in the other.
+phase re-runnable (main.c:332-341).  Here that is two first-class
+artifacts, each saved atomically (tmp + rename):
+
+- the pairs checkpoint (``checkpoint_path``): the tokenized (term_ids,
+  doc_ids, vocab) triple, saved once between the map and reduce phases,
+  so the device phase can be re-run without touching the corpus;
+- the stream checkpoint (``stream_checkpoint``): the verified valid
+  prefix of the device stream's row accumulator
+  (ops/device_streaming.DeviceStreamEngine.snapshot) plus the stream
+  position, saved every few windows so a rerun resumes at the last
+  saved window.
+
+The npz layouts, format versions and fingerprint strings are the JAX
+package's, so a checkpoint written by either package loads in the
+other.  After each save an armed fault injector may corrupt the file
+(``ckpt-corrupt``, faults.py).
 """
 
 from __future__ import annotations
@@ -21,7 +31,11 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import faults
+
 log = logging.getLogger("mri_torch.checkpoint")
+
+_FORMAT_VERSION = 2
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -70,6 +84,67 @@ def manifest_fingerprint(manifest) -> str:
     return h.hexdigest()
 
 
+def _saved(path: Path) -> None:
+    """The post-save fault hook (``ckpt-corrupt:save=N``)."""
+    inj = faults.active()
+    if inj is not None:
+        inj.on_checkpoint_saved(str(path))
+
+
+def save_pairs(path: str | Path, corpus, fingerprint: str = "") -> None:
+    """Atomically persist a TokenizedCorpus."""
+    path = Path(path)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez_compressed(
+            f,
+            version=np.int64(_FORMAT_VERSION),
+            fingerprint=np.bytes_(fingerprint.encode()),
+            term_ids=corpus.term_ids,
+            doc_ids=corpus.doc_ids,
+            vocab=corpus.vocab,
+            letter_of_term=corpus.letter_of_term,
+            pairs_deduped=np.int64(1 if corpus.pairs_deduped else 0),
+            raw_tokens=np.int64(corpus.raw_tokens if corpus.raw_tokens is not None else -1),
+        )
+    os.replace(tmp, path)
+    _saved(path)
+
+
+def load_pairs(path: str | Path, expect_fingerprint: str | None = None):
+    """Restore a TokenizedCorpus; reject a version or manifest mismatch
+    (ValueError) and raise :class:`CheckpointCorrupt` for a damaged or
+    truncated file."""
+    from ..text.tokenizer import TokenizedCorpus
+
+    try:
+        with np.load(path) as z:
+            version = int(z["version"])
+            if version != _FORMAT_VERSION:
+                raise ValueError(
+                    f"checkpoint {path!r} has version {version}, expected {_FORMAT_VERSION}")
+            saved_fp = bytes(z["fingerprint"]).decode()
+            if expect_fingerprint is not None and saved_fp != expect_fingerprint:
+                raise ValueError(
+                    f"checkpoint {path!r} was written for a different manifest "
+                    f"(saved {saved_fp[:12]}…, current {expect_fingerprint[:12]}…); "
+                    "delete the checkpoint or restore the original file list")
+            raw = int(z["raw_tokens"]) if "raw_tokens" in z.files else -1
+            return TokenizedCorpus(
+                term_ids=z["term_ids"],
+                doc_ids=z["doc_ids"],
+                vocab=z["vocab"],
+                letter_of_term=z["letter_of_term"],
+                pairs_deduped=(bool(int(z["pairs_deduped"]))
+                               if "pairs_deduped" in z.files else False),
+                raw_tokens=raw if raw >= 0 else None,
+            )
+    except FileNotFoundError:
+        raise
+    except _CORRUPT_ERRORS as e:
+        raise CheckpointCorrupt(path, e) from e
+
+
 # version 2: the JAX package's current stream format (its virtual
 # manifests changed their fingerprints at the bump; file manifests, the
 # only kind this package has, did not)
@@ -116,6 +191,7 @@ def save_stream_state(path: str | Path, state: dict, fed_tokens: int,
             **cols,
         )
     os.replace(tmp, path)
+    _saved(path)
 
 
 def load_stream_state(path: str | Path, expect_fingerprint: str) -> dict:

@@ -17,6 +17,7 @@ class _Knob(NamedTuple):
     default: Any
     choices: tuple | None = None
     minimum: Any = None
+    exclusive: bool = False  # the minimum itself is refused
 
 
 _KNOBS: dict[str, _Knob] = {
@@ -31,6 +32,18 @@ _KNOBS: dict[str, _Knob] = {
     "MRI_TPU_CKPT_STRETCH": _Knob(int, 4),
     # test hook: raise after this device-stream window (0: disabled)
     "MRI_TPU_STREAM_CRASH_AFTER_WINDOWS": _Knob(int, 0),
+    # -- fault injection and read retries --
+    # fault spec armed at the first faults.active() call (subprocess
+    # arming); the grammar of --fault-spec
+    "MRI_FAULTS": _Knob(str, None),
+    # read attempts per document (counts the first try)
+    "MRI_READ_RETRIES": _Knob(int, 3, minimum=1),
+    # initial retry backoff in ms (doubles per retry)
+    "MRI_READ_BACKOFF_MS": _Knob(float, 5.0, minimum=0),
+    # total per-document retry deadline in seconds
+    "MRI_READ_DEADLINE_S": _Knob(float, 1.0, minimum=0, exclusive=True),
+    # crash hook: SIGKILL the process after N complete letter files
+    "MRI_EMIT_KILL_AFTER_LETTERS": _Knob(int, None),
     # -- query serving --
     # engine when 'query' gets no --engine flag: host, device or auto
     # (validated by serve.engine.resolve_engine; unset: device)
@@ -72,6 +85,8 @@ def get(name: str) -> Any:
         raise ValueError(f"{name}={raw!r} is not a valid {knob.cast.__name__}") from None
     if knob.choices is not None and val not in knob.choices:
         raise ValueError(f"{name}={raw!r} not in {knob.choices}")
-    if knob.minimum is not None and val < knob.minimum:
-        raise ValueError(f"{name} must be >= {knob.minimum}, got {raw!r}")
+    if knob.minimum is not None and (
+            val < knob.minimum or (knob.exclusive and val == knob.minimum)):
+        bound = f"> {knob.minimum}" if knob.exclusive else f">= {knob.minimum}"
+        raise ValueError(f"{name} must be {bound}, got {raw!r}")
     return val
