@@ -129,7 +129,24 @@ Phases, each failing loudly (exit 1, no result line):
    run beside K1; the stream kill runs alone (the host reads files slowly
    while two processes read); ``phase path_k_done`` prints Path K's
    seconds.
-13. Kernels: each CUDA kernel against its plain PyTorch version on the
+13. Path L — the resident serve daemon over Path H's v2.1 artifact, no
+   kernel of ``csrc/`` launched: L1 ``ServeDaemon(engine="device")`` in
+   this process with default knobs, 16 client processes of 250 requests
+   each (df and postings of one Zipf word, AND/OR of 2-3 words, BM25
+   top-10 of 3, top-10 of a letter), every answer equal to the host
+   ``Engine``'s (BM25 docs equal, scores within rel 1e-4): per-op client
+   p50/p99, requests/s, coalesced batches; 16 × 50 of them again under
+   torch.profiler (device busy, idle share) and the peak device memory;
+   then, beside four connections of background traffic, five ``reload``
+   ops (allocated device memory back within one engine's column bytes),
+   a BM25 ``explain`` (terms resolved ``device``, decoded blocks, theta),
+   ``flightdump``, ``metrics`` equal to ``stats`` and the ``trace``
+   spans; an ``auto`` daemon (its probe on a batch of 8192) and a
+   ``shards=4`` daemon answering two connections the same; L2 the
+   ``serve`` CLI in a child process: HTTP ``/metrics``, the ``metrics``,
+   ``flightdump`` and ``top --once --json`` clients, SIGHUP (one
+   ``reload_ok``) and SIGTERM (exit 0 and the ``drained`` line).
+14. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -140,7 +157,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-14. Engine: the warm device time of each engine program a path runs, at
+15. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -152,11 +169,14 @@ Phases, each failing loudly (exit 1, no result line):
 
 ``python3 chip_smoke.py --mesh-only`` runs the build, the single-device
 default build with ``--artifact`` on Path B's corpus and Path J alone, on
-every card the machine has (4 shards, shard i on card i % cards).
+every card the machine has (4 shards, shard i on card i % cards);
+``--serve-only`` runs the build, the default build with ``--artifact``
+on Path B's corpus and Path L alone.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
-or ``build_index`` in this process, with the kernels' launch counts set
+or ``build_index`` in this process (Path L: ``ServeDaemon`` and the
+``serve`` CLI's child), with the kernels' launch counts set
 to 0 just before and read just after each; a kernel's ``launches`` in
 the ``kernels`` line is their sum, ``launches_by_path`` the parts.  The
 last lines are the card,
@@ -171,6 +191,7 @@ import contextlib
 import io
 import json
 import os
+import signal
 import struct
 import subprocess
 import sys
@@ -1669,6 +1690,497 @@ def path_k(torch, K, cli, formatter, faults, list_a: Path, list_b: Path, tmp: Pa
     return launches
 
 
+# -- Path L: the resident serve daemon on the card ----------------------------
+
+L_CONNS, L_PER_CONN = 16, 250  # client connections x requests each (L1)
+L_PROFILED = 50  # requests a connection in L1's profiled window
+L_LEG_CONNS = 2  # connections of the auto and 4-shard legs
+L_MIX = (("df", 0.35), ("postings", 0.30), ("and", 0.10), ("or", 0.10), ("bm25", 0.10),
+         ("letter", 0.05))
+L_RELOADS = 5
+
+
+def l_requests(np, rng, ranked: list[bytes], n: int, base_id: int) -> list[dict]:
+    """``n`` protocol requests of Path L's mix: single Zipf words for df
+    and postings (the coalesced path), 2-3 words for AND/OR, BM25 top-10
+    over 3 words, top-10 of a letter by df."""
+    ops = rng.choice(len(L_MIX), size=n, p=[w for _, w in L_MIX])
+    words = zipf_terms(np, rng, ranked, 4 * n)
+    out = []
+    for i, k in enumerate(ops.tolist()):
+        op, w = L_MIX[k][0], words[4 * i:4 * i + 4]
+        r = {"id": base_id + i}
+        if op in ("df", "postings"):
+            r.update(op=op, terms=w[:1])
+        elif op in ("and", "or"):
+            r.update(op=op, terms=w[:2 + i % 2])
+        elif op == "bm25":
+            r.update(op="top_k", score="bm25", k=10, terms=w[:3])
+        else:
+            r.update(op="top_k", letter=chr(97 + int(rng.integers(26))), k=10)
+        out.append(r)
+    return out
+
+
+def l_kind(r: dict) -> str:
+    return "bm25" if r.get("score") == "bm25" else ("letter" if r["op"] == "top_k" else r["op"])
+
+
+def l_expected(host, r: dict) -> dict:
+    """The payload the daemon must answer ``r`` with, from the host
+    ``Engine`` called directly (the daemon's own formatting)."""
+    kind = l_kind(r)
+    if kind == "letter":
+        return {"ok": True, "top": [[t.decode("ascii", "replace"), int(d)]
+                                    for t, d in host.top_k(r["letter"], r["k"])]}
+    b = host.encode_batch(r["terms"])
+    if kind == "df":
+        return {"ok": True, "df": host.df(b).tolist()}
+    if kind == "postings":
+        return {"ok": True, "postings": [None if x is None else x.tolist()
+                                         for x in host.postings(b)]}
+    if kind == "bm25":
+        return {"ok": True, "docs": [[d, s] for d, s in host.top_k_scored(b, r["k"])]}
+    docs = host.query_and(b) if kind == "and" else host.query_or(b)
+    return {"ok": True, "docs": docs.tolist()}
+
+
+def l_check(got: dict, want: dict, label: str) -> None:
+    """Path I's rule: equal answers; BM25 docs equal, scores within rel
+    1e-4 of the host engine's float64."""
+    got = {k: v for k, v in got.items() if k not in ("id", "trace_id")}
+    if "docs" in want and want["docs"] and isinstance(want["docs"][0], list):
+        check_bm25([tuple(x) for x in got.pop("docs", [])], [tuple(x) for x in want["docs"]],
+                   1e-4, label)
+        want = {k: v for k, v in want.items() if k != "docs"}
+    check(got == want, f"{label}: {json.dumps(got)[:300]} != {json.dumps(want)[:300]}")
+
+
+class LClient:
+    """One protocol connection, line at a time."""
+
+    def __init__(self, addr, timeout: float = 120.0):
+        import socket
+
+        self.sock = socket.create_connection(addr, timeout=timeout)
+        self.f = self.sock.makefile("rb")
+
+    def rpc(self, **req) -> dict:
+        self.sock.sendall((json.dumps(req) + "\n").encode())
+        line = self.f.readline()
+        check(bool(line), "path L: the daemon closed a connection")
+        return json.loads(line)
+
+    def close(self) -> None:
+        self.f.close()
+        self.sock.close()
+
+
+#: one client connection in its own interpreter (no torch, no package):
+#: connect, say ready, wait for the go line, send its requests closed
+#: loop, write the answers and latencies (CLOCK_MONOTONIC, comparable
+#: across the machine's processes) to the result file
+L_CLIENT = r"""
+import json, socket, sys, time
+host, port, reqs_path, out_path = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+reqs = json.load(open(reqs_path))
+sock = socket.create_connection((host, port), timeout=120)
+f = sock.makefile("rb")
+print("ready", flush=True)
+sys.stdin.readline()
+answers, lat = [], []
+t0 = time.monotonic()
+for r in reqs:
+    t = time.monotonic()
+    sock.sendall((json.dumps(r) + "\n").encode())
+    answers.append(json.loads(f.readline()))
+    lat.append(time.monotonic() - t)
+t1 = time.monotonic()
+f.close()
+sock.close()
+json.dump({"answers": answers, "lat": lat, "t0": t0, "t1": t1}, open(out_path, "w"))
+"""
+
+
+def l_traffic(addr, conns: list[list[dict]], tmp: Path
+              ) -> tuple[list[list[dict]], dict, float]:
+    """Every connection's requests closed-loop, each from its own client
+    process (so the clients' JSON work does not share the daemon's
+    interpreter), all started together: (answers per connection, client
+    latencies in s per kind, wall s from the first send to the last
+    answer)."""
+    procs = []
+    try:
+        for i, reqs in enumerate(conns):
+            (tmp / f"L_req_{i}.json").write_text(json.dumps(reqs))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", L_CLIENT, addr[0], str(addr[1]),
+                 str(tmp / f"L_req_{i}.json"), str(tmp / f"L_ans_{i}.json")],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+        for proc in procs:
+            check(proc.stdout.readline().strip() == "ready", "path L: a client did not connect")
+        for proc in procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        for i, proc in enumerate(procs):
+            check(proc.wait(timeout=600) == 0, f"path L: client {i} exited {proc.returncode}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdin.close()
+            proc.stdout.close()
+    answers, lat, spans = [], {}, []
+    for i, reqs in enumerate(conns):
+        res = json.loads((tmp / f"L_ans_{i}.json").read_text())
+        answers.append(res["answers"])
+        spans.append((res["t0"], res["t1"]))
+        for r, v in zip(reqs, res["lat"]):
+            lat.setdefault(l_kind(r), []).append(v)
+    return answers, lat, max(t for _, t in spans) - min(t for t, _ in spans)
+
+
+def l_quantiles(np, lat: dict) -> dict:
+    return {k: {"n": len(v), "p50_ms": float(np.percentile(v, 50)) * 1e3,
+                "p99_ms": float(np.percentile(v, 99)) * 1e3} for k, v in sorted(lat.items())}
+
+
+def l_serve_check(daemon_cls, path: Path, conns, want, label: str, tmp: Path, **kw) -> dict:
+    """A second daemon over the same artifact (``kw``: its engine and
+    shards): the same requests, the same answers as L1's reference."""
+    d = daemon_cls(str(path), **kw)
+    d.start()
+    try:
+        answers, lat, wall = l_traffic(d.address, conns, tmp)
+        for got_c, want_c in zip(answers, want):
+            for got, exp in zip(got_c, want_c):
+                l_check(got, exp, label)
+        return {"engine": d.stats()["engine"], "wall_s": wall,
+                "requests": sum(len(c) for c in conns)}
+    finally:
+        d.drain()
+
+
+def path_l(torch, cli, h_path: Path, tmp: Path, card: str, device: str = "cuda") -> dict:
+    """Path L — the resident serve daemon over Path H's v2.1 artifact.
+
+    L1 in this process: ``ServeDaemon(engine="device")`` with default
+    knobs, 16 connections x 250 requests of the mix, every answer held
+    against the host ``Engine``; client p50/p99 per op, requests/s, the
+    coalesced batches, then the same traffic under torch.profiler for
+    the device busy time and idle share, and the peak device memory.
+    Under background traffic: five ``reload`` ops (memory back within
+    one engine's column bytes), then ``metrics`` against ``stats``,
+    ``trace`` spans, one BM25 ``explain`` and ``flightdump``.  Two more
+    daemons answer the same: ``engine="auto"`` (its probe on the card)
+    and ``shards=4``.  L2: the ``serve`` CLI in a child process, its
+    HTTP ``/metrics``, the ``metrics``/``flightdump``/``top`` clients,
+    SIGHUP and SIGTERM."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+        Engine, artifact as TA)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve.daemon import (
+        ServeDaemon)
+
+    on_card = device == "cuda"
+    t_path = time.perf_counter()
+    out: dict = {"card": card}
+    with TA.load_artifact(h_path) as art:
+        ranked = [art.term(int(i)) for i in np.argsort(-art.df.astype(np.int64), kind="stable")]
+    rng = np.random.default_rng(29)
+    conns = [l_requests(np, rng, ranked, L_PER_CONN, 1 + i * L_PER_CONN) for i in range(L_CONNS)]
+    with Engine(h_path) as host:
+        t0 = time.perf_counter()
+        # the Zipf mix repeats requests: each distinct one asked once
+        memo: dict = {}
+
+        def expected(r):
+            key = json.dumps({k: v for k, v in r.items() if k != "id"}, sort_keys=True)
+            if key not in memo:
+                memo[key] = l_expected(host, r)
+            return memo[key]
+
+        want = [[expected(r) for r in c] for c in conns]
+        out["host_reference_s"] = time.perf_counter() - t0
+        probe_terms = zipf_terms(np, rng, ranked, 8192)
+        want_probe = host.df(host.encode_batch(probe_terms)).tolist()
+
+    stage_s = {"host_reference": out["host_reference_s"]}
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    d = ServeDaemon(str(h_path), engine="device", device=device)
+    d.start()
+    stage_s["daemon_start"] = time.perf_counter() - t0
+    try:
+        eng = d.stats()["engine"]
+        check(eng["engine"] == "device" and eng["device"]["platform"] == device,
+              f"path L1: the daemon serves from {eng['engine']} on {eng['device']['platform']}")
+        column_bytes = eng["device"]["column_bytes"]
+        # warm every op once (first launches, the lazy BM25 columns)
+        t0 = time.perf_counter()
+        c = LClient(d.address)
+        for r in conns[0][:40]:
+            c.rpc(**r)
+        stage_s["warm"] = time.perf_counter() - t0
+        c0 = d.stats()["counters"]
+        answers, lat, wall = l_traffic(d.address, conns, tmp)
+        c1 = d.stats()["counters"]
+        for i, (got_c, want_c) in enumerate(zip(answers, want)):
+            for got, exp in zip(got_c, want_c):
+                l_check(got, exp, f"path L1 connection {i}")
+        n_req = L_CONNS * L_PER_CONN
+        batches = c1["batches"] - c0["batches"]
+        batched = c1["batched_requests"] - c0["batched_requests"]
+        cache_hits = d.stats()["result_cache"]["hits"]
+        out["l1"] = {"requests": n_req, "wall_s": wall, "requests_per_s": n_req / wall,
+                     "per_op": l_quantiles(np, lat), "batches": batches,
+                     "batched_requests": batched,
+                     "requests_per_batch": batched / batches if batches else None,
+                     "result_cache_hits": cache_hits, "column_bytes": column_bytes}
+        out["l1"]["host_reference_s"] = out["host_reference_s"]
+        print(f"phase path_l1: card={card} {json.dumps(out['l1'])}", flush=True)
+        # the first L_PROFILED requests of every connection again (the
+        # result cache purged by a reload first, so the engine sees
+        # them), recorded by torch.profiler
+        t0 = time.perf_counter()
+        check(c.rpc(id=0, op="reload").get("reloaded") is True, "path L1: reload before profile")
+        stage_s["reload_idle"] = time.perf_counter() - t0
+        if on_card:
+            trace = tmp / "L1_trace.json"
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+            _, _, wall_p = l_traffic(d.address, [cn[:L_PROFILED] for cn in conns], tmp)
+            t0 = time.perf_counter()
+            prof.stop()
+            prof.export_chrome_trace(str(trace))
+            busy = device_busy(trace)
+            stage_s["profile_stop_export"] = time.perf_counter() - t0
+            out["l1_device"] = {
+                "requests": L_CONNS * L_PROFILED, "wall_ms": wall_p * 1e3,
+                "device_busy_ms": busy["ms"],
+                "idle_share": None if busy["ms"] is None else 1 - busy["ms"] / (wall_p * 1e3),
+                "by_category": busy["by_cat"], "top_kernels": busy["top_kernels"],
+                "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+            check(busy["ms"] is not None and busy["ms"] > 0,
+                  "path L1: no device activity in the profiled traffic")
+            print(f"phase path_l1_device: card={card} {json.dumps(out['l1_device'])}", flush=True)
+
+        # -- under background traffic: reloads, metrics, trace, explain ----
+        stop = threading.Event()
+        bg_errors, bg_done = [], []
+
+        def background(reqs, exp):
+            try:
+                bc = LClient(d.address)
+                while not stop.is_set():
+                    for r, w in zip(reqs, exp):
+                        l_check(bc.rpc(**r), w, "path L1 background")
+                        if stop.is_set():
+                            break
+                    bg_done.append(len(reqs))  # one whole pass
+                bc.close()
+            except Exception as e:
+                bg_errors.append(f"{type(e).__name__}: {e}")
+
+        bg = [threading.Thread(target=background, args=(conns[i][:60], want[i][:60]))
+              for i in range(4)]
+        t_bg = time.perf_counter()
+        for t in bg:
+            t.start()
+        try:
+            check(c.rpc(id=1, op="reload").get("reloaded") is True, "path L1: reload 1")
+            if on_card:
+                torch.cuda.synchronize()
+                level = torch.cuda.memory_allocated()
+            mem = []
+            t0 = time.perf_counter()
+            for i in range(L_RELOADS - 1):
+                r = c.rpc(id=2 + i, op="reload")
+                check(r.get("reloaded") is True, f"path L1: reload {i + 2}: {r}")
+                if on_card:
+                    torch.cuda.synchronize()
+                    mem.append(torch.cuda.memory_allocated())
+            stage_s["reload_under_traffic_each"] = (time.perf_counter() - t0) / (L_RELOADS - 1)
+            if on_card:
+                check(all(abs(m - level) <= column_bytes for m in mem),
+                      f"path L1: memory after reloads {mem} vs {level} +- {column_bytes}")
+                out["reload_memory"] = {"after_first": level, "after_each": mem,
+                                        "column_bytes": column_bytes}
+            # a pruning planner, so the report carries the threshold
+            with env(MRI_SERVE_PLANNER="bmw"):
+                r = c.rpc(id=11, op="top_k", score="bm25", k=10,
+                          terms=[t.decode() for t in ranked[2:5]], explain=True)
+            ex = r["explain"]
+            check({t["path"] for t in ex["terms"]} == {"device"}
+                  and ex["totals"]["blocks_decoded"] > 0 and ex["planner"]["theta"],
+                  f"path L1 explain: {json.dumps(ex)[:400]}")
+            flight = c.rpc(id=12, op="flightdump")
+            check(flight.get("ok") and flight["flight"]["requests"],
+                  "path L1: empty flightdump")
+            # the traffic ran beside all of it: every thread a whole pass
+            deadline = time.monotonic() + 120
+            while len(bg_done) < len(bg) and not bg_errors:
+                check(time.monotonic() < deadline, "path L1: the background traffic stalled")
+                time.sleep(0.01)
+        finally:
+            stop.set()
+            for t in bg:
+                t.join()
+        check(not bg_errors, f"path L1 background: {bg_errors[:3]}")
+        stage_s["under_traffic"] = time.perf_counter() - t_bg
+        st = c.rpc(id=20, op="stats")["stats"]
+        text = c.rpc(id=21, op="metrics")["text"]
+        lines = {ln.split()[0]: ln.split()[1] for ln in text.splitlines()
+                 if ln and not ln.startswith("#") and "{" not in ln}
+        from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+            daemon as daemon_mod)
+        for key, name in daemon_mod._COUNTER_NAMES:
+            got = int(lines[name])
+            check(got >= st["counters"][key] if key == "responses"
+                  else got == st["counters"][key],
+                  f"path L1 metrics: {name} {got} vs stats {st['counters'][key]}")
+        check(st["counters"]["reload_ok"] == L_RELOADS + 1 and st["counters"]["internal_errors"] == 0,
+              f"path L1 counters: {st['counters']}")
+        traces = c.rpc(id=22, op="trace", n=64)["traces"]
+        spans = {s["name"] for t in traces if t["op"] in ("df", "postings", "and", "or", "top_k")
+                 for s in t["spans"]}
+        check({"queue_wait", "coalesce", "engine"} <= spans, f"path L1 trace spans {spans}")
+        c.close()
+        out["l1_after"] = {"background_requests": sum(bg_done),
+                           "counters": st["counters"], "explain_theta": ex["planner"]["theta"],
+                           "explain_blocks_decoded": ex["totals"]["blocks_decoded"],
+                           "flight_requests": len(flight["flight"]["requests"])}
+        print(f"phase path_l1_ops: card={card} reload_memory={json.dumps(out.get('reload_memory'))}"
+              f" {json.dumps(out['l1_after'])}", flush=True)
+    finally:
+        d.drain()
+
+    # -- L2's child starts here: its interpreter and engine load while the
+    # two legs run (they are checked for answers, not timed per request)
+    log = tmp / "L2_serve.log"
+    t0 = time.perf_counter()
+    with open(log, "wb") as errf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", PKG, "serve", str(h_path), "--engine", "device", "--device",
+             device, "--listen", "127.0.0.1:0", "--listen-metrics", "0"], cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE, stderr=errf)
+    try:
+        # -- the router with its probe on the card, and 4 logical shards ------
+        t_legs = time.perf_counter()
+        legs = conns[:L_LEG_CONNS]
+        with env(MRI_SERVE_CROSSOVER=None):
+            d = ServeDaemon(str(h_path), engine="auto", device=device)
+            d.start()
+            try:
+                c = LClient(d.address)
+                got = c.rpc(id=1, op="df", terms=probe_terms)
+                check(got.get("df") == want_probe, "path L auto: the probe batch's df differ")
+                c.close()
+                answers, _, wall = l_traffic(d.address, legs, tmp)
+                for got_c, want_c in zip(answers, want):
+                    for got, exp in zip(got_c, want_c):
+                        l_check(got, exp, "path L auto")
+                auto = d.stats()["engine"]["auto"]
+                check(auto["probe"] is not None and auto["probe"]["batch"] == 8192,
+                      f"path L auto: no probe on the batch of 8192: {auto}")
+                out["auto"] = {"probe": auto["probe"], "wall_s": wall}
+            finally:
+                d.drain()
+        sh = l_serve_check(ServeDaemon, h_path, legs, want, "path L shards=4", tmp,
+                           engine="device", device=device, shards=4)
+        check(sh["engine"]["device"]["shards"] == 4, f"path L shards: {sh['engine']['device']}")
+        out["shards4"] = {"devices": sh["engine"]["device"]["devices"], "wall_s": sh["wall_s"],
+                          "requests": sh["requests"]}
+        stage_s["legs"] = time.perf_counter() - t_legs
+        print(f"phase path_l_legs: card={card} auto={json.dumps(out['auto'])} "
+              f"shards4={json.dumps(out['shards4'])}", flush=True)
+
+
+        # -- L2: the serve CLI in its child process ---------------------------
+        t_l2 = time.perf_counter()
+        line = proc.stdout.readline()
+        check(bool(line), f"path L2: serve died: {log.read_text(errors='replace')[-2000:]}")
+        ready = json.loads(line)
+        check(ready["event"] == "listening" and ready["engine"] == "device",
+              f"path L2 listening line {ready}")
+        startup_s = time.perf_counter() - t0
+        addr = (ready["host"], ready["port"])
+        target = f"{ready['host']}:{ready['port']}"
+        c = LClient(addr)
+        for r, w in zip(conns[0][:50], want[0][:50]):
+            l_check(c.rpc(**r), w, "path L2")
+        with urllib.request.urlopen(f"http://127.0.0.1:{ready['metrics_port']}/metrics",
+                                    timeout=30) as resp:
+            scrape = resp.read().decode()
+        check("mri_serve_requests_total 50" in scrape, "path L2: /metrics has not counted 50")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["metrics", target])
+        check(rc == 0 and "mri_serve_requests_total 50" in text.getvalue(),
+              f"path L2 metrics: exit {rc}")
+        for argv in (["flightdump", target], ["top", target, "--once", "--json"]):
+            rc, doc = run_cli(cli, argv)
+            check(rc == 0 and doc, f"path L2 {argv[0]}: exit {rc}")
+        check(doc["healthz"]["ready"] and doc["stats"]["counters"]["requests"] == 50,
+              f"path L2 top: {json.dumps(doc)[:300]}")
+        proc.send_signal(signal.SIGHUP)
+        deadline = time.monotonic() + 60
+        while c.rpc(op="stats")["stats"]["counters"]["reload_ok"] != 1:
+            check(time.monotonic() < deadline, "path L2: SIGHUP reload never counted")
+            time.sleep(0.05)
+        c.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        drained = json.loads(proc.stdout.readline())
+        check(rc == 0 and drained["event"] == "drained"
+              and drained["counters"]["requests"] == 50
+              and drained["counters"]["reload_ok"] == 1,
+              f"path L2: exit {rc}, {drained}")
+        # startup_s: from the child's start to its listening line, beside the legs
+        out["l2"] = {"startup_s": startup_s, "exit": rc, "drained": drained["counters"]}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    stage_s["l2_after_legs"] = time.perf_counter() - t_l2
+    print(f"phase path_l2: card={card} {json.dumps(out['l2'])}", flush=True)
+    print(f"phase path_l_done: card={card} seconds={time.perf_counter() - t_path:.1f} "
+          f"stages_s={json.dumps({k: round(v, 3) for k, v in stage_s.items()})}", flush=True)
+    return out
+
+
+def serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
+                   ) -> int:
+    """``--serve-only``: the default build with ``--artifact`` on Path B's
+    corpus (Path H's v2.1 artifact) and Path L alone, for iterating on
+    the daemon; the run with no arguments drives every path."""
+    with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+            num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+        stats_h, launches_h = drive_path(
+            torch, K, formatter, cli_run(cli, "path H", list_b, tmp / "H_out", ["--artifact"]),
+            tmp / "H_out", "path H")
+        print_path("path_h", stats_h, launches_h, card=repr(card))
+        K.reset_launch_counts()
+        path_l(torch, cli, tmp / "H_out" / "index.mri", tmp, card)
+        launches = {"unique_mask_count": K.unique_mask_count.launches,
+                    "bucket_histogram": K.bucket_histogram.launches}
+        check(not any(launches.values()), f"path L launched a kernel of csrc/: {launches}")
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
                   ) -> int:
     """``--mesh-only``: Path J alone, on however many cards the machine
@@ -1750,7 +2262,10 @@ def main() -> int:
                     print(f"  ptxas {stem}: {line.strip()}")
         if sys.argv[1:] == ["--mesh-only"]:
             return mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
-        check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --mesh-only)")
+        if sys.argv[1:] == ["--serve-only"]:
+            return serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
+        check(not sys.argv[1:],
+              f"unknown arguments {sys.argv[1:]} (only --mesh-only or --serve-only)")
 
         launches_by_path = {}
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
@@ -2016,6 +2531,14 @@ def main() -> int:
             # -- Path K: resilience on the card --------------------------------
             launches_by_path["K1"] = path_k(torch, K, cli, formatter, faults, list_a, list_b,
                                             tmp, stats_b, stats_c["md5"], tmp / "A2_out", card)
+
+            # -- Path L: the resident serve daemon on Path H's v2.1 artifact ---
+            K.reset_launch_counts()
+            path_l(torch, cli, h_paths[3], tmp, card)
+            launches_by_path["L"] = {"unique_mask_count": K.unique_mask_count.launches,
+                                     "bucket_histogram": K.bucket_histogram.launches}
+            check(not any(launches_by_path["L"].values()),
+                  f"path L launched a kernel of csrc/: {launches_by_path['L']}")
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

@@ -23,8 +23,12 @@ beside it as the reference), for its single-device build plans:
   Python (format of main.c:227-234), and with ``--artifact`` the
   ``index.mri`` serving artifact (``serve/artifact.py``)
 - serving: ``serve.DeviceEngine`` answers batched df / postings / AND /
-  OR / top-k / BM25 queries from the artifact's columns on the card
-  (``query DIR`` on the CLI)
+  OR / top-k / BM25 queries from the artifact's columns on the card, its
+  batches split over logical shards (``query DIR`` on the CLI), and the
+  resident daemon ``serve.daemon.ServeDaemon`` serves them over a
+  JSON-lines protocol with admission control, coalescing, a result
+  cache, hot reload and the ``obs/`` layers (``serve DIR``, ``metrics``,
+  ``flightdump``, ``top``)
 
 It imports torch and numpy, never jax and nothing of the JAX package.
 """

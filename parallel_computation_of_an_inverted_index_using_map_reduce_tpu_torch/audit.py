@@ -13,7 +13,7 @@ The JAX module's per-window feed ledger (``WindowLedger``) and merge
 checks (``check_merge``, ``check_spill``) check the host backend's
 windows and spill runs; they come with that backend (ROADMAP A14).
 Verifying a segment-managed directory comes with the segments layer
-(ROADMAP A15).
+(ROADMAP A15b).
 
 Integrity failures raise :class:`AuditError` (the CLI maps it to exit
 2): an integrity violation must never exit 0 or 3.
@@ -73,7 +73,7 @@ def verify_output_dir(out_dir) -> tuple[bool, list[str]]:
     Returns ``(ok, problems)`` — problems is a human-readable list of
     every mismatched or missing file (empty when ok).  Never raises on a
     content mismatch; a missing or corrupt manifest is itself a problem.
-    A segment-managed directory is a problem naming ROADMAP A15 (its
+    A segment-managed directory is a problem naming ROADMAP A15b (its
     segments cannot be verified yet), as ``create_engine`` refuses it.
     """
     out_dir = Path(out_dir)
@@ -104,5 +104,5 @@ def verify_output_dir(out_dir) -> tuple[bool, list[str]]:
     if seg_managed:
         problems.append(
             f"{out_dir} is segment-managed ({artifact_mod.SEGMENTS_MANIFEST_NAME} "
-            "present): verifying its segments is not ported yet (ROADMAP A15)")
+            "present): verifying its segments is not ported yet (ROADMAP A15b)")
     return not problems, problems

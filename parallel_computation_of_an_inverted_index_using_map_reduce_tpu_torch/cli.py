@@ -19,8 +19,24 @@ and the query side over an ``--artifact`` build's ``index.mri``:
 
     python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch \\
         query out word1 word2 [--op and|or] [--top-k K --letter L]
-        [--score df|bm25] [--stats] [--engine host|device|auto]
+        [--score df|bm25] [--stats] [--explain] [--engine host|device|auto]
         [--device cuda|cpu]
+
+the resident daemon over it and its operator clients:
+
+    ... serve out [--listen HOST:PORT] [--engine host|device|auto]
+        [--shards N] [--listen-metrics PORT] [--fault-spec SPEC]
+        [--device cuda|cpu]
+    ... metrics HOST:PORT|DIR      (Prometheus text)
+    ... flightdump HOST:PORT [--out FILE]
+    ... top HOST:PORT|DIR [--once] [--json]
+
+``serve`` prints one ``{"event": "listening", ...}`` line, drains on
+SIGTERM/SIGINT (exit 0; a second signal exits 1) with a ``drained``
+line, reloads on SIGHUP and dumps the flight recorder on SIGQUIT.  The
+segment subcommands (``shard``, ``router``, ``append``, ``delete``,
+``compact``, ``recover``, ``replicate``) and ``serve --replica-of`` exit
+2: they need the segment layer, not ported yet (ROADMAP A15b).
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from .config import IndexConfig
 from .corpus.manifest import read_manifest
 from .faults import EXIT_DEGRADED
 from .models.inverted_index import DeviceUnavailable, build_index
+from .utils import envknobs
 from .utils.checkpoint import CheckpointCorrupt
 
 _EPILOG = """\
@@ -191,6 +208,12 @@ def _query_main(argv: list[str]) -> int:
                         "counters, per-op timing, planner; native kernels "
                         "(host, auto), crossover probe (auto), device info "
                         "(device))")
+    p.add_argument("--explain", action="store_true",
+                   help="print a per-request cost report JSON line "
+                        "after the answers: per-term df and resolution "
+                        "path, planner decision with its theta "
+                        "progression, blocks scored/skipped, bytes "
+                        "decoded, cache hits/misses")
     # intermixed: ``query DIR --op and the dog`` must not feed "the dog"
     # back into --op's greedy positional scan
     args = p.parse_intermixed_args(argv)
@@ -235,7 +258,21 @@ def _query_main(argv: list[str]) -> int:
     except (ArtifactError, ValueError, DeviceUnavailable, NativeUnavailable) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.explain:
+        from .obs import attribution as obs_attrib
+        if ranked:
+            explain_op = "top_k_scored"
+        elif args.top_k is not None:
+            explain_op = "top_k"
+        elif args.op is not None:
+            explain_op = f"query_{args.op}"
+        else:
+            explain_op = "df+postings"
+        explain_cm = obs_attrib.collect(explain_op)
+    else:
+        explain_cm = None
     try:
+        coll = explain_cm.__enter__() if explain_cm is not None else None
         if ranked:
             top = engine.top_k_scored(engine.encode_batch(terms), args.top_k)
             print(json.dumps({
@@ -259,20 +296,477 @@ def _query_main(argv: list[str]) -> int:
                 print(json.dumps({
                     "term": term, "found": ids is not None, "df": d,
                     "postings": ids.tolist() if ids is not None else []}))
+        if coll is not None:
+            explain_cm.__exit__(None, None, None)
+            explain_cm = None
+            print(json.dumps({"explain": coll.report()}))
         if args.stats:
             print(json.dumps(engine.describe()))
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:
+        if explain_cm is not None:
+            explain_cm.__exit__(None, None, None)
         engine.close()
     return 0
 
 
+#: JAX CLI subcommands that need the segment layer (ROADMAP A15b)
+SEGMENT_SUBCOMMANDS = ("shard", "router", "append", "delete", "compact",
+                       "recover", "replicate")
+
+
+def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=f"torch device of the device engine {what} (default "
+                        "cuda; no CUDA device is exit 2, never a quiet move "
+                        "to the CPU or the host engine)")
+
+
+def _serve_main(argv: list[str]) -> int:
+    """``serve DIR --listen HOST:PORT`` — the resident daemon
+    (serve/daemon.py).  Blocks until drained by SIGTERM/SIGINT."""
+    import signal
+    import threading
+
+    p = argparse.ArgumentParser(
+        prog="mri-torch serve",
+        description="resident JSON-lines query daemon over a built "
+                    "index.mri artifact")
+    p.add_argument("index_dir", help="output dir of an --artifact run "
+                                     "(or the index.mri file itself)")
+    p.add_argument("--listen", default="127.0.0.1:0", metavar="HOST:PORT",
+                   help="bind address (port 0 = ephemeral; the chosen "
+                        "port is printed in the 'listening' JSON line)")
+    p.add_argument("--engine", choices=("host", "device", "auto"), default=None,
+                   help="query backend (same choices as 'query'; default "
+                        "MRI_SERVE_ENGINE env, else device)")
+    p.add_argument("--cache-terms", type=int, default=4096,
+                   help="hot-term LRU capacity (host engine)")
+    p.add_argument("--shards", type=int, default=None,
+                   help="device engine's logical shard count (default "
+                        "MRI_SERVE_SHARDS env, else every visible card)")
+    p.add_argument("--fault-spec", default=None,
+                   help="arm the deterministic fault injector "
+                        "(serve kinds: handler-crash/client-disconnect/"
+                        "slow-client/reload-corrupt/dispatcher-hang) "
+                        "— test/bench only")
+    p.add_argument("--listen-metrics", type=int, default=None, metavar="PORT",
+                   help="also serve Prometheus text metrics over plain "
+                        "HTTP on 127.0.0.1:PORT (0 = ephemeral; the "
+                        "chosen port is printed in the 'listening' line)")
+    p.add_argument("--replica-of", default=None, metavar="HOST:PORT",
+                   help="not ported yet: replicas need the segment layer "
+                        "(ROADMAP A15b); exits 2")
+    _device_arg(p, "(alone or inside auto)")
+    args = p.parse_args(argv)
+
+    if args.replica_of is not None:
+        print(f"error: --replica-of needs segment shipping: the segment layer "
+              "is not ported yet (ROADMAP A15b)", file=sys.stderr)
+        return 2
+    # the daemon is the one long-lived process: route every mri_torch.*
+    # logger through the structured obs funnel (MRI_OBS_LOG_FORMAT);
+    # in-process embedding (ServeDaemon.start()) leaves logging alone
+    from .obs import logging as obs_logging
+    try:
+        obs_logging.configure()
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    if args.fault_spec is not None:
+        try:
+            faults.install(args.fault_spec)
+        except faults.FaultSpecError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    host, _, port_s = args.listen.rpartition(":")
+    try:
+        port = int(port_s)
+        if not host or not (0 <= port <= 65535):
+            raise ValueError
+    except ValueError:
+        print(f"error: --listen must be HOST:PORT, got {args.listen!r}", file=sys.stderr)
+        return 2
+    if args.listen_metrics is not None and not (0 <= args.listen_metrics <= 65535):
+        print(f"error: --listen-metrics must be 0..65535, got {args.listen_metrics}",
+              file=sys.stderr)
+        return 2
+
+    from .serve import ArtifactError
+    from .serve.daemon import ServeDaemon
+    from .serve.engine import NativeUnavailable
+
+    try:
+        # resolved before the daemon exists so a bad value is the
+        # one-line exit-2 knob contract, not a traceback mid-serve
+        gc_freeze = envknobs.get("MRI_SERVE_GC_FREEZE")
+        daemon = ServeDaemon(args.index_dir, host, port, engine=args.engine,
+                             cache_terms=args.cache_terms, shards=args.shards,
+                             metrics_port=args.listen_metrics, device=args.device)
+    except (ArtifactError, ValueError, OSError, DeviceUnavailable, NativeUnavailable) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        daemon.start()
+    except OSError as e:
+        print(f"error: cannot listen on {args.listen}: {e}", file=sys.stderr)
+        daemon.drain()
+        return 2
+
+    if gc_freeze:
+        # the startup heap (interpreter, imports, engine) is permanent:
+        # freeze it so a cyclic-GC pass scans only request churn
+        import gc
+        gc.collect()
+        gc.freeze()
+
+    stop = threading.Event()
+
+    def _on_stop_signal(signum, frame):
+        if stop.is_set():
+            # second signal: the drain is not fast enough for the
+            # operator — the documented forced exit, code 1
+            os._exit(1)
+        stop.set()
+
+    def _on_hup(signum, frame):
+        # reload off the signal frame AND off the dispatcher: the new
+        # engine is built on this throwaway thread; only the swap takes
+        # the dispatch lock
+        threading.Thread(target=daemon.reload, name="mri-serve-reload", daemon=True).start()
+
+    def _on_quit(signum, frame):
+        # SIGQUIT = dump the flight recorder and keep serving
+        threading.Thread(target=daemon.dump_flight, args=("sigquit",),
+                         name="mri-serve-flight", daemon=True).start()
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _on_stop_signal)
+        signal.signal(signal.SIGINT, _on_stop_signal)
+        signal.signal(signal.SIGHUP, _on_hup)
+        signal.signal(signal.SIGQUIT, _on_quit)
+
+    bound_host, bound_port = daemon.address
+    listening = {"event": "listening", "host": bound_host, "port": bound_port,
+                 "pid": os.getpid(), "engine": daemon._engine.engine_name}
+    if daemon.metrics_address is not None:
+        listening["metrics_port"] = daemon.metrics_address[1]
+    print(json.dumps(listening), flush=True)
+    try:
+        while not stop.is_set():
+            stop.wait(0.2)
+        rc = daemon.drain()
+    except Exception:
+        # unexpected serve crash: keep the black box before the
+        # traceback takes the process down
+        daemon.dump_flight("crash")
+        raise
+    print(json.dumps({"event": "drained", "counters": daemon.final_stats["counters"]},
+                     sort_keys=True), flush=True)
+    return rc
+
+
+def _daemon_addr(target: str):
+    """``(host, port)`` when ``target`` names a daemon, else None."""
+    host, _, port_s = target.rpartition(":")
+    if host and port_s.isdigit() and int(port_s) <= 65535 and not os.path.exists(target):
+        return host, int(port_s)
+    return None
+
+
+def _admin_rpc(addr, op: str, timeout: float) -> dict:
+    """One admin op on a fresh connection; raises OSError / ValueError."""
+    import socket
+
+    with socket.create_connection(addr, timeout=timeout) as sock:
+        sock.sendall(json.dumps({"op": op, "id": 1}).encode() + b"\n")
+        buf = b""
+        while not buf.endswith(b"\n"):
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return json.loads(buf)
+
+
+def _static_engine(target: str, device: str):
+    """A throwaway engine over a built artifact (``create_engine``'s
+    default: the device engine), or an exit code after one error line."""
+    from .serve import ArtifactError, create_engine
+    from .serve.engine import NativeUnavailable
+
+    try:
+        return create_engine(target, None, device=device)
+    except (ArtifactError, ValueError, DeviceUnavailable, NativeUnavailable) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+def _metrics_main(argv: list[str]) -> int:
+    """``metrics TARGET`` — Prometheus text exposition of a running
+    daemon (HOST:PORT, its 'metrics' admin op) or of a built artifact
+    (DIR, a throwaway engine's registry)."""
+    p = argparse.ArgumentParser(
+        prog="mri-torch metrics",
+        description="print Prometheus text-format metrics from a running "
+                    "serve daemon (HOST:PORT) or a built artifact (DIR)")
+    p.add_argument("target", help="serve daemon HOST:PORT, or the "
+                                  "output dir of an --artifact run")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="daemon connect/read timeout in seconds")
+    _device_arg(p, "(DIR targets)")
+    args = p.parse_args(argv)
+
+    addr = _daemon_addr(args.target)
+    if addr is not None:
+        try:
+            resp = _admin_rpc(addr, "metrics", args.timeout)
+        except OSError as e:
+            print(f"error: cannot reach daemon at {args.target}: {e}", file=sys.stderr)
+            return 2
+        except ValueError:
+            print(f"error: bad response from {args.target}", file=sys.stderr)
+            return 2
+        if not resp.get("ok"):
+            print(f"error: daemon refused metrics: {resp.get('error', 'unknown')}",
+                  file=sys.stderr)
+            return 2
+        sys.stdout.write(resp.get("text", ""))
+        return 0
+    engine = _static_engine(args.target, args.device)
+    if isinstance(engine, int):
+        return engine
+    try:
+        sys.stdout.write(engine.metrics.render_text())
+    finally:
+        engine.close()
+    return 0
+
+
+def _flightdump_main(argv: list[str]) -> int:
+    """``flightdump HOST:PORT`` — a running daemon's flight recorder
+    (last N completed request cost-reports + slow offenders) as one JSON
+    document, without waiting for a crash."""
+    p = argparse.ArgumentParser(
+        prog="mri-torch flightdump",
+        description="dump a running serve daemon's flight recorder "
+                    "(bounded ring of recent request cost-reports, "
+                    "MRI_OBS_FLIGHT_RING) as one JSON document")
+    p.add_argument("target", metavar="HOST:PORT",
+                   help="a running serve daemon's protocol address")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="also write the dump to this file (stdout always "
+                        "gets the JSON)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="daemon connect/read timeout in seconds")
+    args = p.parse_args(argv)
+
+    host, _, port_s = args.target.rpartition(":")
+    if not (host and port_s.isdigit() and int(port_s) <= 65535):
+        print(f"error: target must be HOST:PORT, got {args.target!r}", file=sys.stderr)
+        return 2
+    try:
+        resp = _admin_rpc((host, int(port_s)), "flightdump", args.timeout)
+    except OSError as e:
+        print(f"error: cannot reach daemon at {args.target}: {e}", file=sys.stderr)
+        return 2
+    except ValueError:
+        print(f"error: bad response from {args.target}", file=sys.stderr)
+        return 2
+    if not resp.get("ok"):
+        print(f"error: daemon refused flightdump: {resp.get('error', 'unknown')}",
+              file=sys.stderr)
+        return 2
+    text = json.dumps(resp.get("flight", {}), sort_keys=True)
+    print(text)
+    if args.out is not None:
+        try:
+            with open(args.out, "w", encoding="utf-8") as f:
+                f.write(text + "\n")
+        except OSError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    return 0
+
+
+def _top_sample(addr: tuple, timeout: float) -> dict:
+    """One dashboard poll: ``healthz`` + ``stats`` + ``slo`` pipelined
+    over a single daemon connection, matched back up by request id."""
+    import socket
+
+    reqs = (b'{"op":"healthz","id":1}\n'
+            b'{"op":"stats","id":2}\n'
+            b'{"op":"slo","id":3}\n')
+    by_id: dict = {}
+    with socket.create_connection(addr, timeout=timeout) as sock:
+        sock.sendall(reqs)
+        f = sock.makefile("rb")
+        try:
+            for _ in range(3):
+                line = f.readline()
+                if not line:
+                    break
+                resp = json.loads(line)
+                by_id[resp.get("id")] = resp
+        finally:
+            f.close()
+    health = dict(by_id.get(1, {}))
+    health.pop("id", None)
+    return {"healthz": health,
+            "stats": by_id.get(2, {}).get("stats", {}),
+            "slo": by_id.get(3, {}).get("slo", {})}
+
+
+def _top_num(v) -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.3f}"
+    return str(v)
+
+
+def _top_render(target: str, sample: dict) -> str:
+    """One plain-text dashboard frame over a poll's sample (the JAX
+    ``top`` frame without its router fleet rows, ROADMAP A15b)."""
+    h = sample.get("healthz") or {}
+    st = sample.get("stats") or {}
+    slo = sample.get("slo") or {}
+    ready = "ready" if h.get("ready") else "NOT READY"
+    reasons = ",".join(h.get("reasons") or []) or "-"
+    counters = st.get("counters") or {}
+    lines = [
+        f"mri top — {target} — {ready} ({h.get('status', '?')})",
+        f"queue_depth={st.get('queue_depth', h.get('queue_depth', 0))}"
+        f"  inflight={st.get('inflight', 0)}"
+        f"  connections={st.get('connections', 0)}"
+        f"  reasons={reasons}",
+        "",
+        f"{'window':<8}{'qps':>12}{'shed/s':>10}{'err/s':>10}{'p50 ms':>10}{'p99 ms':>10}",
+    ]
+    rolling = st.get("rolling") or {}
+    for label in ("10s", "1m", "5m"):
+        w = rolling.get(label) or {}
+        lines.append(f"{label:<8}{_top_num(w.get('qps')):>12}"
+                     f"{_top_num(w.get('shed_per_s')):>10}"
+                     f"{_top_num(w.get('error_per_s')):>10}"
+                     f"{_top_num(w.get('p50_ms')):>10}"
+                     f"{_top_num(w.get('p99_ms')):>10}")
+    tenants = st.get("tenants") or {}
+    if tenants:
+        lines.append("")
+        lines.append(f"{'tenant':<12}{'wt':>4}{'rate':>8}{'admitted':>10}{'shed':>8}"
+                     f"{'hits':>8}{'depth':>7}{'p95 ms':>10}{'burn 1m':>9}")
+        for name in sorted(tenants):
+            t = tenants[name] or {}
+            admitted = (t.get("requests", 0) or 0) - (t.get("shed", 0) or 0)
+            burns = [b for b in (t.get("burn_1m") or {}).values()
+                     if isinstance(b, (int, float))]
+            rate = t.get("rate_rps")
+            lines.append(
+                f"{name:<12}{_top_num(t.get('weight')):>4}"
+                f"{('-' if rate is None else f'{rate:g}'):>8}"
+                f"{admitted:>10}{_top_num(t.get('shed')):>8}"
+                f"{_top_num(t.get('cache_hits')):>8}"
+                f"{_top_num(t.get('queue_depth')):>7}"
+                f"{_top_num(t.get('p95_ms')):>10}"
+                f"{_top_num(max(burns) if burns else None):>9}")
+    for name in sorted(slo):
+        entry = slo[name] or {}
+        head = f"slo {name} (target {entry.get('target')}"
+        if entry.get("threshold_ms") is not None:
+            head += f", <= {entry['threshold_ms']} ms"
+        lines.append("")
+        lines.append(head + ")")
+        lines.append(f"  {'window':<8}{'ratio':>12}{'burn':>10}{'events':>10}")
+        for label in ("10s", "1m", "5m"):
+            pt = (entry.get("windows") or {}).get(label) or {}
+            lines.append(f"  {label:<8}{_top_num(pt.get('ratio')):>12}"
+                         f"{_top_num(pt.get('burn')):>10}{_top_num(pt.get('total')):>10}")
+    lines.append("")
+    nonzero = "  ".join(f"{k}={v}" for k, v in counters.items() if v)
+    lines.append("counters: " + (nonzero or "-"))
+    return "\n".join(lines) + "\n"
+
+
+def _top_main(argv: list[str]) -> int:
+    """``top TARGET`` — the live operational-health dashboard.
+
+    HOST:PORT polls a running daemon's ``stats``/``slo``/``healthz``
+    admin ops and redraws every ``--interval`` seconds (Ctrl-C exits 0);
+    ``--once --json`` prints one machine-readable sample.  DIR prints one
+    static engine snapshot of a built artifact."""
+    import time as time_mod
+
+    p = argparse.ArgumentParser(
+        prog="mri-torch top",
+        description="live operational-health dashboard for a running serve "
+                    "daemon (HOST:PORT) or one static metrics snapshot of a "
+                    "built artifact (DIR)")
+    p.add_argument("target", help="serve daemon HOST:PORT, or the "
+                                  "output dir of an --artifact run")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="refresh period in seconds (live mode)")
+    p.add_argument("--once", action="store_true",
+                   help="print one frame and exit (no screen clear)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="machine-readable output (implies --once)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="daemon connect/read timeout in seconds")
+    _device_arg(p, "(DIR targets)")
+    args = p.parse_args(argv)
+    once = args.once or args.as_json
+
+    addr = _daemon_addr(args.target)
+    if addr is None:
+        engine = _static_engine(args.target, args.device)
+        if isinstance(engine, int):
+            return engine
+        try:
+            desc = engine.describe()
+            text = engine.metrics.render_text()
+        finally:
+            engine.close()
+        if args.as_json:
+            print(json.dumps({"engine": desc, "metrics_text": text}, sort_keys=True))
+        else:
+            print(f"mri top — {args.target} (static artifact snapshot)")
+            print(json.dumps(desc, sort_keys=True))
+            sys.stdout.write(text)
+        return 0
+    try:
+        while True:
+            try:
+                sample = _top_sample(addr, args.timeout)
+            except (OSError, ValueError) as e:
+                print(f"error: cannot poll daemon at {args.target}: {e}", file=sys.stderr)
+                return 2
+            if args.as_json:
+                print(json.dumps(sample, sort_keys=True))
+            else:
+                if not once:
+                    sys.stdout.write("\x1b[2J\x1b[H")  # clear + home
+                sys.stdout.write(_top_render(args.target, sample))
+                sys.stdout.flush()
+            if once:
+                return 0
+            time_mod.sleep(max(0.05, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "query":
-        return _query_main(argv[1:])
+    sub = {"query": _query_main, "serve": _serve_main, "metrics": _metrics_main,
+           "flightdump": _flightdump_main, "top": _top_main}
+    if argv and argv[0] in sub:
+        return sub[argv[0]](argv[1:])
+    if argv and argv[0] in SEGMENT_SUBCOMMANDS:
+        print(f"error: {argv[0]!r} needs the segment layer, which is not ported "
+              "yet (ROADMAP A15b)", file=sys.stderr)
+        return 2
     # --verify DIR is a standalone mode (no reference positionals)
     if "--verify" in argv:
         i = argv.index("--verify")

@@ -1,10 +1,8 @@
-"""Request-scoped cost attribution: the EXPLAIN collector (the JAX
-package's ``obs/attribution.py`` without its flight recorder and
-exemplar switch, whose daemon callers the port does not have yet: the
-port's host engine, planner and cache feed the collector at the same
-sites).
+"""Request-scoped cost attribution: the EXPLAIN collector + flight ring
+(the JAX package's ``obs/attribution.py``; this package's host and
+device engines, planner and cache feed the collector at the same sites).
 
-The aggregate obs layer (:mod:`.metrics`) answers
+The aggregate obs layer (:mod:`.metrics`, :mod:`.tracing`) answers
 "how is the daemon doing?"; this module answers "why was THIS query
 slow?".  A :class:`Collector` rides one request end to end — installed
 in a :mod:`contextvars` context variable so the engines, planner and
@@ -19,12 +17,28 @@ per feed site — no allocation, no locking.  Feeds on an installed
 collector are plain attribute adds and list appends; a collector is
 single-writer by construction (it lives in one request's context), so
 no lock is taken on the hot path.
+
+The :class:`FlightRecorder` is the after-the-incident black box: a
+bounded ring (``MRI_OBS_FLIGHT_RING``) of the last N completed request
+records (trace + optional cost report) plus the slow-log offenders,
+dumped as one JSON file on SIGQUIT, on daemon crash or abnormal drain,
+and on demand via the ``flightdump`` admin op.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import json
+import os
+import threading
+import time
+from collections import deque
+
+from ..utils import envknobs
+
+FLIGHT_RING_ENV = "MRI_OBS_FLIGHT_RING"
+EXEMPLARS_ENV = "MRI_OBS_EXEMPLARS"
 
 #: the request-scoped collector; ``None`` means attribution is off and
 #: every feed site reduces to one ContextVar.get.
@@ -60,6 +74,14 @@ def collect(op: str = ""):
         yield coll
     finally:
         _current.reset(token)
+
+
+def flight_ring_capacity() -> int:
+    return envknobs.get(FLIGHT_RING_ENV)
+
+
+def exemplars_enabled() -> bool:
+    return envknobs.get(EXEMPLARS_ENV) != 0
 
 
 class Collector:
@@ -213,3 +235,82 @@ class Collector:
         rep["totals"] = self.totals()
         return rep
 
+
+class FlightRecorder:
+    """Bounded ring of completed request records + slow offenders.
+
+    Each entry is ``{"trace": <trace dict>, "report": <cost report or
+    None>}``; slow requests (``dur_ms >= slow_threshold_ms > 0``) are
+    additionally retained in a separate offenders ring so one burst of
+    fast traffic cannot evict the evidence.  ``capacity == 0`` disables
+    recording entirely (every method is a cheap no-op).
+    """
+
+    def __init__(self, capacity: int | None = None,
+                 slow_threshold_ms: float = 0.0):
+        cap = capacity if capacity is not None else flight_ring_capacity()
+        self.capacity = max(0, int(cap))
+        self.slow_threshold_ms = float(slow_threshold_ms)
+        self._lock = threading.Lock()
+        self._dq: deque = deque(
+            maxlen=max(1, self.capacity))  # guarded by: self._lock
+        self._slow: deque = deque(
+            maxlen=max(1, self.capacity))  # guarded by: self._lock
+
+    @property
+    def enabled(self) -> bool:
+        return self.capacity > 0
+
+    def record(self, trace: dict, report: dict | None = None) -> None:
+        if self.capacity <= 0:
+            return
+        entry = {"trace": trace, "report": report}
+        with self._lock:
+            self._dq.append(entry)
+            dur = trace.get("dur_ms")
+            if (self.slow_threshold_ms > 0 and dur is not None
+                    and dur >= self.slow_threshold_ms):
+                self._slow.append(entry)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._dq)
+
+    def dump(self, reason: str) -> dict:
+        """One self-describing JSON document (most-recent-first)."""
+        with self._lock:
+            recent = list(self._dq)
+            slow = list(self._slow)
+        recent.reverse()
+        slow.reverse()
+        return {
+            "event": "flight_dump",
+            "reason": reason,
+            "pid": os.getpid(),
+            "ts": time.time(),
+            "capacity": self.capacity,
+            "slow_threshold_ms": self.slow_threshold_ms,
+            "requests": recent,
+            "slow": slow,
+        }
+
+    def dump_to_file(self, where: str, reason: str) -> str | None:
+        """Write :meth:`dump` as ``flight-<pid>-<reason>.json`` under
+        ``where`` (a directory, or a file whose directory is used).
+        Crash-path safe: returns the path, or ``None`` — never raises.
+        """
+        if self.capacity <= 0:
+            return None
+        try:
+            d = where if os.path.isdir(where) else os.path.dirname(
+                os.path.abspath(where))
+            safe = "".join(c if c.isalnum() or c in "-_" else "-"
+                           for c in reason) or "dump"
+            path = os.path.join(d, f"flight-{os.getpid()}-{safe}.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(self.dump(reason), f, separators=(",", ":"))
+            os.replace(tmp, path)
+            return path
+        except Exception:
+            return None

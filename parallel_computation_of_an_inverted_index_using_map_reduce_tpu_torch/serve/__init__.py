@@ -8,8 +8,9 @@ at emit time (``--artifact``) and reads it back verified;
 ``create_engine``; :mod:`~.device_engine` uploads the columns to the
 card once and answers batched df / postings / AND / OR / top-k / BM25
 queries there (``query DIR --engine host|device|auto``, the port's
-CLI).  All of it is the JAX package's ``serve/`` on torch,
-byte-compatible with it.
+CLI); :mod:`~.daemon` is the resident server over one artifact
+(``serve DIR``) with its generation-keyed :mod:`~.result_cache`.  All
+of it is the JAX package's ``serve/`` on torch, byte-compatible with it.
 """
 
 from .artifact import ARTIFACT_NAME, ArtifactError, artifact_path, load_artifact

@@ -31,11 +31,16 @@ class LRUCache:
 
     def __init__(self, capacity: int, *,
                  registry: obs_metrics.Registry | None = None,
-                 prefix: str = "mri_cache"):
+                 prefix: str = "mri_cache", max_bytes: int = 0):
         if capacity < 0:
             raise ValueError(f"cache capacity must be >= 0, got {capacity}")
+        if max_bytes < 0:
+            raise ValueError(f"cache max_bytes must be >= 0, got {max_bytes}")
         self.capacity = capacity
+        self.max_bytes = max_bytes  # 0 = unbounded by bytes
         self._data: OrderedDict = OrderedDict()  # guarded by: self._lock
+        self._sizes: dict = {}        # key -> nbytes, guarded by: self._lock
+        self._bytes = 0               # sum(self._sizes), guarded by: self._lock
         self._lock = threading.Lock()
         # hit/miss/eviction tallies are obs counters (each with its own
         # lock) so the engine's registry exposes them in the Prometheus
@@ -75,15 +80,26 @@ class LRUCache:
             coll.cache_event(key, True, self._prefix)
         return value
 
-    def put(self, key, value) -> None:
+    def put(self, key, value, *, nbytes: int = 0) -> None:
+        """Insert ``key``; ``nbytes`` is the caller-declared payload size
+        counted against ``max_bytes`` (0 = entry-count bound only).  An
+        entry larger than the whole byte budget is refused outright so
+        one oversized payload cannot flush the working set."""
         with self._lock:
             if self.capacity == 0:
                 return
+            if self.max_bytes and nbytes > self.max_bytes:
+                return
             if key in self._data:
+                self._bytes -= self._sizes.get(key, 0)
                 self._data.move_to_end(key)
             self._data[key] = value
-            while len(self._data) > self.capacity:
-                self._data.popitem(last=False)
+            self._sizes[key] = nbytes
+            self._bytes += nbytes
+            while (len(self._data) > self.capacity
+                   or (self.max_bytes and self._bytes > self.max_bytes)):
+                old_key, _old = self._data.popitem(last=False)
+                self._bytes -= self._sizes.pop(old_key, 0)
                 self._evictions.inc()
 
     def peek(self, key, default=None):
@@ -102,6 +118,11 @@ class LRUCache:
         with self._lock:
             return key in self._data
 
+    @property
+    def bytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
     def purge(self) -> int:
         """Drop every entry but keep the cumulative hit/miss/eviction
         tallies — the invalidation path, where history must survive the
@@ -109,6 +130,8 @@ class LRUCache:
         with self._lock:
             n = len(self._data)
             self._data.clear()
+            self._sizes.clear()
+            self._bytes = 0
         return n
 
     def clear(self) -> None:
@@ -122,13 +145,12 @@ class LRUCache:
         total = hits + misses
         with self._lock:
             entries = len(self._data)
-        # "bytes" and "max_bytes" keep the JAX stats' keys: its byte bound
-        # is set by none of the engines, so both are always 0 there too
+            nbytes = self._bytes
         return {
             "capacity": self.capacity,
             "entries": entries,
-            "bytes": 0,
-            "max_bytes": 0,
+            "bytes": nbytes,
+            "max_bytes": self.max_bytes,
             "hits": hits,
             "misses": misses,
             "evictions": self._evictions.value,

@@ -1,8 +1,15 @@
 """Device-resident batched query engine over ``index.mri``, in torch.
 
-The port of the JAX package's ``serve/device_engine.py`` on one device:
-the artifact's columns go up to the card ONCE, and each batch of queries
-is answered by a few torch programs over them.  Per batch:
+The port of the JAX package's ``serve/device_engine.py``: the artifact's
+columns go up to the card ONCE, and each batch of queries is answered by
+a few torch programs over them.  The batch dimension of term resolution
+and of postings decode is split across ``shards`` logical shards
+(``parallel/mesh.py``: shard i on ``cuda:(i % cards)``), the JAX
+engine's 1-D batch mesh: the columns are replicated (one copy per card,
+shared by the shards on it), a batch is padded to ``shards x pow2``
+lanes, each shard resolves and decodes its contiguous slice, and the
+slices are gathered in shard order — so the answers are the same at
+every shard count.  Per batch:
 
   1. term resolution (:func:`lookup`) — ``torch.searchsorted`` over the
      8-byte big-endian term-prefix key, one int64 per term (terms are
@@ -51,9 +58,11 @@ from . import artifact as artifact_mod
 from . import planner as planner_mod
 from .cache import LRUCache
 from .engine import BM25_B, BM25_K1, encode_terms, letter_index
+from ..obs import attribution as obs_attrib
 from ..obs import metrics as obs_metrics
 from ..obs.timing import OpTimer
 from ..ops.engine import PendingFetch
+from ..parallel import mesh as mesh_mod
 from ..utils import envknobs
 
 #: pad value in posting windows: larger than any doc id (guarded at
@@ -65,7 +74,7 @@ SHARDS_ENV = "MRI_SERVE_SHARDS"
 #: batches decode in chunks.
 DECODE_BUDGET_ENV = "MRI_SERVE_DEVICE_DECODE_BUDGET"
 
-#: smallest batch bucket: tiny batches all share one shape.
+#: smallest per-shard batch bucket: tiny batches all share one shape.
 _MIN_LANES = 8
 
 
@@ -265,30 +274,43 @@ def topk_slice(df_order, df, lo: int, k: int):
 class DeviceEngine:
     """Batched query API over one artifact resident in device memory.
 
-    The JAX ``DeviceEngine``'s surface and answers on one torch device:
+    The JAX ``DeviceEngine``'s surface and answers on torch devices:
     ``device=None`` means ``cuda`` and raises ``DeviceUnavailable``
     without a card (no move to the CPU); ``device="cpu"`` runs the same
-    programs on the CPU.  The host LRU posting cache is present but idle
-    (decodes are device work), kept for the ``describe()`` keys.
+    programs on the CPU.  ``shards`` sizes the batch mesh (default:
+    ``$MRI_SERVE_SHARDS``, else every visible card — one on the CPU);
+    more than one shard takes a device type without an index.
+    The host LRU posting cache is present but idle (decodes are device
+    work), kept for the ``describe()`` keys.
     """
 
     engine_name = "device"
 
     def __init__(self, path, cache_terms: int = 4096, device=None,
-                 decode_budget: int | None = None):
+                 decode_budget: int | None = None, shards: int | None = None):
         from ..models.inverted_index import resolve_device
 
         if artifact_mod.is_segment_managed(path):
             raise artifact_mod.ArtifactError(
                 f"{path} is segment-managed (segments.manifest.json "
                 "present): the device engine serves single artifacts only")
-        shards = envknobs.get(SHARDS_ENV)
-        if shards is not None and shards > 1:
-            raise ValueError(
-                f"{SHARDS_ENV}={shards}: this device engine runs on one device; "
-                "batch sharding across devices is ROADMAP A10b")
         self._device = torch.device("cuda" if device is None else device)
         resolve_device(self._device.type)
+        if shards is None:
+            shards = envknobs.get(SHARDS_ENV)
+        if shards is None:
+            shards = torch.cuda.device_count() if self._device.type == "cuda" else 1
+        if shards == 1:
+            self._mesh = mesh_mod.Mesh((self._device,))
+        elif self._device.index is not None:
+            # the mesh places its shards from card 0 on: a card the
+            # caller named would be silently left for another
+            raise ValueError(
+                f"device={str(self._device)!r} names one card, but shards={shards} "
+                f"spreads over every card: pass device={self._device.type!r}")
+        else:
+            self._mesh = mesh_mod.make_mesh(shards, self._device.type)
+        self._device = self._mesh.devices[0]  # the unsharded ops' device
         self._decode_budget = int(decode_budget if decode_budget is not None
                                   else envknobs.get(DECODE_BUDGET_ENV))
         self.artifact = artifact_mod.load_artifact(path)
@@ -311,27 +333,29 @@ class DeviceEngine:
         self._fmt = cols["format"]
 
         self.column_bytes = 0
-        self._d_key = self._put(cols["key"])
-        self._d_rows = self._put(cols["rows"])
-        self._d_df = self._put(cols["df"])
+        # the resolve and decode columns go to every card of the mesh
+        # (per shard, in shard order); the rest to the first card only
+        key, rows, df = (self._replicate(cols[c]) for c in ("key", "rows", "df"))
+        self._shard_lookup = list(zip(key, rows, df))
+        self._d_key, self._d_rows, self._d_df = self._shard_lookup[0]
         self._d_df_order = self._put(cols["df_order"])
         if self._fmt >= artifact_mod.VERSION_V2:
             self._block_size = cols["block_size"]
-            self._d_term_block_off = self._put(cols["term_block_off"])
-            self._d_blk_first = self._put(cols["blk_first"])
-            self._d_blk_width = self._put(cols["blk_width"])
-            self._d_blk_woff = self._put(cols["blk_woff"])
-            self._d_post_words = self._put(cols["post_words"])
+            self._shard_decode = list(zip(*(self._replicate(cols[c]) for c in (
+                "term_block_off", "blk_first", "blk_width", "blk_woff", "post_words"))))
+            (self._d_term_block_off, self._d_blk_first, self._d_blk_width,
+             self._d_blk_woff, self._d_post_words) = self._shard_decode[0]
             self._d_blk_tf_width = self._put(cols["blk_tf_width"])
             self._d_blk_tf_woff = self._put(cols["blk_tf_woff"])
             self._d_tf_words = self._put(cols["tf_words"])
-            self._decode_cols = (self._d_term_block_off, self._d_blk_first,
-                                 self._d_blk_width, self._d_blk_woff, self._d_post_words)
         else:
             self._block_size = 0
-            self._decode_cols = (self._put(cols["post_offsets"]), self._put(cols["postings"]))
+            self._shard_decode = list(zip(self._replicate(cols["post_offsets"]),
+                                          self._replicate(cols["postings"])))
+        self._decode_cols = self._shard_decode[0]
         self._d_doc_lens = None  # lazy: uploaded at the first top_k_scored
         self._d_bm25 = None
+        self._sync()
 
         # posting tiers: powers of 4 from 8 up to the largest df
         max_df = int(self._h_df.max()) if self.vocab_size else 1
@@ -364,20 +388,40 @@ class DeviceEngine:
 
     # -- host <-> device ---------------------------------------------------
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        """A fresh device tensor of ``a``; on the card the copy goes
-        through pinned memory and does not block the host."""
+    def _put(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A fresh device tensor of ``a`` (on the first card by default);
+        on the card the copy goes through pinned memory and does not
+        block the host."""
+        device = self._device if device is None else device
         t = torch.from_numpy(np.array(a))
-        if self._device.type == "cuda":
-            t = t.pin_memory().to(self._device, non_blocking=True)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
         self.column_bytes += t.numel() * t.element_size()
         return t
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _replicate(self, a: np.ndarray) -> list[torch.Tensor]:
+        """One copy of ``a`` per shard, shards on one device sharing it
+        (``mesh.replicate``, with the bytes counted once per copy)."""
+        by_device: dict = {}
+        for d in self._mesh.devices:
+            if d not in by_device:
+                by_device[d] = self._put(a, d)
+        return [by_device[d] for d in self._mesh.devices]
+
+    def _sync(self) -> None:
+        """Wait until every upload queued on the mesh's cards is done, so
+        an engine built on one thread (a daemon's hot reload) hands a
+        complete set of columns to the thread that serves from it."""
+        for d in dict.fromkeys(self._mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
         """A per-call host array to the device, without a wait."""
+        device = self._device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self._device.type == "cuda":
-            return t.pin_memory().to(self._device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
 
     @staticmethod
@@ -390,8 +434,19 @@ class DeviceEngine:
     # -- shape bucketing -----------------------------------------------------
 
     def _bucket(self, n: int) -> int:
-        """Padded batch size: a power of two, at least 8."""
+        """Padded batch size: power-of-two lanes per shard, at least 8."""
+        D = self._mesh.size
+        return D * max(_MIN_LANES, _next_pow2(-(-n // D)))
+
+    def _lane_bucket(self, n: int) -> int:
+        """Padded size of one shard's own group of lanes."""
         return max(_MIN_LANES, _next_pow2(n))
+
+    def _slices(self, n: int) -> list[tuple[int, int]]:
+        """Each shard's contiguous ``[a, b)`` of an ``n``-lane batch:
+        ``bucket(n) / shards`` lanes a shard, clipped to ``n``."""
+        L = self._bucket(n) // self._mesh.size
+        return [(min(i * L, n), min((i + 1) * L, n)) for i in range(self._mesh.size)]
 
     def _tier(self, max_len: int) -> int:
         for t in self._tiers:
@@ -399,11 +454,12 @@ class DeviceEngine:
                 return t
         return self._tiers[-1]
 
-    def _decode(self, idx, n, width: int):
+    def _decode(self, idx, n, width: int, cols=None):
+        cols = self._decode_cols if cols is None else cols
         if self._fmt >= artifact_mod.VERSION_V2:
-            return decode_window_v2(*self._decode_cols, idx, n, width=width,
+            return decode_window_v2(*cols, idx, n, width=width,
                                     block_size=self._block_size)
-        return decode_window(*self._decode_cols, idx, n, width=width)
+        return decode_window(*cols, idx, n, width=width)
 
     # -- term resolution -----------------------------------------------------
 
@@ -420,7 +476,8 @@ class DeviceEngine:
 
     def _resolve(self, batch):
         """(idx i32, found bool, df i32) per query, on the host: the
-        first of a call's two fetches."""
+        first of a call's two fetches.  Each shard resolves its slice of
+        the padded batch on its own card."""
         q = np.asarray(batch, dtype=self._sdtype)
         B = len(q)
         if B == 0 or self.vocab_size == 0:
@@ -431,10 +488,20 @@ class DeviceEngine:
         if Bp != B:
             rows = np.vstack([rows, np.zeros((Bp - B, self._width), np.uint8)])
             key = np.concatenate([key, np.zeros(Bp - B, np.int64)])
-        idx, found, dfv = lookup(self._d_key, self._d_rows, self._d_df,
-                                 self._upload(key), self._upload(rows), group=self._group)
-        res = self._fetch(torch.stack([idx, found.to(torch.int32), dfv]))[0]
-        return res[0, :B], res[1, :B].astype(bool), res[2, :B]
+        L = Bp // self._mesh.size
+        parts = []
+        for i, (d, cols) in enumerate(zip(self._mesh.devices, self._shard_lookup)):
+            idx, found, dfv = lookup(*cols, self._upload(key[i * L:(i + 1) * L], d),
+                                     self._upload(rows[i * L:(i + 1) * L], d),
+                                     group=self._group)
+            parts.append(torch.stack([idx, found.to(torch.int32), dfv]))
+        res = np.concatenate(self._fetch(*parts), axis=1)
+        idx, found, dfv = res[0, :B], res[1, :B].astype(bool), res[2, :B]
+        coll = obs_attrib.active()
+        if coll is not None:
+            for t, i, ok, d in zip(q.tolist(), idx.tolist(), found.tolist(), dfv.tolist()):
+                coll.term(t, int(i), bool(ok), int(d), "device")
+        return idx, found, dfv
 
     def lookup(self, batch):
         """(lex idx, found) per query."""
@@ -449,8 +516,10 @@ class DeviceEngine:
             return dfv.astype(np.int64)
 
     def _note_decode(self, uidx) -> None:
-        """Count one decode pass over terms ``uidx`` on the registry (the
-        host mirror of the device work, from the offset columns)."""
+        """Count one decode pass over terms ``uidx`` on the registry and
+        the attribution collector (the host mirror of the device work,
+        from the offset columns; the feed sits beside the counters, so a
+        request's report never drifts from the registry)."""
         uidx = np.asarray(uidx, dtype=np.int64)
         if not len(uidx):
             return
@@ -465,48 +534,64 @@ class DeviceEngine:
             nbytes = int(self._h_df[uidx].sum()) * 4
         self._c_blocks_decoded.inc(blocks)
         self._c_bytes_decoded.inc(nbytes)
+        coll = obs_attrib.active()
+        if coll is not None:
+            coll.decoded(blocks, nbytes)
 
     def _decode_batch(self, idx: np.ndarray, n: np.ndarray) -> np.ndarray:
         """The postings of every lane with ``n > 0``, concatenated in lane
-        order (one host array).
+        order (one host array).  Each shard decodes its slice of the
+        padded batch on its own card; the slices' buffers come back in
+        shard order, which is lane order."""
+        n = n.astype(np.int64)
+        outs = [self._decode_lanes(d, cols, idx[a:b], n[a:b])
+                for (a, b), d, cols in zip(self._slices(len(n)), self._mesh.devices,
+                                           self._shard_decode)]
+        flat = self._fetch(*[o for o in outs if o is not None])
+        return np.concatenate(flat) if flat else np.zeros(0, np.int32)
+
+    def _decode_lanes(self, device, cols, idx: np.ndarray, n: np.ndarray):
+        """One shard's lanes decoded on ``device`` into one flat device
+        buffer (None when they hold no postings).
 
         Lanes are grouped by their own width tier, so a batch pays for
         the postings it asks for, not for its longest run at every lane
         (the JAX engine decodes the whole batch at the largest tier).
         Each group decodes in chunks whose ``rows x width`` stays under
-        the decode budget, and each chunk's valid lanes are scattered
-        straight into one flat device buffer (masked lanes to a spare
-        last slot), so only the postings travel back."""
-        n = n.astype(np.int64)
+        the shard's share of the decode budget, and each chunk's valid
+        lanes are scattered straight into the flat buffer (masked lanes
+        to a spare last slot), so only the postings travel back."""
         offs = np.cumsum(n) - n
         total = int(n.sum())
+        if total == 0:
+            return None
         live = np.nonzero(n > 0)[0]
         tiers = np.asarray(self._tiers, dtype=np.int64)
         widths = tiers[np.minimum(np.searchsorted(tiers, n[live]), len(tiers) - 1)]
         groups, parts, at = [], [], 0
         for width in np.unique(widths).tolist():
             rows = live[widths == width]
-            per = max(1, self._decode_budget // width)
-            step = min(self._bucket(len(rows)), max(_MIN_LANES, _pow2_floor(per)))
+            per = max(1, self._decode_budget // width // self._mesh.size)
+            step = min(self._lane_bucket(len(rows)), max(_MIN_LANES, _pow2_floor(per)))
             padded = -(-len(rows) // step) * step
             groups.append((at, padded, step, width))
             parts.append(np.concatenate([rows, np.full(padded - len(rows), -1, np.int64)]))
             at += padded
         lanes = np.concatenate(parts)
         real = lanes >= 0
-        d_idx = self._upload(np.where(real, idx[lanes], 0).astype(np.int32))
-        d_n = self._upload(np.where(real, n[lanes], 0))
-        d_offs = self._upload(np.where(real, offs[lanes], 0))
-        out = torch.empty(total + 1, dtype=torch.int32, device=self._device)
+        d_idx = self._upload(np.where(real, idx[lanes], 0).astype(np.int32), device)
+        d_n = self._upload(np.where(real, n[lanes], 0), device)
+        d_offs = self._upload(np.where(real, offs[lanes], 0), device)
+        out = torch.empty(total + 1, dtype=torch.int32, device=device)
         for start, padded, step, width in groups:
-            lane = torch.arange(width, device=self._device)
+            lane = torch.arange(width, device=device)
             for a in range(start, start + padded, step):
                 part_n = d_n[a:a + step]
-                win = self._decode(d_idx[a:a + step], part_n, width)
+                win = self._decode(d_idx[a:a + step], part_n, width, cols)
                 dest = torch.where(lane[None, :] < part_n[:, None],
                                    d_offs[a:a + step, None] + lane[None, :], total)
                 out.scatter_(0, dest.ravel(), win.ravel())
-        return self._fetch(out[:total])[0]
+        return out[:total]
 
     def postings(self, batch) -> list[np.ndarray | None]:
         with self._ops.time("postings"):
@@ -634,6 +719,9 @@ class DeviceEngine:
             srt = self._term_contribs(i)
             if len(srt) >= k:
                 theta = max(theta, w * float(srt[k - 1]))
+        coll = obs_attrib.active()
+        if coll is not None:
+            coll.theta(theta)
         margin = planner_mod.DEVICE_MARGIN
         bl_parts, widf_parts = [], []
         nb_total = 0
@@ -656,6 +744,8 @@ class DeviceEngine:
                 widf_parts.append(np.full(len(sel), np.float32(idf), np.float32))
         if not bl_parts:
             self._c_blocks_skipped.inc(nb_total)
+            if coll is not None:
+                coll.skipped(nb_total)
             self.planner.note_ranked(mode, 0, nb_total, 0, backend="torch")
             return []
         bl = np.concatenate(bl_parts).astype(np.int32)
@@ -666,6 +756,9 @@ class DeviceEngine:
         self._c_blocks_decoded.inc(S)
         self._c_blocks_skipped.inc(nb_total - S)
         self._c_bytes_decoded.inc(nbytes)
+        if coll is not None:
+            coll.decoded(S, nbytes)
+            coll.skipped(nb_total - S)
         ends = np.cumsum([len(p) for p in bl_parts])
         segments = list(zip((ends - [len(p) for p in bl_parts]).tolist(), ends.tolist()))
         k_eff = min(max(k, 0), D)
@@ -735,8 +828,8 @@ class DeviceEngine:
             "device": {
                 "platform": dev.type,
                 "name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-                "shards": 1,
-                "devices": [str(dev)],
+                "shards": self._mesh.size,
+                "devices": [str(d) for d in self._mesh.devices],
                 "tiers": self._tiers,
                 "max_prefix_group": self._group,
                 "column_bytes": self.column_bytes,
@@ -748,6 +841,7 @@ class DeviceEngine:
         self._d_key = self._d_rows = self._d_df = self._d_df_order = None
         self._d_doc_lens = self._d_bm25 = None
         self._decode_cols = ()
+        self._shard_lookup = self._shard_decode = []
         if self._fmt >= artifact_mod.VERSION_V2:
             self._d_term_block_off = self._d_blk_first = None
             self._d_blk_width = self._d_blk_woff = None

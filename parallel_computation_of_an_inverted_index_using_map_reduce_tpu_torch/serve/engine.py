@@ -124,7 +124,7 @@ class Engine:
             raise artifact_mod.ArtifactError(
                 f"{path} is segment-managed (segments.manifest.json "
                 "present): its root index.mri may be stale, and the "
-                "multi-segment engine is not ported yet (ROADMAP A15)")
+                "multi-segment engine is not ported yet (ROADMAP A15b)")
         self.artifact = artifact_mod.load_artifact(path)
         art = self.artifact
         V, width = art.vocab, max(art.width, 1)
@@ -1227,7 +1227,8 @@ class AutoEngine:
 
     engine_name = "auto"
 
-    def __init__(self, path, cache_terms: int = 4096, device=None):
+    def __init__(self, path, cache_terms: int = 4096, device=None,
+                 shards: int | None = None):
         import torch
 
         from ..models.inverted_index import resolve_device
@@ -1239,6 +1240,7 @@ class AutoEngine:
         self._host = Engine(path, cache_terms=cache_terms)
         self._path = path
         self._cache_terms = cache_terms
+        self._shards = shards
         self._device = None
         self._measured: int | None = None
         self._probe: dict | None = None
@@ -1282,7 +1284,7 @@ class AutoEngine:
         if self._device is None:
             from .device_engine import DeviceEngine
             self._device = DeviceEngine(self._path, cache_terms=self._cache_terms,
-                                        device=self._device_name)
+                                        device=self._device_name, shards=self._shards)
         return self._device
 
     def _run_probe(self, batch) -> None:
@@ -1382,27 +1384,29 @@ def _sidecar_refusal(path) -> str | None:
     side = (p if p.is_dir() else p.parent) / CLUSTER_SIDECAR_NAME
     if side.exists():
         return (f"{path} is a cluster shard ({CLUSTER_SIDECAR_NAME} present): "
-                "the shard engine is not ported yet (ROADMAP A15)")
+                "the shard engine is not ported yet (ROADMAP A15b)")
     if artifact_mod.is_segment_managed(path):
         return (f"{path} is segment-managed ({artifact_mod.SEGMENTS_MANIFEST_NAME} "
-                "present): the multi-segment engine is not ported yet (ROADMAP A15)")
+                "present): the multi-segment engine is not ported yet (ROADMAP A15b)")
     return None
 
 
 def create_engine(path, engine: str | None = None, *, cache_terms: int = 4096,
-                  device=None):
+                  shards: int | None = None, device=None):
     """Open ``path`` with the selected engine (:data:`ENGINE_CHOICES`,
     :func:`resolve_engine`); ``device`` is the device engine's, alone or
-    inside ``auto`` (``cuda`` when None).  All engines answer the same
-    API with the same answers.  A cluster shard or a segment-managed
-    directory raises ``ArtifactError``."""
+    inside ``auto`` (``cuda`` when None), and ``shards`` sizes its batch
+    mesh (the JAX meaning: None is ``$MRI_SERVE_SHARDS``, else every
+    visible card).  All engines answer the same API with the same
+    answers.  A cluster shard or a segment-managed directory raises
+    ``ArtifactError``."""
     which = resolve_engine(engine)
     why = _sidecar_refusal(path)
     if why is not None:
         raise artifact_mod.ArtifactError(why)
     if which == "device":
         from .device_engine import DeviceEngine
-        return DeviceEngine(path, cache_terms=cache_terms, device=device)
+        return DeviceEngine(path, cache_terms=cache_terms, device=device, shards=shards)
     if which == "auto":
-        return AutoEngine(path, cache_terms=cache_terms, device=device)
+        return AutoEngine(path, cache_terms=cache_terms, device=device, shards=shards)
     return Engine(path, cache_terms=cache_terms)

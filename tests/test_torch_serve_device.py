@@ -199,8 +199,12 @@ def test_engine_refusals(zipf, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(DeviceUnavailable):
             DeviceEngine(out)
+    # the knob sizes the batch mesh; a mesh needs a shard
     monkeypatch.setenv("MRI_SERVE_SHARDS", "2")
-    with pytest.raises(ValueError, match="A10"):
+    with DeviceEngine(out, device="cpu") as eng:
+        assert eng.describe()["device"]["shards"] == 2
+    monkeypatch.setenv("MRI_SERVE_SHARDS", "0")
+    with pytest.raises(ValueError, match="num_shards must be >= 1"):
         DeviceEngine(out, device="cpu")
     monkeypatch.delenv("MRI_SERVE_SHARDS")
     (tmp_path / "segments.manifest.json").write_text("{}")
