@@ -146,7 +146,30 @@ Phases, each failing loudly (exit 1, no result line):
    ``serve`` CLI in a child process: HTTP ``/metrics``, the ``metrics``,
    ``flightdump`` and ``top --once --json`` clients, SIGHUP (one
    ``reload_ok``) and SIGTERM (exit 0 and the ``drained`` line).
-14. Kernels: each CUDA kernel against its plain PyTorch version on the
+14. Path M — the host backend (``--backend cpu``), which never touches
+   the card, each leg's md5 checked and no ``cpu_fallback`` (the native
+   host index and merge ran): M1 ``1 1 --host-threads 1`` on Path B's
+   corpus (the pipelined ingest route), M2 ``8 4`` (eight scan workers
+   on the steal queue, four letter reducers), M3 M2 under
+   ``MRI_BUILD_SPILL_BYTES`` = 16 MiB (more than one spill run per
+   worker, the k-way shard merge), each with Path C's md5; M4 M2 with
+   ``--artifact`` at ``MRI_SERVE_FORMAT`` 1, 2 and 3: v1 byte-equal to
+   Path H's v1, and a ``DeviceEngine`` on the card over M4's v2.1 (which
+   carries the host build's tf and token doc lengths) answering Path H's
+   batches and AND/OR queries as the card engine over Path H's v2.1
+   does, BM25 top-10 per planner equal to the host ``Engine`` on the M4
+   file (rel 1e-4; documents whose float64 scores tie within it may come
+   in any order), then its ms per op; M5 ``4 2 --audit --fault-spec
+   worker-death:window=2`` with ``MRI_CPU_WINDOW_BYTES=4096`` on Path
+   A's corpus (a worker recovered, Path A's oracle md5, ``--verify``
+   exit 0); M6 a ``SyntheticManifest`` of Path B's parameters built by
+   the host backend and by the default plan on the card (in one
+   generator chunk it draws Path B's documents, so both md5s equal Path
+   C's).
+   One ``path_m`` line holds each leg's phases, ``host_threads``, spill
+   runs and the process's peak RSS during the leg, beside the card and
+   the host's CPU model.
+15. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -157,7 +180,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-15. Engine: the warm device time of each engine program a path runs, at
+16. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -795,6 +818,24 @@ def check_bm25(got, want, rel: float, label: str) -> None:
     check([d for d, _ in got] == [d for d, _ in want], f"{label}: docs {got} != {want}")
     for (_, g), (_, w) in zip(got, want):
         check(abs(g - w) <= rel * abs(w), f"{label}: score {g} vs {w} beyond rel {rel}")
+
+
+def check_bm25_ties(got, want, rel: float, label: str) -> None:
+    """:func:`check_bm25` where scores may tie within ``rel``: the card's
+    float32 cannot order documents whose float64 scores differ by less
+    (on the host build's artifact, words in every document add an idf
+    of about 2.5e-5 each, so real tf spreads such scores by 1e-8).  The
+    scores agree position by position, each document both return agrees,
+    and every document scoring above the last one's tie band is there."""
+    check(len(got) == len(want), f"{label}: {len(got)} docs != {len(want)}")
+    for (_, g), (_, w) in zip(got, want):
+        check(abs(g - w) <= rel * abs(w), f"{label}: score {g} vs {w} beyond rel {rel}")
+    mine = dict(got)
+    for d, w in want:
+        if d in mine:
+            check(abs(mine[d] - w) <= rel * abs(w), f"{label}: doc {d} {mine[d]} vs {w}")
+        else:
+            check(w <= want[-1][1] * (1 + rel), f"{label}: doc {d} ({w}) missing: {got}")
 
 
 def serve_format(torch, TA, DeviceEngine, path: Path, fmt: int, device: str, card: str,
@@ -2157,6 +2198,221 @@ def path_l(torch, cli, h_path: Path, tmp: Path, card: str, device: str = "cuda")
     return out
 
 
+# -- Path M: the host backend (backend='cpu') ---------------------------------
+
+M_SPILL_BYTES = 16 << 20  # several spill runs per worker at K = 8 on Path B's corpus
+M_TIMED_OPS = ("df@8192", "postings@1024", "and@3", "or@3", "bm25_exhaustive@3")
+
+
+def host_cpu() -> str:
+    """The host's CPU model and core count (every Path M number is a host
+    number): ``/proc/cpuinfo``, else ``lscpu``, else ``platform``."""
+    import platform
+
+    model = None
+    with contextlib.suppress(OSError):
+        for line in open("/proc/cpuinfo"):
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    if not model:
+        with contextlib.suppress(OSError, subprocess.SubprocessError):
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+            model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                          if ln.startswith("Model name")), None)
+    return f"{model or platform.processor() or platform.machine()} x{os.cpu_count()}"
+
+
+def peak_rss_reset() -> None:
+    """Start a new peak-RSS window for this process (Linux ``clear_refs``
+    5 resets VmHWM); where that is refused the peak is the process's."""
+    with contextlib.suppress(OSError):
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+
+
+def peak_rss_bytes() -> tuple[int, str]:
+    """``(bytes, scope)``: the peak RSS since :func:`peak_rss_reset`
+    (``VmHWM``, scope ``leg``), or where the kernel keeps no ``VmHWM``,
+    the process's peak since it started (``getrusage``, scope
+    ``process``)."""
+    import resource
+
+    with contextlib.suppress(OSError):
+        for line in open("/proc/self/status"):
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024, "leg"
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024, "process"
+
+
+def m_leg(K, formatter, cli, label: str, argv: list[str], out_dir: Path, **env_extra) -> dict:
+    """One counted host-backend CLI build: exit 0, no ``cpu_fallback``
+    (the native code ran), no kernel of ``csrc/`` launched."""
+    K.reset_launch_counts()
+    peak_rss_reset()
+    t0 = time.perf_counter()
+    with env(**env_extra):
+        rc, stats = run_cli(cli, [*argv, "--backend", "cpu", "--stats",
+                                  "--output-dir", str(out_dir)])
+    check(rc == 0 and stats is not None, f"{label}: CLI exit {rc}")
+    check("cpu_fallback" not in stats, f"{label}: fell back to the oracle "
+          f"({stats.get('cpu_fallback')})")
+    stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["peak_rss_bytes"], stats["peak_rss_scope"] = peak_rss_bytes()
+    stats["md5"] = formatter.letters_md5(out_dir)
+    stats["launches"] = {"unique_mask_count": K.unique_mask_count.launches,
+                         "bucket_histogram": K.bucket_histogram.launches}
+    check(not any(stats["launches"].values()),
+          f"{label} launched a kernel of csrc/: {stats['launches']}")
+    return stats
+
+
+def m_summary(stats: dict) -> dict:
+    """What the ``path_m`` line keeps of a leg."""
+    keep = {k: stats[k] for k in ("md5", "wall_ms", "total_ms", "phases_ms", "host_threads",
+                                  "reduce_workers", "io_windows", "merge_ms", "stage_read_ms",
+                                  "stage_tokenize_ms", "stage_emit_ms", "spill",
+                                  "build_shards", "artifact_bytes", "artifact_build_ms",
+                                  "degradation", "audit_ms", "peak_rss_bytes",
+                                  "peak_rss_scope", "launches")
+            if k in stats}
+    if "spill" in keep:
+        keep["spill_runs_per_worker"] = keep["spill"]["flushes"] / stats["host_threads"]
+    return keep
+
+
+def m4_serve(torch, S, m4: Path, h21: Path, served: dict, card: str) -> dict:
+    """M4's v2.1 artifact (the host build's) on a ``DeviceEngine`` on the
+    card: df, postings, AND and OR on Path H's batches equal to the card
+    engine's answers on Path H's v2.1; BM25 top-10 per planner equal to
+    the host ``Engine`` on the same M4 file (rel 1e-4, documents tied within
+    it in any order); then ms per op."""
+    import numpy as np
+
+    out = {}
+    dev, ref = S.DeviceEngine(m4, device="cuda"), S.DeviceEngine(h21, device="cuda")
+    try:
+        for n, b in served["batches"].items():
+            check(dev.df(b).tolist() == ref.df(b).tolist(), f"path M4 df@{n} != path H's")
+            check(same_postings(np, dev.postings(b), ref.postings(b)),
+                  f"path M4 postings@{n} != path H's")
+        for arity, qs in served["queries"].items():
+            for q in qs:
+                b = dev.encode_batch(q)
+                check(np.array_equal(dev.query_and(b), ref.query_and(b)), f"path M4 AND {q}")
+                check(np.array_equal(dev.query_or(b), ref.query_or(b)), f"path M4 OR {q}")
+        with S.Engine(m4) as host:
+            for planner in PLANNERS:
+                with env(MRI_SERVE_PLANNER=planner):
+                    for qs in served["queries"].values():
+                        for q in qs:
+                            check_bm25_ties(dev.top_k_scored(dev.encode_batch(q), 10),
+                                            host.top_k_scored(host.encode_batch(q), 10), 1e-4,
+                                            f"path M4 bm25 {planner} {q} vs the host engine")
+        b8192, b1024 = served["batches"][8192], served["batches"][1024]
+        b3 = dev.encode_batch(served["queries"][3][0])
+        ops = {"df@8192": lambda: dev.df(b8192), "postings@1024": lambda: dev.postings(b1024),
+               "and@3": lambda: dev.query_and(b3), "or@3": lambda: dev.query_or(b3),
+               "bm25_exhaustive@3": lambda: dev.top_k_scored(b3, 10)}
+        with env(MRI_SERVE_PLANNER="exhaustive"):
+            for name in M_TIMED_OPS:
+                out[name] = timed(torch, ops[name], "cuda", iters=5, repeats=3)
+    finally:
+        dev.close()
+        ref.close()
+    return out
+
+
+def path_m(torch, K, cli, formatter, faults, synthetic, build_index, IndexConfig,
+           list_a: Path, list_b: Path, tmp: Path, md5_oracle_a: str, md5_c: str,
+           h_paths: dict, served: dict, card: str) -> dict:
+    """Path M — the host backend, which never touches the card, on Path
+    B's corpus (M1-M4), Path A's (M5) and a virtual corpus (M6); the card
+    serves M4's artifact and builds M6's default plan.  Returns the
+    path's launches (none)."""
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import serve as S
+
+    t0 = time.perf_counter()
+    legs = {}
+    # M1: one scan worker, the pipelined ingest route
+    m1 = m_leg(K, formatter, cli, "path M1", ["1", "1", str(list_b), "--host-threads", "1"],
+               tmp / "M1_out")
+    check("ingest_scan" in m1["phases_ms"] and m1["host_threads"] == 1
+          and "reduce_workers" not in m1, f"path M1 did not take the pipelined route: "
+          f"{sorted(m1['phases_ms'])} threads {m1['host_threads']}")
+    legs["M1"] = m1
+    # M2: 8 scan workers on the steal queue, 4 letter reducers
+    m2 = m_leg(K, formatter, cli, "path M2", ["8", "4", str(list_b)], tmp / "M2_out")
+    check(m2["host_threads"] == 8 and m2["reduce_workers"] == 4,
+          f"path M2: {m2['host_threads']} workers, {m2.get('reduce_workers')} reducers")
+    legs["M2"] = m2
+    # M3: M2 under a spill budget several runs per worker deep
+    m3 = m_leg(K, formatter, cli, "path M3", ["8", "4", str(list_b)], tmp / "M3_out",
+               MRI_BUILD_SPILL_BYTES=str(M_SPILL_BYTES))
+    check(m3["spill"]["flushes"] > 2 * m3["host_threads"] and m3["spill"]["runs_quarantined"] == 0,
+          f"path M3: spill {m3['spill']}, want more than one run per worker")
+    legs["M3"] = m3
+    for name in ("M1", "M2", "M3"):
+        check(legs[name]["md5"] == md5_c, f"path {name} md5 {legs[name]['md5']} != path C {md5_c}")
+    # M4: M2 with --artifact at each format
+    m4_files = {}
+    for fmt in (1, 2, 3):
+        out = tmp / f"M4_v{fmt}"
+        s = m_leg(K, formatter, cli, f"path M4 v{fmt}", ["8", "4", str(list_b), "--artifact"],
+                  out, MRI_SERVE_FORMAT=str(fmt))
+        check(s["md5"] == md5_c, f"path M4 v{fmt} md5 {s['md5']} != path C {md5_c}")
+        m4_files[fmt] = out / "index.mri"
+        legs[f"M4_v{fmt}"] = s
+    check(m4_files[1].read_bytes() == h_paths[1].read_bytes(),
+          "path M4: the host build's v1 index.mri differs from path H's v1")
+    legs["M4_v3"]["device_engine_ms"] = m4_serve(torch, S, m4_files[3], h_paths[3], served[3],
+                                                 card)
+    # M5: worker recovery under --audit on Path A's corpus
+    m5 = m_leg(K, formatter, cli, "path M5",
+               ["4", "2", str(list_a), "--audit", "--fault-spec", "worker-death:window=2"],
+               tmp / "M5_out", MRI_CPU_WINDOW_BYTES="4096")
+    faults.install(None)
+    check(m5["degradation"]["worker_recoveries"] >= 1 and not m5["degradation"]["skipped_docs"],
+          f"path M5: degradation {m5['degradation']}")
+    check(m5["md5"] == md5_oracle_a, f"path M5 md5 {m5['md5']} != path A's {md5_oracle_a}")
+    rc, err = verify_cli(cli, tmp / "M5_out")
+    check(rc == 0, f"path M5 --verify: exit {rc}: {err}")
+    legs["M5"] = m5
+    # M6: a virtual corpus of Path B's parameters, host backend and card;
+    # in one generator chunk it draws Path B's very documents
+    m6 = {}
+    manifest = synthetic.synthetic_manifest(num_docs=20_000, vocab_size=100_000,
+                                            tokens_per_doc=1000, alpha=1.2, seed=11)
+    for name, cfg in (("cpu", IndexConfig(backend="cpu", num_mappers=8, num_reducers=4)),
+                      ("cuda", IndexConfig(num_mappers=4, num_reducers=26))):
+        K.reset_launch_counts()
+        peak_rss_reset()
+        t1 = time.perf_counter()
+        s = build_index(manifest, cfg, output_dir=str(tmp / f"M6_{name}"))
+        s["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        s["peak_rss_bytes"], s["peak_rss_scope"] = peak_rss_bytes()
+        s["md5"] = formatter.letters_md5(tmp / f"M6_{name}")
+        s["launches"] = {"unique_mask_count": K.unique_mask_count.launches,
+                         "bucket_histogram": K.bucket_histogram.launches}
+        check("cpu_fallback" not in s, f"path M6 {name}: fell back to the oracle")
+        m6[name] = s
+    check(m6["cpu"]["md5"] == m6["cuda"]["md5"] == md5_c,
+          f"path M6: host backend md5 {m6['cpu']['md5']}, card {m6['cuda']['md5']}, "
+          f"path C {md5_c}: want all equal")
+    check(not any(m6["cpu"]["launches"].values()), "path M6 cpu launched a kernel of csrc/")
+    legs["M6_cpu"], legs["M6_cuda"] = m6["cpu"], m6["cuda"]
+    launches = {k: sum(leg["launches"][k] for leg in legs.values())
+                for k in ("unique_mask_count", "bucket_histogram")}
+    print("phase path_m: " + json.dumps({
+        "card": card, "host_cpu": host_cpu(), "path_c_md5": md5_c,
+        "legs": {name: m_summary(leg) | ({"device_engine_ms": leg["device_engine_ms"]}
+                                          if "device_engine_ms" in leg else {})
+                 for name, leg in legs.items()}}), flush=True)
+    print(f"phase path_m_done: card={card} seconds={time.perf_counter() - t0:.1f} "
+          f"launches={launches}", flush=True)
+    return launches
+
+
 def serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
                    ) -> int:
     """``--serve-only``: the default build with ``--artifact`` on Path B's
@@ -2539,6 +2795,11 @@ def main() -> int:
                                      "bucket_histogram": K.bucket_histogram.launches}
             check(not any(launches_by_path["L"].values()),
                   f"path L launched a kernel of csrc/: {launches_by_path['L']}")
+
+            # -- Path M: the host backend, its artifact served on the card ------
+            launches_by_path["M"] = path_m(
+                torch, K, cli, formatter, faults, synthetic, build_index, IndexConfig,
+                list_a, list_b, tmp, md5_oracle, stats_c["md5"], h_paths, served, card)
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

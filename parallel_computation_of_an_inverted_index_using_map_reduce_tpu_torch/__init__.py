@@ -30,6 +30,11 @@ beside it as the reference), for its single-device build plans:
   cache, hot reload and the ``obs/`` layers (``serve DIR``, ``metrics``,
   ``flightdump``, ``top``)
 
+- host backend (``backend="cpu"``): the whole build on the host in
+  native C++, K scan workers pulling byte windows from a steal queue and
+  M letter reducers over one merge (the reference's fork-join regime),
+  with an out-of-core spill tier; no card
+
 It imports torch and numpy, never jax and nothing of the JAX package.
 """
 
@@ -37,7 +42,7 @@ __version__ = "0.1.0"
 
 from .config import IndexConfig
 from .corpus.manifest import Manifest, read_manifest, write_manifest, manifest_from_dir
-from .text.tokenizer import TokenizedCorpus, clean_token
+from .text.tokenizer import TokenizedCorpus, tokenize_corpus, clean_token
 from .models.inverted_index import InvertedIndexModel, build_index
 from .models.oracle import oracle_index
 
@@ -48,6 +53,7 @@ __all__ = [
     "write_manifest",
     "manifest_from_dir",
     "TokenizedCorpus",
+    "tokenize_corpus",
     "clean_token",
     "InvertedIndexModel",
     "build_index",

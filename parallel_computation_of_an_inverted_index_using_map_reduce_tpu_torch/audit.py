@@ -9,11 +9,15 @@ packed one.  ``--verify DIR`` re-hashes the directory against it, so any
 consumer can prove an output directory is exactly what the run emitted.
 The manifest is the JAX package's (``audit.py``) byte for byte.
 
-The JAX module's per-window feed ledger (``WindowLedger``) and merge
-checks (``check_merge``, ``check_spill``) check the host backend's
-windows and spill runs; they come with that backend (ROADMAP A14).
-Verifying a segment-managed directory comes with the segments layer
-(ROADMAP A15b).
+The cpu backend's parallel path adds three in-run checks under
+``--audit``: :class:`WindowLedger` (which worker fed which global window,
+with an adler32 of the exact arrays handed to the native scan; a dead
+worker's entries are discarded with its native handle, so at merge time
+exactly one live entry per planned window must remain),
+:func:`check_merge` (the native merge walk: per-term df sums equal the
+worker run lengths and every run ascends, plus the pair and vocab totals)
+and :func:`check_spill` (its out-of-core analogue).  Verifying a
+segment-managed directory comes with the segments layer (ROADMAP A15b).
 
 Integrity failures raise :class:`AuditError` (the CLI maps it to exit
 2): an integrity violation must never exit 0 or 3.
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import json
 import os
+import threading
+import zlib
 from pathlib import Path
 
 from .config import ALPHABET_SIZE
@@ -36,6 +42,141 @@ MANIFEST_NAME = "index.manifest.json"
 
 class AuditError(RuntimeError):
     """An integrity invariant failed — the output cannot be trusted."""
+
+
+def window_checksum(buf, ends, ids) -> int:
+    """adler32 over one window's bytes + doc structure — cheap enough
+    to run per window in the scan loop (the <5 %% audit budget), strong
+    enough to catch a wrong-window or torn-arena feed."""
+    c = zlib.adler32(buf)
+    c = zlib.adler32(ends, c)
+    return zlib.adler32(ids, c)
+
+
+class WindowLedger:
+    """Thread-safe which-worker-fed-which-window accounting.
+
+    Scan workers :meth:`record` after each successful native feed;
+    the recovery layer :meth:`discard_worker` when a worker dies (its
+    native handle — and thus its windows' postings — die with it);
+    :meth:`check_complete` is the pre-merge gate.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: dict[int, dict] = {}   # window -> live entry
+        self._dups: list[int] = []            # double-fed live windows
+        self._dead: set = set()               # discarded workers
+
+    def record(self, window_index: int, *, worker, docs: int,
+               nbytes: int, checksum: int) -> None:
+        with self._lock:
+            if worker in self._dead:
+                return  # zombie feed after retirement: already requeued
+            prev = self._entries.get(window_index)
+            if prev is not None:
+                self._dups.append(window_index)
+            self._entries[window_index] = {
+                "worker": worker, "docs": int(docs),
+                "bytes": int(nbytes), "checksum": int(checksum),
+            }
+
+    def discard_worker(self, worker) -> int:
+        """Forget everything ``worker`` fed (called with its native
+        handle's discard); returns how many entries were dropped."""
+        with self._lock:
+            self._dead.add(worker)
+            drop = [wi for wi, e in self._entries.items()
+                    if e["worker"] == worker]
+            for wi in drop:
+                del self._entries[wi]
+            self._dups = [wi for wi in self._dups if wi in self._entries]
+            return len(drop)
+
+    def check_complete(self, num_windows: int,
+                       missing_ok=()) -> None:
+        """Every planned window 1..num_windows must have exactly one
+        live entry, except those in ``missing_ok`` (windows the run
+        already reported as skipped — the degraded arm).  Raises
+        :class:`AuditError` naming the offending windows."""
+        allowed = set(missing_ok)
+        with self._lock:
+            missing = [wi for wi in range(1, num_windows + 1)
+                       if wi not in self._entries and wi not in allowed]
+            dups = sorted(set(self._dups))
+        if missing:
+            raise AuditError(
+                f"audit: window {', '.join(map(str, missing))} of "
+                f"{num_windows} never reached the native scan — "
+                "postings silently dropped")
+        if dups:
+            raise AuditError(
+                f"audit: window {', '.join(map(str, dups))} fed to the "
+                "scan more than once — postings double-counted")
+
+    def summary(self) -> dict:
+        with self._lock:
+            return {
+                "windows": len(self._entries),
+                "docs": sum(e["docs"] for e in self._entries.values()),
+                "bytes": sum(e["bytes"] for e in self._entries.values()),
+            }
+
+
+def check_merge(merge, streams) -> None:
+    """Merge invariants before any reducer emits (``--audit``).
+
+    ``merge`` is a native ``HostIndexMerge`` over ``streams`` (the live
+    workers' ``HostIndexStream`` handles).  The native walk proves df
+    sums and per-run monotonicity; the Python side cross-checks the
+    scan totals the merge folded.
+    """
+    rc, bad_term = merge.audit()
+    if rc == 1:
+        raise AuditError(
+            f"audit: merged df of global term {bad_term} does not equal "
+            "the sum of its worker run lengths — a worker's postings "
+            "were lost or double-merged")
+    if rc == 2:
+        raise AuditError(
+            f"audit: posting run of global term {bad_term} is not "
+            "strictly ascending — window postings interleaved wrongly")
+    if rc != 0:
+        raise AuditError(f"audit: native merge walk failed (rc={rc})")
+    infos = [s.info() for s in streams]
+    mstats = merge.stats()
+    pairs = sum(i["pairs"] for i in infos)
+    if pairs != mstats["unique_pairs"]:
+        raise AuditError(
+            f"audit: merge folded {mstats['unique_pairs']} (term, doc) "
+            f"pairs but the workers scanned {pairs}")
+    vocab = mstats["unique_terms"]
+    lo = max((i["vocab"] for i in infos), default=0)
+    hi = sum(i["vocab"] for i in infos)
+    if not lo <= vocab <= hi:
+        raise AuditError(
+            f"audit: merged vocab {vocab} outside the union bounds "
+            f"[{lo}, {hi}] of the worker vocabularies")
+
+
+def check_spill(run_pairs: int, merged_pairs: int, run_vocab_hi: int,
+                merged_vocab: int) -> None:
+    """Spill-tier merge invariants (``--audit``, out-of-core path).
+
+    The disk tier's analogue of :func:`check_merge`: every (term, doc)
+    pair written to a verified run must come back out of the per-shard
+    k-way merge exactly once (per-term ascending order and pair
+    uniqueness are enforced inside the merge itself), and the merged
+    vocabulary can't exceed the sum of the runs' vocabularies.
+    """
+    if run_pairs != merged_pairs:
+        raise AuditError(
+            f"audit: shard merge folded {merged_pairs} (term, doc) "
+            f"pairs but the spill runs hold {run_pairs}")
+    if merged_vocab > run_vocab_hi:
+        raise AuditError(
+            f"audit: merged vocab {merged_vocab} exceeds the sum "
+            f"{run_vocab_hi} of the spill runs' vocabularies")
 
 
 def letter_checksums(out_dir) -> dict[str, tuple[str, int]]:

@@ -11,6 +11,12 @@ plus flags for the device engine:
         [--checkpoint PATH] [--fault-spec SPEC] [--audit]
         [--trace-out FILE] [--profile-dir DIR]
 
+and for the host backend, which never touches the card (K scan workers
+and M letter reducers, ``MRI_BUILD_SPILL_BYTES`` for the out-of-core
+spill):
+
+    ... 8 4 list.txt --backend cpu [--io-prefetch N] [--host-threads T]
+
 ``--verify DIR`` re-checks an ``--audit`` run's output directory
 against its ``index.manifest.json`` (exit 0 when it matches, 2 naming
 each mismatched file),
@@ -74,12 +80,16 @@ def make_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("num_mappers", type=int,
-                   help="host shard count (reference mapper threads; output-invariant)")
+                   help="host shard count (reference mapper threads; "
+                        "backend=cpu scan workers; output-invariant)")
     p.add_argument("num_reducers", type=int,
-                   help="reduce partition count (reference reducer threads; output-invariant)")
+                   help="reduce partition count (reference reducer threads; "
+                        "backend=cpu letter-range reduce workers; "
+                        "output-invariant)")
     p.add_argument("file_list", help="manifest: count header then one path per line")
-    p.add_argument("--backend", choices=("cuda", "oracle"), default="cuda",
-                   help="cuda: device engine; oracle: pure-Python conformance backend")
+    p.add_argument("--backend", choices=("cuda", "cpu", "oracle"), default="cuda",
+                   help="cuda: device engine; cpu: the native host pipeline "
+                        "(no card); oracle: pure-Python conformance backend")
     p.add_argument("--output-dir", default=".", help="where a.txt..z.txt are written (default: CWD)")
     p.add_argument("--pad-multiple", type=int, default=1 << 16)
     p.add_argument("--checkpoint", default=None,
@@ -137,6 +147,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--emit-backend", choices=("auto", "native", "python"), default="auto",
                    help="letter-file writer: auto = native emit when available, "
                         "python = the pure-Python writer; byte-identical either way")
+    p.add_argument("--io-prefetch", type=int, default=2,
+                   help="backend=cpu read-ahead depth: window arenas the "
+                        "reader thread keeps filled while the native scan "
+                        "runs (0 = one-shot load, no pipeline)")
     p.add_argument("--resume", choices=("strict", "auto"), default="strict",
                    help="checkpoint-trust policy: strict = a corrupt "
                         "checkpoint is a hard error; auto = quarantine it "
@@ -817,6 +831,7 @@ def main(argv: list[str] | None = None) -> int:
             emit_ownership=args.emit_ownership,
             host_threads=args.host_threads,
             emit_backend=args.emit_backend,
+            io_prefetch=args.io_prefetch,
             overlap_tail_fraction=args.overlap_tail_fraction,
             overlap_device_windows=args.overlap_device_windows,
             overlap_window_split=args.overlap_window_split,

@@ -10,8 +10,8 @@ the streaming plan (``stream_chunk_docs``), the all-device plan
 (``device_tokenize``) and the two together, the streaming all-device
 plan with its resumable stream checkpoints, the serving artifact
 (``artifact``) every plan but the overlap plan packs, and the
-multi-shard builds (``device_shards``, ``emit_ownership``), and the
-build's resilience and integrity options: the one-shot plan's pairs
+multi-shard builds (``device_shards``, ``emit_ownership``), the host
+backend (``backend="cpu"``, ``io_prefetch``), and the build's resilience and integrity options: the one-shot plan's pairs
 checkpoint (``checkpoint_path``), a torch.profiler trace
 (``profile_dir``), the output manifest (``audit``) and the Chrome trace
 of the build (``trace_out``).
@@ -33,13 +33,21 @@ class IndexConfig:
     """End-to-end pipeline configuration.
 
     ``num_mappers`` / ``num_reducers`` keep the reference CLI's meaning;
-    the output is invariant to both (the device engine balances the
-    reduce by sort, not by letter partition).
+    the output is invariant to both.  On ``backend="cpu"`` with
+    read-ahead on, ``num_mappers`` (through :meth:`resolved_host_threads`)
+    is K scan workers pulling byte windows from a shared steal queue and
+    ``num_reducers`` is M reducer threads owning contiguous letter ranges
+    (corpus/scheduler.plan_letter_ranges, the reference's reducer
+    ownership, main.c:129-130); the device engine balances the reduce by
+    sort, not by letter partition.
     """
 
     num_mappers: int = 1
     num_reducers: int = 1
     # "cuda"   — the device engine (torch sort + hand-written CUDA kernels)
+    # "cpu"    — the whole pipeline on the host in native C++, no card
+    #            (the reference's all-on-host regime; falls back to
+    #            "oracle" when the library does not build)
     # "oracle" — pure-Python dict oracle, the conformance seam
     backend: str = "cuda"
     output_dir: str = "."         # where a.txt .. z.txt are written
@@ -90,8 +98,10 @@ class IndexConfig:
     # token or the run falls back).
     device_tokenize_width: int = 48
     # Host map-phase threads of the native scan (fork-join over
-    # contiguous byte-balanced doc ranges, output-identical at any
-    # count).  None = ``num_mappers`` if > 1, else min(cores, 8).
+    # contiguous byte-balanced doc ranges) and the cpu backend's scan
+    # workers; output-identical at any count.  None = ``num_mappers``
+    # if > 1, else min(cores, 8) — so one mapper does not mean one
+    # thread, in both packages.
     host_threads: int | None = None
     # Letter-file writer: "auto" = the native emit when the library
     # loads (and use_native is on), else Python; "native" requires it;
@@ -139,9 +149,16 @@ class IndexConfig:
     # emit, which ``--verify DIR`` re-checks.  Off by default; its cost
     # is recorded as ``audit_ms``.
     audit: bool = False
-    # Chrome trace_event JSON of the build (obs/chrometrace.py); the
-    # device plans write the sparse trace the JAX device plans write.
+    # Chrome trace_event JSON of the build (obs/chrometrace.py): the cpu
+    # backend's reader windows, scans, merge, reducer emits and artifact
+    # pack; the device plans write the sparse trace the JAX device plans
+    # write.
     trace_out: str | None = None
+    # Read-ahead depth of the cpu backend: each reader thread keeps up to
+    # this many ~2 MB window arenas filled while the native scan (GIL
+    # released) works on the current one.  0 takes the one-shot load and
+    # native call instead.
+    io_prefetch: int = 2
 
     def resolved_host_threads(self) -> int:
         """The map-phase thread count this run will actually use."""
@@ -158,12 +175,12 @@ class IndexConfig:
             raise ValueError(f"num_mappers must be >= 1, got {self.num_mappers}")
         if self.num_reducers < 1:
             raise ValueError(f"num_reducers must be >= 1, got {self.num_reducers}")
-        if self.backend not in ("cuda", "oracle"):
+        if self.backend not in ("cuda", "cpu", "oracle"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.pad_multiple < 1:
             raise ValueError("pad_multiple must be >= 1")
         if self.backend != "cuda":
-            # device-era options the oracle does not implement: fail
+            # device-era options the host backends do not implement: fail
             # loudly rather than silently ignore a flag the user passed
             for flag in ("stream_chunk_docs", "checkpoint_path", "profile_dir"):
                 if getattr(self, flag) is not None:
@@ -288,6 +305,10 @@ class IndexConfig:
         if self.host_threads is not None and self.host_threads < 1:
             raise ValueError(
                 f"host_threads must be >= 1 or None (auto), got {self.host_threads}")
+        if self.io_prefetch < 0:
+            raise ValueError(
+                f"io_prefetch must be >= 0 (0 disables read-ahead), "
+                f"got {self.io_prefetch}")
         if self.emit_backend not in ("auto", "native", "python"):
             raise ValueError(
                 f"emit_backend must be 'auto', 'native' or 'python', "

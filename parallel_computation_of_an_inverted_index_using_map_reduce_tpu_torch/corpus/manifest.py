@@ -51,6 +51,24 @@ class Manifest:
         with open(self.paths[index], "rb") as f:
             return f.read()
 
+    def read_doc_into(self, index: int, dest) -> int:
+        """``readinto`` fast path: document bytes straight into a
+        caller-owned buffer (an io.arena.WindowArena view) — no bytes
+        object, no copy.  Returns the byte count actually read; a file
+        shorter than ``dest`` (shrunk since the manifest was written)
+        gives a short count, a longer one is truncated to ``dest``
+        (manifest sizes are authoritative for window planning).  Raises
+        OSError like :meth:`read_doc`."""
+        mv = memoryview(dest)
+        total = 0
+        with open(self.paths[index], "rb") as f:
+            while total < len(mv):
+                n = f.readinto(mv[total:])
+                if not n:
+                    break
+                total += n
+        return total
+
 
 def _stat_sizes(paths) -> tuple[int, ...]:
     """Sizes for a path list; unstat-able files keep size 0 (reference
@@ -246,3 +264,19 @@ def load_documents(manifest: Manifest, report: DegradationReport | None = None
     :func:`iter_document_ranges`)."""
     (contents, doc_ids), = iter_document_ranges(manifest, [(0, len(manifest))], report)
     return contents, doc_ids
+
+
+def load_documents_arena(manifest: Manifest, arena=None,
+                         report: DegradationReport | None = None):
+    """Zero-copy :func:`load_documents`: every readable document lands in
+    one reusable io.arena.WindowArena (``readinto``, no per-doc bytes
+    objects) sized upfront from the manifest.  Returns the filled arena;
+    unreadable files are skipped and recorded, same contract as
+    :func:`load_documents`."""
+    from ..io.arena import WindowArena
+    from ..io.reader import read_window_into
+
+    if arena is None:
+        arena = WindowArena(byte_capacity=max(manifest.total_bytes, 1),
+                            doc_capacity=max(len(manifest), 1))
+    return read_window_into(manifest, 0, len(manifest), arena, report=report)

@@ -28,13 +28,22 @@ Three layers live here:
         chaos:seed=5:n=3             sample 3 faults from a seeded RNG
         seed=7                       RNG seed for ``p=`` rules
 
-    and the kinds whose hooks belong to layers this package does not
-    have yet, parsed alike and never fired here: ``reader-death``,
-    ``worker-death``, ``reducer-death``, ``scan-error``,
-    ``spill-corrupt`` and ``merge-crash`` (the host backend), and the
-    serve daemon, segment, WAL and cluster kinds (``handler-crash``,
-    ``client-disconnect``, ``slow-client``, ``reload-corrupt``,
-    ``dispatcher-hang``, ``append-torn-manifest``, ``compact-crash``,
+    the host backend's kinds (``backend="cpu"``), fired by its reader
+    threads, scan workers, reducers and spill tier::
+
+        reader-death:window=1        silent reader-thread death
+        worker-death:worker=1:window=2  scan worker dies at window 2
+        reducer-death:reducer=0      reduce worker 0 dies before emit
+        scan-error:window=3          native scan failure on window 3
+        scan-error:window=3:silent=1 window silently dropped (corruption)
+        spill-corrupt / merge-crash  a spill run torn after its write /
+                                     a shard-merge worker dies
+
+    the serve daemon's kinds (``handler-crash``, ``client-disconnect``,
+    ``slow-client``, ``reload-corrupt``, ``dispatcher-hang``), and the
+    kinds whose hooks belong to layers this package does not have yet,
+    parsed alike and never fired here: the segment, WAL and cluster
+    kinds (``append-torn-manifest``, ``compact-crash``,
     ``tombstone-corrupt``, ``wal-torn-record``, ``fetch-partial``,
     ``lease-steal``, ``shard-dead``, ``shard-slow``,
     ``router-conn-reset``, ``shard-blackout``, ``overload-storm``).

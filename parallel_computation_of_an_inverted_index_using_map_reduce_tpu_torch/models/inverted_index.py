@@ -35,6 +35,19 @@ with backends:
                plans shard their pairs or bytes over logical shards and
                exchange them by owner; ``emit_ownership="letter"`` has
                each owner write its own letter files.
+    "cpu"    — the host backend, no card: the JAX package's
+               re-architecture of the reference's regime.  A reader
+               thread per scan worker fills reusable window arenas (io/)
+               while the GIL-releasing native scan (native.HostIndexStream)
+               works on the last one; K workers pull byte windows from a
+               lease-based steal queue (corpus/scheduler.StealQueue), a
+               native merge joins their vocabularies, and M reducer
+               threads emit letter ranges.  ``MRI_BUILD_SPILL_BYTES`` adds
+               the out-of-core tier (build/: term-hash-sharded spill runs,
+               a k-way shard merge); ``--artifact`` packs ``index.mri``
+               straight off the merge state.  Worker deaths requeue their
+               windows for a rescan, a dead reducer's letters are
+               re-emitted.
     "oracle" — pure-Python dict oracle (models/oracle.py)
 
 Output is byte-identical across backends and plans, to the JAX package,
@@ -52,6 +65,7 @@ phases with torch.profiler, ``trace_out`` writes a Chrome trace and
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 import os
 import time
@@ -84,6 +98,8 @@ from ..text.tokenizer import tokenize
 from ..utils import checkpoint, envknobs
 from ..utils.rounding import round_up as _round_up
 from .oracle import oracle_index
+
+log = logging.getLogger("mri_torch.model")
 
 
 class DeviceUnavailable(RuntimeError):
@@ -156,12 +172,13 @@ class InvertedIndexModel:
         # skipped)
         report = faults.begin_run()
         # Chrome trace export (--trace-out): written once, after the
-        # run; the device plans record no spans (the JAX device plans'
-        # sparse trace)
+        # run; the host backend records per-stage spans into it, the
+        # device plans none (the JAX device plans' sparse trace)
         trace = None
         if cfg.trace_out:
             trace = chrometrace.TraceEvents()
             trace.name_thread(chrometrace.MAIN, "main")
+        self._trace = trace
         timer = self._new_timer()
         out_dir = output_dir if output_dir is not None else cfg.output_dir
         if cfg.backend == "oracle":
@@ -169,6 +186,8 @@ class InvertedIndexModel:
                 stats = oracle_index(manifest, out_dir, report,
                                      artifact_path=self._artifact_path(out_dir))
             stats = {**stats, **timer.report()}
+        elif cfg.backend == "cpu":
+            stats = self._run_cpu(manifest, out_dir, timer, report)
         else:
             stats = self._run_device(manifest, out_dir, timer, report)
         if trace is not None:
@@ -1267,6 +1286,1032 @@ class InvertedIndexModel:
                                              timer=timer)
 
     # -- one-shot plan -------------------------------------------------
+
+    # -- the host backend (backend='cpu') ------------------------------------
+
+    def _run_cpu(self, manifest: Manifest, out_dir: str, timer: PhaseTimer,
+                 report: DegradationReport) -> dict:
+        """All-on-host engine, pipelined read → tokenize → emit.
+
+        The reference's regime — CPU only — re-architected: no spill
+        files, no locks, no token-scale sorts.  Default path: a reader
+        thread fills reusable window arenas (io.executor) while the
+        GIL-releasing incremental scan (native.HostIndexStream) chews
+        the previous window — zero join/marshal copies end to end.
+        K > 1 scan workers or M > 1 reducers take the parallel route
+        (:meth:`_run_cpu_parallel`), and so do ``MRI_BUILD_SPILL_BYTES``
+        and ``--artifact``; ``--io-prefetch 0`` takes the one-shot
+        fork-join call (its byte-balanced worker split needs the whole
+        corpus resident).  Falls back to the Python oracle when the
+        native library does not build (or ``use_native`` is off),
+        keeping the backend usable everywhere, and says so in
+        ``cpu_fallback``.
+        """
+        if not self.config.use_native or not native.available():
+            with timer.phase("oracle"):
+                stats = oracle_index(
+                    manifest, out_dir, report,
+                    artifact_path=self._artifact_path(out_dir))
+            timer.count("cpu_fallback", "oracle")
+            return {**stats, **timer.report()}
+        threads = self.config.resolved_host_threads()
+        timer.count("host_threads", threads)
+        if envknobs.get("MRI_BUILD_SPILL_BYTES") is not None:
+            # Out-of-core route: scan workers spill term-hash-sharded
+            # postings runs at the MRI_BUILD_SPILL_BYTES budget and the
+            # reduce becomes a per-shard streaming k-way merge over the
+            # run files.  Takes the parallel topology even at K = M = 1
+            # so every (K, M, shards, budget) point shares one path —
+            # and stays byte-identical to the in-memory merge.
+            return self._run_cpu_parallel(manifest, out_dir, timer, report, threads)
+        if self.config.artifact:
+            # The serving artifact packs straight off the merge state's
+            # columnar export (no letter-file round-trip), so --artifact
+            # routes through the parallel reduce even at K = M = 1 —
+            # byte-identical letter files at every (K, M) regardless.
+            return self._run_cpu_parallel(manifest, out_dir, timer, report, threads)
+        if self.config.io_prefetch > 0:
+            # resolved_host_threads drives the pipelined path too (it
+            # used to fall off to the one-shot call for any K > 1,
+            # reporting host_threads=1 work): K scan workers + M letter
+            # reducers when either knob asks for parallelism.
+            if threads > 1 or self.config.num_reducers > 1:
+                return self._run_cpu_parallel(manifest, out_dir, timer,
+                                              report, threads)
+            return self._run_cpu_pipelined(manifest, out_dir, timer, report)
+        with timer.phase("load"):
+            contents, doc_ids = load_documents(manifest, report)
+        with timer.phase("index_emit"):
+            stats = native.host_index_native(
+                contents, doc_ids, out_dir, num_threads=threads)
+        for key, value in stats.items():
+            timer.count(key, value)
+        return timer.report()
+
+    # ~2 MB windows: several windows even for small corpora (so the
+    # read-ahead has something to hide behind) while staying resident in
+    # L2/L3 for the scan that immediately follows the fill.
+    _CPU_WINDOW_BYTES = 2 << 20
+
+    # Spill-budget cost model (MRI_BUILD_SPILL_BYTES): estimated native
+    # scan-state footprint is pairs * 16 + vocab * 56 — a (term, doc)
+    # pair holds a packed 8-byte id plus tf and flatten scratch; a
+    # local term holds its arena bytes, offset/length entries, combiner
+    # row, and hash slot.  An estimate, not an accounting: the budget
+    # bounds worker postings memory to within a small constant factor.
+    _SPILL_PAIR_BYTES = 16
+    _SPILL_TERM_BYTES = 56
+
+    def _cpu_window_bytes(self) -> int:
+        # MRI_CPU_WINDOW_BYTES forces tiny windows from a subprocess —
+        # the SIGKILL-at-window-boundary e2e tests need a multi-window
+        # plan on a corpus small enough to kill deterministically.
+        override = envknobs.get("MRI_CPU_WINDOW_BYTES")
+        return override if override is not None else self._CPU_WINDOW_BYTES
+
+    def _run_cpu_pipelined(self, manifest: Manifest, out_dir: str,
+                           timer: PhaseTimer, report: DegradationReport) -> dict:
+        """Arena-fed incremental host index (the io subsystem path).
+
+        Stage attribution lands in the ``stage_*_ms`` counters: read is
+        the reader thread's busy time, tokenize the native scan +
+        postings finalize, emit the letter-file render + write — the
+        split the JAX bench reports as ``host_stage_split``.
+        """
+        from ..io.executor import PipelinedWindowReader
+        from ..io.reader import plan_byte_windows
+
+        window_bytes = self._cpu_window_bytes()
+        windows = plan_byte_windows(manifest, window_bytes)
+        max_docs = max((hi - lo for lo, hi in windows), default=1)
+        # The arena ring is reused across run() calls (steady-state: no
+        # page faults from fresh buffers); construct the reader FIRST —
+        # its thread starts filling window 0 while HostIndexStream
+        # allocates its vocab table below.
+        arenas = getattr(self, "_cpu_arenas", None)
+        if arenas is not None and len(arenas) != self.config.io_prefetch + 1:
+            arenas = None
+        trace = getattr(self, "_trace", None)
+        if trace is not None:
+            trace.name_thread(chrometrace.READER_BASE, "reader-0")
+            trace.name_thread(chrometrace.SCAN_BASE, "scan-worker-0")
+        reader = PipelinedWindowReader(
+            manifest, windows, depth=self.config.io_prefetch,
+            byte_capacity=window_bytes + (window_bytes >> 2),
+            doc_capacity=max_docs, arenas=arenas, report=report, trace=trace)
+        self._cpu_arenas = reader.arenas
+        stream = native.HostIndexStream()
+        try:
+            with reader, timer.phase("ingest_scan"):
+                for arena in reader:
+                    buf, ends, ids = arena.feed_views()
+                    t0 = time.perf_counter()
+                    stream.feed_arrays(buf, ends, ids)
+                    if trace is not None:
+                        trace.span("scan", t0, time.perf_counter(),
+                                   tid=chrometrace.SCAN_BASE,
+                                   args={"window": arena.window_index})
+                    reader.recycle(arena)
+            with timer.phase("finalize_emit"):
+                t0 = time.perf_counter()
+                stats = stream.finalize_emit(out_dir)
+                if trace is not None:
+                    trace.span("finalize_emit", t0, time.perf_counter())
+        finally:
+            stream.close()
+            reader.close()
+        for key, value in stats.items():
+            timer.count(key, value)
+        timer.count("io_windows", len(windows))
+        timer.count("io_prefetch", self.config.io_prefetch)
+        timer.count("stage_read_ms", round(reader.read_busy_s * 1e3, 3))
+        timer.count("stage_tokenize_ms",
+                    round(stats["scan_ms"] + stats["finalize_ms"], 3))
+        timer.count("stage_emit_ms", round(stats["emit_ms"], 3))
+        timer.count("read_wait_ms", round(reader.read_wait_s * 1e3, 3))
+        timer.count("consume_wait_ms", round(reader.consume_wait_s * 1e3, 3))
+        return timer.report()
+
+    def _run_cpu_parallel(self, manifest: Manifest, out_dir: str,
+                          timer: PhaseTimer, report: DegradationReport,
+                          num_workers: int) -> dict:
+        """K-worker map + M-reducer reduce on the pipelined host path.
+
+        The reference's fork-join topology (N mapper threads scanning
+        file shards, M reducer threads owning letter ranges,
+        main.c:85-242) rebuilt on the zero-copy pipeline: every scan
+        worker owns its own arena ring + reader thread + incremental
+        native handle and pulls byte windows from one shared
+        :class:`StealQueue`, so a slow stripe never idles the rest.
+        ctypes releases the GIL for the native scan, partial-flatten,
+        and emit calls — the Python threads are genuinely concurrent in
+        C++.  Reduce is letter-partitioned: ``plan_letter_ranges``
+        (``num_reducers``) splits the merged emit order and each
+        reducer renders its range through the shared vectorized emit.
+        Output is byte-identical to the single-worker path at every
+        (K, M) — scheduling can reorder work, never bytes.
+
+        Fault tolerance (the MapReduce re-execution move): windows are
+        LEASED, not given away — a worker death (escaping exception,
+        :class:`~..io.executor.ReaderDied`, or the optional
+        ``MRI_WINDOW_DEADLINE_S`` lease watchdog) requeues everything
+        attributed to it, completed windows included (its native handle
+        dies with it), and survivors rescan; when the queue is left
+        non-empty after the join, up to ``MRI_WORKER_RESPAWNS``
+        (default 1) replacement workers drain it.  Only with the budget
+        exhausted do the remaining windows' documents become recorded
+        skips (degraded exit 3).  A dead reducer's letter range is
+        re-emitted off the read-only merge state by the main thread
+        (emit is atomic tmp+rename per file, so re-emit is idempotent).
+        Recovered runs stay byte-identical: merge order is restored
+        from global plan indices, never arrival order.
+        """
+        import threading
+
+        from .. import audit as audit_mod
+        from ..corpus.scheduler import StealQueue, plan_letter_ranges
+        from ..io.executor import PipelinedWindowReader
+        from ..io.reader import plan_byte_windows
+
+        cfg = self.config
+        spill_budget = envknobs.get("MRI_BUILD_SPILL_BYTES")
+        spill_mode = spill_budget is not None
+        num_shards = envknobs.get("MRI_BUILD_SHARDS")
+        sdir = None
+        if spill_mode:
+            from ..build import spill as spill_mod
+            from ..obs import metrics as obs_metrics
+
+            # the crash hook is read inside the scan workers, where a bad
+            # value would be a worker death; validate it here (exit 2)
+            envknobs.get("MRI_SPILL_KILL_AFTER")
+            # a SIGKILLed spill build leaves only a stale .spill-<pid>
+            # dir behind; sweep those before arming our own
+            spill_mod.clean_stale_dirs(out_dir)
+            sdir = spill_mod.spill_dir(out_dir)
+            os.makedirs(sdir, exist_ok=True)
+            reg = obs_metrics.default_registry()
+            ctr_spill_flushes = reg.counter(
+                "mri_build_spill_flushes_total",
+                help="Spill-run flushes across all scan workers")
+            ctr_spill_bytes = reg.counter(
+                "mri_build_spill_bytes_total",
+                help="Bytes written to spill run files")
+        elif cfg.num_reducers > 26:
+            # letter-partitioned reduce: the reference's degenerate
+            # R > 26 arithmetic leaves reducers beyond the alphabet
+            # with empty ranges (documented conformance contract) —
+            # say so instead of clamping silently
+            log.warning(
+                "num_reducers=%d exceeds the 26 letter partitions; "
+                "reducers past the alphabet get empty ranges (set "
+                "MRI_BUILD_SPILL_BYTES to partition by term-hash "
+                "shard, where every reducer gets real work)",
+                cfg.num_reducers)
+        window_bytes = self._cpu_window_bytes()
+        if spill_mode:
+            # the budget check runs at window boundaries, so a window
+            # must be a small fraction of the budget or one window's
+            # intake overshoots it before the first check; floor at
+            # 4 KiB so toy budgets don't degenerate to per-doc windows
+            window_bytes = min(window_bytes,
+                               max(spill_budget >> 4, 1 << 12))
+        windows = plan_byte_windows(manifest, window_bytes)
+        max_docs = max((hi - lo for lo, hi in windows), default=1)
+        K = max(1, num_workers)
+        # --artifact reaches here even with --io-prefetch 0 (the merge
+        # state is the artifact's source); the reader needs depth >= 1
+        depth = max(1, cfg.io_prefetch)
+        queue = StealQueue(
+            windows,
+            shuffle_seed=envknobs.get("MRI_STEAL_SHUFFLE_SEED"))
+        window_deadline_s = envknobs.get("MRI_WINDOW_DEADLINE_S")
+        respawns_left = max(0, envknobs.get("MRI_WORKER_RESPAWNS"))
+
+        # Per-worker arena rings, recycled across run() calls like the
+        # single-worker path's ring (invalidated when K or depth moves,
+        # or after any recovery — a failed run's arenas may still be
+        # referenced by a leaked thread).
+        rings = getattr(self, "_cpu_arena_rings", None)
+        if rings is not None and (
+                len(rings) != K
+                or any(len(r) != depth + 1 for r in rings)):
+            rings = None
+        if rings is None:
+            rings = [None] * K
+
+        # Private DegradationReport per worker (reader threads record
+        # without cross-worker lock contention), merged at the join so
+        # a degraded run still reports every skipped doc id.
+        run_report = report
+        policy = faults.default_policy()
+        ledger = audit_mod.WindowLedger() if cfg.audit else None
+        audit_s = 0.0  # in-path invariant-check time (--audit)
+        inj = faults.active()
+
+        # Workers live in growable slots (respawns append), not fixed
+        # arrays: each slot owns one reader + one native stream, and a
+        # ``failed`` slot's stream is excluded from the merge.
+        slots: list[dict] = []
+        fail_lock = threading.Lock()
+        trace = getattr(self, "_trace", None)
+
+        def make_slot(w: int, arenas=None) -> dict:
+            rep = faults.DegradationReport()
+            slot = {
+                "id": w, "report": rep, "partial": None,
+                "fatal": None, "failed": False, "leaked": False,
+                "thread": None,
+                "stream": native.HostIndexStream(),
+                # spill-mode state: completed run files, window ranges
+                # fed since the last flush, and the footprint watermark
+                "runs": [], "run_windows": [], "docs": 0,
+                "scan_ms_acc": 0.0, "partial_ms_acc": 0.0, "peak_est": 0,
+            }
+            if trace is not None:
+                trace.name_thread(chrometrace.READER_BASE + w,
+                                  f"reader-{w}")
+                trace.name_thread(chrometrace.SCAN_BASE + w,
+                                  f"scan-worker-{w}")
+            # reader last: its thread starts pulling windows immediately
+            slot["reader"] = PipelinedWindowReader(
+                manifest, queue, depth=depth,
+                byte_capacity=window_bytes + (window_bytes >> 2),
+                doc_capacity=max_docs, arenas=arenas,
+                policy=policy, report=rep, worker=w, trace=trace)
+            slots.append(slot)
+            return slot
+
+        def fail_slot(slot: dict, reason: str) -> None:
+            """Idempotent worker-death transition: blacklist the worker,
+            requeue every window attributed to it (its native handle —
+            the only place those windows' postings live — is discarded
+            with it), and count the recovery."""
+            with fail_lock:
+                if slot["failed"]:
+                    return
+                slot["failed"] = True
+                requeued = queue.fail_worker(slot["id"])
+                if ledger is not None:
+                    ledger.discard_worker(slot["id"])
+                run_report.record_worker_recovery(
+                    windows_requeued=len(requeued))
+                # spill mode: the dead worker's run files cover the
+                # same windows fail_worker just requeued — delete them
+                # so the rescan (by a survivor with its own runs) can't
+                # double-merge those documents
+                stale_runs = [run["path"] for run in slot["runs"]]
+                slot["runs"] = []
+                slot["run_windows"] = []
+            for path in stale_runs:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+            log.warning(
+                "scan worker %d died (%s); requeued %d window(s) %s for "
+                "rescan", slot["id"], reason, len(requeued), requeued)
+
+        def flush_run(slot: dict, final: bool = False):
+            """Spill the worker's scan state as one checksummed run
+            file; unless ``final``, hand back a fresh native stream
+            (the memory release that bounds the worker's footprint)."""
+            stream, w = slot["stream"], slot["id"]
+            t0 = time.perf_counter()
+            p = stream.partial()
+            slot["scan_ms_acc"] += p["scan_ms"]
+            slot["partial_ms_acc"] += p["partial_ms"]
+            pack = stream.runpack(num_shards)
+            path, nbytes = spill_mod.write_run(
+                sdir, w, len(slot["runs"]), pack, slot["run_windows"])
+            t1 = time.perf_counter()
+            slot["runs"].append({
+                "path": path, "windows": list(slot["run_windows"]),
+                "pairs": pack["pairs"], "vocab": pack["vocab"],
+                "width": pack["width"], "docs": len(pack["doc_ids"]),
+                "max_doc_id": pack["max_doc_id"],
+                "raw_tokens": pack["raw_tokens"], "bytes": nbytes,
+            })
+            slot["run_windows"] = []
+            ctr_spill_flushes.inc()
+            ctr_spill_bytes.inc(nbytes)
+            if trace is not None:
+                trace.span("spill_flush", t0, t1,
+                           tid=chrometrace.SCAN_BASE + w,
+                           args={"run": len(slot["runs"]) - 1,
+                                 "pairs": pack["pairs"],
+                                 "bytes": int(nbytes)})
+            if not final:
+                stream.close()
+                slot["stream"] = native.HostIndexStream()
+            return slot["stream"]
+
+        def scan_worker(slot: dict) -> None:
+            w, reader, stream = slot["id"], slot["reader"], slot["stream"]
+            try:
+                for arena in reader:
+                    wi = arena.window_index
+                    dropped = False
+                    if inj is not None:
+                        inj.on_worker_window(w, wi)
+                        dropped = inj.on_scan_window(wi)
+                    if not dropped:
+                        t0s = time.perf_counter()
+                        buf, ends, ids = arena.feed_views()
+                        stream.feed_arrays(buf, ends, ids)
+                        if trace is not None:
+                            trace.span("scan", t0s, time.perf_counter(),
+                                       tid=chrometrace.SCAN_BASE + w,
+                                       args={"window": wi})
+                        if ledger is not None:
+                            ledger.record(
+                                wi, worker=w, docs=int(arena.num_docs),
+                                nbytes=int(arena.used_bytes),
+                                checksum=audit_mod.window_checksum(
+                                    buf, ends, ids))
+                        if spill_mode:
+                            # wi is the 1-based global plan index
+                            lo_d, hi_d = windows[wi - 1]
+                            slot["run_windows"].append((wi, lo_d, hi_d))
+                            slot["docs"] += int(arena.num_docs)
+                    queue.ack(wi, worker=w)
+                    reader.recycle(arena)
+                    if spill_mode and slot["run_windows"]:
+                        # documented cost model for the native scan
+                        # state: ~16 B per deduped (term, doc) pair
+                        # (packed id + tf) and ~56 B per local term
+                        # (arena bytes + offset/len + combiner row +
+                        # hash slot) — the budget trip point
+                        info = stream.info()
+                        est = (info["pairs"] * self._SPILL_PAIR_BYTES
+                               + info["vocab"] * self._SPILL_TERM_BYTES)
+                        if est > slot["peak_est"]:
+                            slot["peak_est"] = est
+                        # trip at half budget: the NEXT window's intake
+                        # lands on top of the current estimate before
+                        # the next boundary check, so the headroom is
+                        # what keeps the true peak under the budget
+                        if est >= spill_budget // 2:
+                            stream = flush_run(slot)
+                if spill_mode and slot["runs"]:
+                    # this worker tripped the budget mid-scan, so its
+                    # tail postings must spill too (the reduce k-way
+                    # merges this worker entirely from disk)
+                    if slot["run_windows"]:
+                        flush_run(slot, final=True)
+                    slot["partial"] = {
+                        "scan_ms": slot["scan_ms_acc"],
+                        "partial_ms": slot["partial_ms_acc"],
+                    }
+                else:
+                    # flatten this worker's postings runs here, inside
+                    # the map phase's parallelism, not at the serial
+                    # join.  A spill-armed worker that never tripped
+                    # the budget lands here too: its state stays in
+                    # memory until the join decides whether ANY worker
+                    # spilled (the zero-spill fast path).
+                    slot["partial"] = stream.partial()
+            except (KeyboardInterrupt, SystemExit) as e:
+                # not a worker fault: requeue for bookkeeping but carry
+                # the exception out of the scan phase
+                slot["fatal"] = e
+                fail_slot(slot, type(e).__name__)
+            except BaseException as e:  # noqa: BLE001 — recovery path
+                fail_slot(slot, f"{type(e).__name__}: {e}")
+                reader.close()  # unstick + retire this slot's reader
+
+        merge = None
+        empty_stream = None
+        try:
+            with timer.phase("ingest_scan"):
+                for w in range(K):
+                    make_slot(w, arenas=rings[w])
+                for slot in slots[1:]:
+                    t = threading.Thread(
+                        target=scan_worker, args=(slot,),
+                        name=f"scan-worker-{slot['id']}", daemon=True)
+                    slot["thread"] = t
+                    t.start()
+                scan_worker(slots[0])  # the caller's thread is worker 0
+                # Join survivors; under MRI_WINDOW_DEADLINE_S a worker
+                # holding any lease past the deadline is retired in
+                # absentia (windows requeued) and its thread abandoned
+                # — "leaked": its native stream is never closed, since
+                # the wedged thread may still be inside a native call
+                # (a leak beats a use-after-free).
+                while True:
+                    waiting = [s for s in slots[1:]
+                               if s["thread"] is not None
+                               and s["thread"].is_alive()
+                               and not s["leaked"]]
+                    if not waiting:
+                        break
+                    for s in waiting:
+                        s["thread"].join(
+                            0.2 if window_deadline_s is not None else 60.0)
+                    if window_deadline_s is None:
+                        continue
+                    expired = queue.expired_workers(window_deadline_s)
+                    for s in slots:
+                        if s["id"] in expired and not s["failed"]:
+                            s["leaked"] = True
+                            fail_slot(s, "window lease deadline "
+                                         f"({window_deadline_s}s) expired")
+                # Requeued windows left after every worker exited (a
+                # death can land after survivors already drained out):
+                # respawn replacement workers, fresh ring + fresh native
+                # handle, on this thread, until the queue is dry or the
+                # budget is spent.  A replacement can die too — the loop
+                # handles it like any other worker death.
+                next_id = K
+                while len(queue) > 0 and respawns_left > 0:
+                    respawns_left -= 1
+                    log.warning(
+                        "respawning scan worker %d to rescan %d "
+                        "requeued window(s)", next_id, len(queue))
+                    scan_worker(make_slot(next_id))
+                    next_id += 1
+                lost_windows: list[int] = []
+                if len(queue) > 0:
+                    # Budget exhausted with windows unscanned: the
+                    # honest degraded arm — record exactly which
+                    # documents were lost, then finish with what we
+                    # have (exit 3, never silence).
+                    while True:
+                        item = queue.pop_window()
+                        if item is None:
+                            break
+                        wi, (lo, hi) = item
+                        lost_windows.append(wi)
+                        for i in range(lo, hi):
+                            run_report.record_skip(
+                                doc_id=manifest.doc_id(i),
+                                path=manifest.paths[i],
+                                reason=f"window {wi} lost to worker "
+                                       "death (respawn budget "
+                                       "exhausted)")
+                    log.error(
+                        "worker respawn budget exhausted; %d window(s) "
+                        "%s lost", len(lost_windows), lost_windows)
+            for slot in slots:
+                run_report.merge(slot["report"])
+            for slot in slots:
+                if slot["fatal"] is not None:
+                    raise slot["fatal"]
+            if spill_mode:
+                if not any(s["runs"] for s in slots if not s["failed"]):
+                    # zero-spill fast path: no worker ever tripped the
+                    # budget, so nothing left memory — reduce through
+                    # the in-memory native merge exactly like the
+                    # unset-knob build (within noise of its wall clock)
+                    timer.count("spill", {
+                        "budget_bytes": int(spill_budget),
+                        "runs": 0, "runs_quarantined": 0, "flushes": 0,
+                        "bytes_spilled": 0,
+                        "peak_worker_est_bytes": max(
+                            (s["peak_est"] for s in slots), default=0),
+                    })
+                    spill_mod.remove_dir(sdir)
+                    spill_mode = False
+                else:
+                    # mixed case: flush the workers that never tripped
+                    # the budget (their partial() already ran in the
+                    # map phase, so runpack here is pure copy-out)
+                    for slot in slots:
+                        if not slot["failed"] and slot["run_windows"]:
+                            flush_run(slot, final=True)
+            live = []
+            if not spill_mode:
+                live = [s["stream"] for s in slots if not s["failed"]]
+                if not live:
+                    # every worker died: merge one empty stream so the
+                    # reduce still writes the 26 (empty) letter files
+                    # and the degraded report carries the whole story
+                    empty_stream = native.HostIndexStream()
+                    live = [empty_stream]
+            if ledger is not None:
+                t0 = time.perf_counter()
+                ledger.check_complete(len(windows),
+                                      missing_ok=lost_windows)
+                audit_s += time.perf_counter() - t0
+            if spill_mode:
+                with timer.phase("finalize_emit"):
+                    red = self._spill_reduce(
+                        manifest, out_dir, timer, slots, run_report,
+                        inj, trace, sdir, num_shards)
+                mstats = red["mstats"]
+                emit_ms = red["emit_ms"]
+                emit_bytes = red["emit_bytes"]
+                audit_s += red["audit_s"]
+                timer.count("build_shards", red["build_shards"])
+                timer.count("spill", {
+                    "budget_bytes": int(spill_budget),
+                    "runs": red["runs_merged"],
+                    "runs_quarantined": red["runs_quarantined"],
+                    "flushes": sum(len(s["runs"]) for s in slots),
+                    "bytes_spilled": red["bytes_spilled"],
+                    "peak_worker_est_bytes": max(
+                        (s["peak_est"] for s in slots), default=0),
+                })
+            else:
+                with timer.phase("finalize_emit"):
+                    t0m = time.perf_counter()
+                    merge = native.HostIndexMerge(live)
+                    if trace is not None:
+                        trace.span("merge", t0m, time.perf_counter())
+                    if cfg.audit:
+                        t0 = time.perf_counter()
+                        audit_mod.check_merge(merge, live)
+                        audit_s += time.perf_counter() - t0
+                    ranges = plan_letter_ranges(cfg.num_reducers)
+                    emit_ms = [0.0] * len(ranges)
+                    emit_bytes = [0] * len(ranges)
+                    emit_errors: list[BaseException | None] = [None] * len(ranges)
+
+                    def reduce_worker(r: int, lo: int, hi: int) -> None:
+                        t0 = time.perf_counter()
+                        try:
+                            if inj is not None:
+                                inj.on_reducer(r)
+                            emit_bytes[r] = merge.emit_range(lo, hi, out_dir)
+                        except BaseException as e:  # noqa: BLE001
+                            emit_errors[r] = e
+                        t1 = time.perf_counter()
+                        emit_ms[r] = (t1 - t0) * 1e3
+                        if trace is not None:
+                            trace.name_thread(chrometrace.REDUCE_BASE + r,
+                                              f"reduce-worker-{r}")
+                            trace.span("emit_range", t0, t1,
+                                       tid=chrometrace.REDUCE_BASE + r,
+                                       args={"letters": [lo, hi]})
+
+                    reducers = [
+                        threading.Thread(target=reduce_worker, args=(r, lo, hi),
+                                         name=f"reduce-worker-{r}")
+                        for r, (lo, hi) in list(enumerate(ranges))[1:]
+                    ]
+                    for t in reducers:
+                        t.start()
+                    reduce_worker(0, *ranges[0])
+                    for t in reducers:
+                        t.join()
+                    # Reducer takeover: emit_range is read-only on the
+                    # merge state and atomic per letter file, so a dead
+                    # reducer's range is simply re-emitted here.  A second
+                    # failure on the SAME range is a real I/O problem and
+                    # raises (exit 2).
+                    for r, err in enumerate(emit_errors):
+                        if err is None:
+                            continue
+                        lo, hi = ranges[r]
+                        log.warning(
+                            "reduce worker %d died (%s: %s); re-emitting "
+                            "letters [%d, %d) on the main thread",
+                            r, type(err).__name__, err, lo, hi)
+                        t0 = time.perf_counter()
+                        emit_bytes[r] = merge.emit_range(lo, hi, out_dir)
+                        emit_ms[r] += (time.perf_counter() - t0) * 1e3
+                        run_report.record_reducer_takeover()
+                        emit_errors[r] = None
+                    mstats = merge.stats()
+                    if cfg.artifact:
+                        from ..serve import artifact as artifact_mod
+
+                        t0 = time.perf_counter()
+                        art_bytes = artifact_mod.build_from_merge(
+                            artifact_mod.artifact_path(out_dir), merge)
+                        t1 = time.perf_counter()
+                        if trace is not None:
+                            trace.span("artifact_pack", t0, t1)
+                        timer.count("artifact_bytes", int(art_bytes))
+                        timer.count(
+                            "artifact_build_ms",
+                            round((t1 - t0) * 1e3, 3))
+        finally:
+            recovered = any(s["failed"] for s in slots)
+            for slot in slots:
+                slot["reader"].close()
+            if merge is not None:
+                merge.close()
+            for slot in slots:
+                if not slot["leaked"]:
+                    slot["stream"].close()
+            if empty_stream is not None:
+                empty_stream.close()
+            # cache the rings only for a clean same-shape run
+            if recovered or len(slots) != K:
+                self._cpu_arena_rings = None
+            else:
+                self._cpu_arena_rings = [s["reader"].arenas for s in slots]
+
+        for key, value in mstats.items():
+            if key != "merge_ms":
+                timer.count(key, value)
+        timer.count("bytes_written", int(sum(emit_bytes)))
+        timer.count("reduce_workers", len(emit_ms))
+        timer.count("io_windows", len(windows))
+        timer.count("io_prefetch", cfg.io_prefetch)
+        if cfg.audit:
+            timer.count("audit_ms", round(audit_s * 1e3, 3))
+        read_ms = [round(s["reader"].read_busy_s * 1e3, 3) for s in slots]
+        tok_ms = [round(s["partial"]["scan_ms"]
+                        + s["partial"]["partial_ms"], 3)
+                  for s in slots
+                  if s["partial"] is not None and not s["failed"]]
+        timer.count("stage_read_ms", round(sum(read_ms), 3))
+        timer.count("stage_tokenize_ms",
+                    round(sum(tok_ms) + mstats["merge_ms"], 3))
+        timer.count("stage_emit_ms", round(sum(emit_ms), 3))
+        timer.count("stage_read_ms_per_worker", read_ms)
+        timer.count("stage_tokenize_ms_per_worker", tok_ms)
+        timer.count("stage_emit_ms_per_reducer",
+                    [round(ms, 3) for ms in emit_ms])
+        timer.count("merge_ms", round(mstats["merge_ms"], 3))
+        timer.count("read_wait_ms",
+                    round(sum(s["reader"].read_wait_s
+                              for s in slots) * 1e3, 3))
+        timer.count("consume_wait_ms",
+                    round(sum(s["reader"].consume_wait_s
+                              for s in slots) * 1e3, 3))
+        return timer.report()
+
+    def _spill_reduce(self, manifest, out_dir, timer, slots, run_report,
+                      inj, trace, sdir, num_shards) -> dict:
+        """Disk-tier reduce for the out-of-core build.
+
+        Input: the scan phase's checksummed run files (term-hash-sharded
+        sorted postings runs, one or more per surviving worker).  Three
+        phases, all bounded by O(corpus / shards) memory:
+
+        1. **verify** — full checksum walk over every run; a torn or
+           bit-flipped run is quarantined and its windows' documents
+           become recorded skips (degraded exit 3 — same contract as a
+           spent respawn budget, never silent corruption).
+        2. **shard merge** — M reduce workers own shards round-robin
+           (``shard % M``) and k-way-merge every run's slice of each
+           shard into one lex-sorted shard file.  No 26-partition cap:
+           every reducer gets real work at any M.
+        3. **letter emit** — letters are likewise owned round-robin;
+           each is assembled from the shard files' letter slices and
+           rendered through the same native emit as the in-memory path,
+           so the letter files are byte-identical at every (mappers,
+           reducers, shards, budget) point.
+
+        Worker deaths in 2 and 3 degrade to main-thread takeover
+        (shard/letter writes are atomic and idempotent), mirroring the
+        in-memory reducer-takeover contract.
+        """
+        import threading
+
+        from .. import audit as audit_mod
+        from ..build import ooc
+        from ..build import spill as spill_mod
+        from ..corpus import scheduler
+        from ..obs import metrics as obs_metrics
+
+        cfg = self.config
+        M = max(1, cfg.num_reducers)
+        reg = obs_metrics.default_registry()
+        ctr_quarantined = reg.counter(
+            "mri_build_spill_runs_quarantined_total",
+            help="Spill runs that failed their checksum walk")
+        ctr_merge_shards = reg.counter(
+            "mri_build_merge_shards_total",
+            help="Term-hash shards merged from spill runs")
+        ctr_merge_runs = reg.counter(
+            "mri_build_merge_runs_total",
+            help="Spill runs consumed by shard merges")
+        ctr_merge_pairs = reg.counter(
+            "mri_build_merge_pairs_total",
+            help="(term, doc) pairs produced by shard merges")
+        ctr_merge_takeovers = reg.counter(
+            "mri_build_merge_takeovers_total",
+            help="Reduce workers whose shards/letters were re-done on "
+                 "the main thread")
+
+        # -- 1. verify every run up front; quarantine + skip on damage
+        all_runs = [run for slot in slots if not slot["failed"]
+                    for run in slot["runs"]]
+        good_runs = []
+        quarantined = 0
+        for run in all_runs:
+            try:
+                spill_mod.verify_file(run["path"])
+            except (spill_mod.SpillError, OSError) as e:
+                quarantined += 1
+                ctr_quarantined.inc()
+                try:
+                    spill_mod.quarantine(run["path"])
+                except OSError:
+                    pass
+                log.error("spill run %s failed verification (%s); its "
+                          "windows' documents are skipped",
+                          os.path.basename(str(run["path"])), e)
+                for wi, lo, hi in run["windows"]:
+                    for i in range(lo, hi):
+                        run_report.record_skip(
+                            doc_id=manifest.doc_id(i),
+                            path=manifest.paths[i],
+                            reason=f"window {wi} lost to corrupt spill "
+                                   f"run {os.path.basename(str(run['path']))}"
+                                   f" ({e})")
+            else:
+                good_runs.append(run)
+        run_paths = [run["path"] for run in good_runs]
+        width_g = max([run["width"] for run in good_runs] + [1])
+        max_doc_id = max((run["max_doc_id"] for run in good_runs),
+                         default=0)
+        audit_s = 0.0
+
+        # -- 2. per-shard k-way merge, shards owned round-robin by M
+        # workers; each worker opens its own SpillFile handles (the
+        # readers seek, so a shared handle would race)
+        shard_pairs = [0] * num_shards
+        shard_vocab = [0] * num_shards
+        shard_done = [False] * num_shards
+        merge_errors: list[BaseException | None] = [None] * M
+        merge_ms = [0.0] * M
+
+        def merge_worker(r: int) -> None:
+            readers = []
+            t_w0 = time.perf_counter()
+            try:
+                if trace is not None:
+                    trace.name_thread(chrometrace.REDUCE_BASE + r,
+                                      f"reduce-worker-{r}")
+                readers = [spill_mod.SpillFile(p) for p in run_paths]
+                for s in range(r, num_shards, M):
+                    t0 = time.perf_counter()
+                    if inj is not None:
+                        inj.on_shard_merge(s)
+                    merged = ooc.merge_shard(readers, s, width_g)
+                    spill_mod.write_shard(sdir, s, merged)
+                    shard_pairs[s] = int(merged["postings"].shape[0])
+                    shard_vocab[s] = int(merged["df"].shape[0])
+                    shard_done[s] = True
+                    if trace is not None:
+                        trace.span("shard_merge", t0, time.perf_counter(),
+                                   tid=chrometrace.REDUCE_BASE + r,
+                                   args={"shard": s,
+                                         "postings": shard_pairs[s]})
+            except BaseException as e:  # noqa: BLE001 — recovery path
+                merge_errors[r] = e
+            finally:
+                for f in readers:
+                    f.close()
+            merge_ms[r] += (time.perf_counter() - t_w0) * 1e3
+
+        t_merge0 = time.perf_counter()
+        threads = [threading.Thread(target=merge_worker, args=(r,),
+                                    name=f"reduce-worker-{r}")
+                   for r in range(1, M)]
+        for t in threads:
+            t.start()
+        merge_worker(0)
+        for t in threads:
+            t.join()
+        # Takeover: shard files are atomic and the merge inputs are
+        # read-only run files, so a dead worker's shards are simply
+        # re-merged here (injection hooks deliberately not re-fired —
+        # same rule as the in-memory reducer takeover).
+        for r, err in enumerate(merge_errors):
+            if err is None:
+                continue
+            todo = [s for s in range(r, num_shards, M)
+                    if not shard_done[s]]
+            log.warning(
+                "shard-merge worker %d died (%s: %s); re-merging "
+                "shard(s) %s on the main thread",
+                r, type(err).__name__, err, todo)
+            t0 = time.perf_counter()
+            readers = [spill_mod.SpillFile(p) for p in run_paths]
+            try:
+                for s in todo:
+                    merged = ooc.merge_shard(readers, s, width_g)
+                    spill_mod.write_shard(sdir, s, merged)
+                    shard_pairs[s] = int(merged["postings"].shape[0])
+                    shard_vocab[s] = int(merged["df"].shape[0])
+                    shard_done[s] = True
+            finally:
+                for f in readers:
+                    f.close()
+            merge_ms[r] += (time.perf_counter() - t0) * 1e3
+            run_report.record_reducer_takeover()
+            ctr_merge_takeovers.inc()
+            merge_errors[r] = None
+        merge_wall_ms = (time.perf_counter() - t_merge0) * 1e3
+        ctr_merge_shards.inc(num_shards)
+        ctr_merge_runs.inc(len(good_runs))
+        ctr_merge_pairs.inc(sum(shard_pairs))
+
+        if cfg.audit:
+            t0 = time.perf_counter()
+            audit_mod.check_spill(
+                sum(run["pairs"] for run in good_runs),
+                sum(shard_pairs),
+                sum(run["vocab"] for run in good_runs),
+                sum(shard_vocab))
+            audit_s += time.perf_counter() - t0
+
+        # -- 3. letter emit off the merged shard files, letters owned
+        # round-robin; native emit keeps the bytes identical to the
+        # in-memory path (empty letters still write their files)
+        shard_paths = [spill_mod.shard_path(sdir, s)
+                       for s in range(num_shards)]
+        emit_ms = [0.0] * M
+        emit_bytes = [0] * M
+        emit_errors: list[BaseException | None] = [None] * M
+        letter_done = [False] * ooc.ALPHABET_SIZE
+
+        def emit_letter(files, letter: int) -> int:
+            parts = [p for p in (ooc.letter_slice(f, letter, width_g)
+                                 for f in files) if p is not None]
+            if not parts:
+                return native.emit_native(
+                    out_dir, np.zeros(0, dtype="S1"),
+                    np.zeros(0, dtype=np.int64),
+                    np.zeros(0, dtype=np.int64),
+                    np.zeros(1, dtype=np.int64),
+                    np.zeros(0, dtype=np.int32),
+                    letter_range=(letter, letter + 1), idx_bounds=(0, 0))
+            cat = ooc.concat_letter(parts)
+            order = ooc.emit_order(cat["df"])
+            return native.emit_native(
+                out_dir, cat["terms"], order, cat["df"], cat["offsets"],
+                cat["postings"], letter_range=(letter, letter + 1),
+                idx_bounds=(0, int(order.shape[0])))
+
+        def emit_worker(r: int) -> None:
+            files = []
+            t_w0 = time.perf_counter()
+            try:
+                if inj is not None:
+                    inj.on_reducer(r)
+                files = [spill_mod.SpillFile(p) for p in shard_paths]
+                for letter in range(r, ooc.ALPHABET_SIZE, M):
+                    t0 = time.perf_counter()
+                    emit_bytes[r] += emit_letter(files, letter)
+                    letter_done[letter] = True
+                    if trace is not None:
+                        trace.span("emit_letter", t0, time.perf_counter(),
+                                   tid=chrometrace.REDUCE_BASE + r,
+                                   args={"letter": letter})
+            except BaseException as e:  # noqa: BLE001 — recovery path
+                emit_errors[r] = e
+            finally:
+                for f in files:
+                    f.close()
+            emit_ms[r] += (time.perf_counter() - t_w0) * 1e3
+
+        threads = [threading.Thread(target=emit_worker, args=(r,),
+                                    name=f"reduce-worker-{r}")
+                   for r in range(1, M)]
+        for t in threads:
+            t.start()
+        emit_worker(0)
+        for t in threads:
+            t.join()
+        for r, err in enumerate(emit_errors):
+            if err is None:
+                continue
+            todo = [letter for letter in range(r, ooc.ALPHABET_SIZE, M)
+                    if not letter_done[letter]]
+            log.warning(
+                "letter-emit worker %d died (%s: %s); re-emitting "
+                "letter(s) %s on the main thread",
+                r, type(err).__name__, err, todo)
+            t0 = time.perf_counter()
+            files = [spill_mod.SpillFile(p) for p in shard_paths]
+            try:
+                for letter in todo:
+                    emit_bytes[r] += emit_letter(files, letter)
+                    letter_done[letter] = True
+            finally:
+                for f in files:
+                    f.close()
+            emit_ms[r] += (time.perf_counter() - t0) * 1e3
+            run_report.record_reducer_takeover()
+            ctr_merge_takeovers.inc()
+            emit_errors[r] = None
+
+        # -- artifact: whole-index lex assembly off the shard files
+        if cfg.artifact:
+            from ..serve import artifact as artifact_mod
+
+            t0 = time.perf_counter()
+            files = [spill_mod.SpillFile(p) for p in shard_paths]
+            try:
+                u8_all = np.concatenate(
+                    [f.section("vocab").reshape(-1, width_g)
+                     for f in files])
+                word_lens_all = np.concatenate(
+                    [f.section("word_lens") for f in files])
+                df_all = np.concatenate([f.section("df") for f in files])
+                post_all = np.concatenate(
+                    [f.section("postings") for f in files])
+                tf_all = np.concatenate([f.section("tf") for f in files])
+            finally:
+                for f in files:
+                    f.close()
+            src_off = np.zeros(df_all.shape[0] + 1, dtype=np.int64)
+            np.cumsum(df_all, out=src_off[1:])
+            lex = np.argsort(ooc.as_terms(u8_all, width_g), kind="stable")
+            idx, post_off = ooc.gather_pairs(lex, src_off)
+            rows_lex = u8_all[lex]
+            lens_lex = word_lens_all[lex].astype(np.int64)
+            term_blob = rows_lex[
+                np.arange(width_g)[None, :] < lens_lex[:, None]]
+            term_offsets = np.zeros(lens_lex.shape[0] + 1, dtype=np.int64)
+            np.cumsum(lens_lex, out=term_offsets[1:])
+            df_lex = df_all[lex]
+            # df_order[emit position] = lex index; emit order is letter
+            # asc, then df desc with ties word asc within the letter —
+            # letter blocks are contiguous in both orders
+            df_order = np.zeros(lens_lex.shape[0], dtype=np.int64)
+            firsts = rows_lex[:, 0] if lens_lex.shape[0] else \
+                np.zeros(0, dtype=np.uint8)
+            for letter in range(ooc.ALPHABET_SIZE):
+                b0 = int(np.searchsorted(firsts, ord("a") + letter))
+                b1 = int(np.searchsorted(firsts, ord("a") + letter + 1))
+                if b1 > b0:
+                    df_order[b0:b1] = b0 + ooc.emit_order(df_lex[b0:b1])
+            run_files = [spill_mod.SpillFile(p) for p in run_paths]
+            try:
+                doc_lens = ooc.doc_lengths(run_files, max_doc_id)
+            finally:
+                for f in run_files:
+                    f.close()
+            art_bytes = artifact_mod.pack(
+                artifact_mod.artifact_path(out_dir),
+                term_blob=term_blob, term_offsets=term_offsets,
+                df=df_lex, post_offsets=post_off,
+                postings=post_all[idx], df_order=df_order,
+                max_doc_id=int(max_doc_id), width=width_g,
+                tf=tf_all[idx], doc_lens=doc_lens)
+            t1 = time.perf_counter()
+            if trace is not None:
+                trace.span("artifact_pack", t0, t1)
+            timer.count("artifact_bytes", int(art_bytes))
+            timer.count("artifact_build_ms", round((t1 - t0) * 1e3, 3))
+
+        spill_mod.remove_dir(sdir)
+        return {
+            "mstats": {
+                "documents": sum(run["docs"] for run in good_runs),
+                "tokens": sum(run["raw_tokens"] for run in good_runs),
+                "unique_terms": sum(shard_vocab),
+                "unique_pairs": sum(shard_pairs),
+                "lines_written": sum(shard_vocab),
+                "merge_ms": merge_wall_ms,
+            },
+            "emit_ms": emit_ms,
+            "emit_bytes": emit_bytes,
+            "audit_s": audit_s,
+            "build_shards": scheduler.term_shard_balance(shard_pairs),
+            "runs_merged": len(good_runs),
+            "runs_quarantined": quarantined,
+            "bytes_spilled": sum(run["bytes"] for run in all_runs),
+        }
 
     def _tokenize_or_resume(self, manifest: Manifest, timer: PhaseTimer,
                             report: DegradationReport):

@@ -2,7 +2,9 @@
 
 The host hot path — tokenize + vocab build + per-(term, doc) combiner,
 the analogue of main.c:102-117 plus the reducer's dictionary and dedup —
-the letter-file emit and the host query engine's serve kernels
+the letter-file emit, the host backend's index and merge
+(:func:`host_index_native`, :class:`HostIndexStream`,
+:class:`HostIndexMerge`) and the host query engine's serve kernels
 (:class:`NativeServe`) are a C++ library compiled with ``g++`` on first
 use and loaded with ctypes.  Without a compiler the callers fall back
 to the numpy tokenizer, the Python emit and the numpy query paths (same
@@ -87,6 +89,28 @@ class _StreamFinalResult(ctypes.Structure):
     ]
 
 
+class _HostIndexStats(ctypes.Structure):
+    _fields_ = [
+        ("raw_tokens", ctypes.c_int64),
+        ("num_pairs", ctypes.c_int64),
+        ("vocab_size", ctypes.c_int32),
+        ("bytes_written", ctypes.c_int64),
+    ]
+
+
+class _HostStreamStats(ctypes.Structure):
+    _fields_ = [
+        ("raw_tokens", ctypes.c_int64),
+        ("num_pairs", ctypes.c_int64),
+        ("vocab_size", ctypes.c_int32),
+        ("reserved", ctypes.c_int32),
+        ("bytes_written", ctypes.c_int64),
+        ("scan_ns", ctypes.c_int64),
+        ("finalize_ns", ctypes.c_int64),
+        ("emit_ns", ctypes.c_int64),
+    ]
+
+
 def _prune_stale(keep: str) -> None:
     """Drop this library's builds of other source hashes — every source
     edit otherwise leaves a dead artifact.  Temp files are left alone:
@@ -150,6 +174,33 @@ def _bind(lib) -> None:
                                 ctypes.POINTER(ctypes.POINTER(ctypes.c_uint16)),
                                 ctypes.POINTER(i64p), ctypes.POINTER(i64p),
                                 ctypes.c_char_p]),
+        # -- the host backend: one-shot index, incremental streams, merge --
+        "mri_host_index": (i32, [*docs, ctypes.c_char_p,
+                                 ctypes.POINTER(_HostIndexStats), i32]),
+        "mri_hidx_new": (ctypes.c_void_p, []),
+        "mri_hidx_free": (None, [ctypes.c_void_p]),
+        "mri_hidx_feed": (i32, [ctypes.c_void_p, *docs]),
+        "mri_hidx_finalize_emit": (i32, [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.POINTER(_HostStreamStats)]),
+        "mri_hidx_partial": (i32, [ctypes.c_void_p, i64p, i64p]),
+        "mri_hidx_info": (i32, [ctypes.c_void_p, i32p, i64p, i64p]),
+        "mri_hidx_runpack_info": (i32, [ctypes.c_void_p, i32p, i32p,
+                                        i64p, i64p, i64p, i64p]),
+        "mri_hidx_runpack": (i32, [ctypes.c_void_p, i32, u8p, i32p, i64p, i64p,
+                                   i32p, i32p, i64p, i64p, i32p, i64p]),
+        "mri_hidxm_audit": (i32, [ctypes.c_void_p, i32p]),
+        "mri_hidxm_new": (ctypes.c_void_p, [ctypes.POINTER(ctypes.c_void_p), i32,
+                                            ctypes.POINTER(_HostStreamStats)]),
+        "mri_hidxm_free": (None, [ctypes.c_void_p]),
+        "mri_hidxm_emit_range": (i64, [ctypes.c_void_p, i32, i32, ctypes.c_char_p]),
+        "mri_hidxm_export_info": (i32, [ctypes.c_void_p, i32p, i32p, i32p,
+                                        i64p, i64p]),
+        "mri_hidxm_export_payload": (i32, [ctypes.c_void_p, u8p] + [i64] * 7),
+        "mri_hidxm_export_v2_prepare": (i32, [ctypes.c_void_p, i32, i32,
+                                              i64p, i64p, i64p]),
+        "mri_hidxm_export_v2_payload": (i32, [ctypes.c_void_p, u8p, i64p, i32]),
+        "mri_hidxm_export": (i32, [ctypes.c_void_p, u8p, i32p, i64p, i64p,
+                                   i32p, i64p, i64p]),
         # -- serve kernels --
         "mri_serve_new": (ctypes.c_void_p, [
             i32p,                              # blk_max
@@ -432,6 +483,444 @@ class NativeKeyStream:
         if self._handle:
             self._lib.mri_stream_free(self._handle)
             self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def host_index_native(contents: list[bytes], doc_ids: list[int],
+                      out_dir, num_threads: int = 1) -> dict:
+    """Whole pipeline in one native call: tokenize + postings + emit.
+
+    The ``backend="cpu"`` engine (models/inverted_index.py): the
+    reference's all-on-host regime without its pathologies — no spill
+    files, no stdio locks, no token-scale sorts (docs arrive ascending
+    per term by construction).  ``num_threads`` forks the map scan over
+    contiguous byte-balanced doc ranges.  Returns the stats dict.
+    """
+    lib = load()
+    if lib is None:
+        raise RuntimeError(f"native host index unavailable: {_lib_error}")
+    os.makedirs(out_dir, exist_ok=True)
+    stats = _HostIndexStats()
+    args, keepalive = _marshal_docs(contents, doc_ids)
+    rc = lib.mri_host_index(*args, str(out_dir).encode(), ctypes.byref(stats),
+                            ctypes.c_int32(max(1, num_threads)))
+    del keepalive
+    if rc == -2:
+        raise MemoryError("native host index allocation failure")
+    if rc != 0:
+        raise OSError(f"native host index failed writing to {out_dir!r}")
+    return {
+        "documents": len(contents),
+        "tokens": int(stats.raw_tokens),
+        "unique_terms": int(stats.vocab_size),
+        "unique_pairs": int(stats.num_pairs),
+        "lines_written": int(stats.vocab_size),
+        "bytes_written": int(stats.bytes_written),
+    }
+
+
+class HostIndexStream:
+    """Incremental ``backend="cpu"`` pipeline: feed windows, emit once.
+
+    The zero-copy counterpart of :func:`host_index_native` — each
+    :meth:`feed_arrays` call hands the scan a window straight out of a
+    reusable io.arena buffer (no ``b"".join``, no marshalling copies),
+    and ctypes releases the GIL for the call's duration, so a Python
+    reader thread can fill the next arena while C++ scans this one.
+    :meth:`finalize_emit` flattens postings, sorts, and writes the 26
+    letter files, returning a stats dict that includes the native-side
+    ``scan_ms`` / ``finalize_ms`` / ``emit_ms`` stage split.
+    """
+
+    def __init__(self):
+        lib = load()
+        if lib is None:
+            raise RuntimeError(f"native host index unavailable: {_lib_error}")
+        self._lib = lib
+        self._handle = ctypes.c_void_p(lib.mri_hidx_new())
+        if not self._handle:
+            raise MemoryError("native host index allocation failure")
+        self._documents = 0
+
+    def feed_arrays(self, buf: np.ndarray, ends: np.ndarray,
+                    ids: np.ndarray, num_docs: int | None = None,
+                    used_bytes: int | None = None) -> None:
+        """Scan one window of whole documents, zero-copy.
+
+        ``buf`` is the concatenated uint8 document bytes, ``ends`` the
+        int64 cumulative end offsets, ``ids`` the int32 doc ids.  Pass
+        ``num_docs`` / ``used_bytes`` to scan a prefix of oversized
+        arena arrays without slicing (slices of C-contiguous prefixes
+        are fine too — the pointers are taken as-is).
+        """
+        n = int(num_docs if num_docs is not None else ends.shape[0])
+        if n == 0:
+            return
+        nbytes = int(used_bytes if used_bytes is not None else buf.shape[0])
+        if buf.dtype != np.uint8 or ends.dtype != np.int64 \
+                or ids.dtype != np.int32:
+            raise TypeError("feed_arrays requires uint8/int64/int32 arrays")
+        rc = self._lib.mri_hidx_feed(
+            self._handle,
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(nbytes),
+            ends.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int32(n))
+        if rc != 0:
+            raise MemoryError("native host index feed allocation failure")
+        self._documents += n
+
+    def feed(self, contents: list[bytes], doc_ids: list[int]) -> None:
+        """Convenience wrapper for list-of-bytes callers (tests)."""
+        args, keepalive = _marshal_docs(contents, doc_ids)
+        rc = self._lib.mri_hidx_feed(self._handle, *args)
+        del keepalive
+        if rc != 0:
+            raise MemoryError("native host index feed allocation failure")
+        self._documents += len(contents)
+
+    def finalize_emit(self, out_dir) -> dict:
+        """Flatten + sort + write the 26 letter files; the stats dict."""
+        os.makedirs(out_dir, exist_ok=True)
+        stats = _HostStreamStats()
+        rc = self._lib.mri_hidx_finalize_emit(
+            self._handle, str(out_dir).encode(), ctypes.byref(stats))
+        if rc == -2:
+            raise MemoryError("native host index allocation failure")
+        if rc != 0:
+            raise OSError(f"native host index failed writing to {out_dir!r}")
+        return {
+            "documents": self._documents,
+            "tokens": int(stats.raw_tokens),
+            "unique_terms": int(stats.vocab_size),
+            "unique_pairs": int(stats.num_pairs),
+            "lines_written": int(stats.vocab_size),
+            "bytes_written": int(stats.bytes_written),
+            "scan_ms": stats.scan_ns / 1e6,
+            "finalize_ms": stats.finalize_ns / 1e6,
+            "emit_ms": stats.emit_ns / 1e6,
+        }
+
+    def partial(self) -> dict:
+        """Flatten this worker's scan into per-term doc runs (the paper's
+        per-worker ``partial_a..z`` spill, kept in memory).
+
+        Runs in the calling worker thread with the GIL released, so K
+        workers' partial passes overlap.  Each term's run is sorted
+        ascending even when the steal queue delivered windows out of
+        order.  After this call the handle can only be merged via
+        :class:`HostIndexMerge` — ``finalize_emit`` is no longer valid
+        (the scan buffers are released).  Idempotent.
+        """
+        scan_ns = ctypes.c_int64(0)
+        partial_ns = ctypes.c_int64(0)
+        rc = self._lib.mri_hidx_partial(
+            self._handle, ctypes.byref(scan_ns), ctypes.byref(partial_ns))
+        if rc != 0:
+            raise MemoryError("native host index partial allocation failure")
+        return {
+            "scan_ms": scan_ns.value / 1e6,
+            "partial_ms": partial_ns.value / 1e6,
+        }
+
+    def info(self) -> dict:
+        """Scan-state probe for the audit layer: this worker's local
+        vocab size, deduped pair count, and raw token count (read-only,
+        vocab-free — O(1))."""
+        vocab = ctypes.c_int32(0)
+        pairs = ctypes.c_int64(0)
+        raw = ctypes.c_int64(0)
+        self._lib.mri_hidx_info(
+            self._handle, ctypes.byref(vocab), ctypes.byref(pairs),
+            ctypes.byref(raw))
+        return {"vocab": int(vocab.value), "pairs": int(pairs.value),
+                "raw_tokens": int(raw.value)}
+
+    def runpack(self, shards: int) -> dict:
+        """Flatten + export this worker's scan state as term-hash-sharded
+        run arrays (the out-of-core spill tier's unit of work).
+
+        Terms come back in (shard asc, lex asc) order with NUL-padded
+        fixed-width rows; each term's postings run is doc-ascending with
+        a parallel tf column; ``shard_term_off`` / ``shard_pair_off``
+        (``shards + 1`` entries each) delimit every shard's slice.  The
+        ``doc_ids`` / ``doc_tokens`` columns carry per-document cleaned
+        token counts (doc-id ascending) for the artifact's doc-length
+        table.  After this call the handle is spent — close it and feed
+        a fresh stream.
+        """
+        if shards < 1:
+            raise ValueError("shards must be >= 1")
+        vocab = ctypes.c_int32(0)
+        width = ctypes.c_int32(0)
+        pairs = ctypes.c_int64(0)
+        ndocs = ctypes.c_int64(0)
+        max_doc = ctypes.c_int64(0)
+        raw = ctypes.c_int64(0)
+        rc = self._lib.mri_hidx_runpack_info(
+            self._handle, ctypes.byref(vocab), ctypes.byref(width),
+            ctypes.byref(pairs), ctypes.byref(ndocs), ctypes.byref(max_doc),
+            ctypes.byref(raw))
+        if rc != 0:
+            raise MemoryError("native host index runpack allocation failure")
+        v, w = int(vocab.value), max(int(width.value), 1)
+        p, d = int(pairs.value), int(ndocs.value)
+        vocab_packed = np.zeros((max(v, 1), w), dtype=np.uint8)
+        word_lens = np.zeros(max(v, 1), dtype=np.int32)
+        df = np.zeros(max(v, 1), dtype=np.int64)
+        offsets = np.zeros(v + 1, dtype=np.int64)
+        postings = np.zeros(max(p, 1), dtype=np.int32)
+        tf = np.zeros(max(p, 1), dtype=np.int32)
+        shard_term_off = np.zeros(shards + 1, dtype=np.int64)
+        shard_pair_off = np.zeros(shards + 1, dtype=np.int64)
+        doc_ids = np.zeros(max(d, 1), dtype=np.int32)
+        doc_tokens = np.zeros(max(d, 1), dtype=np.int64)
+        rc = self._lib.mri_hidx_runpack(
+            self._handle, ctypes.c_int32(shards),
+            vocab_packed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            word_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            df.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            postings.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            tf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            shard_term_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            shard_pair_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            doc_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            doc_tokens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        if rc != 0:
+            raise MemoryError("native host index runpack allocation failure")
+        return {
+            "vocab": v, "width": w, "pairs": p,
+            "max_doc_id": int(max_doc.value),
+            "raw_tokens": int(raw.value),
+            "vocab_packed": vocab_packed[:v],
+            "word_lens": word_lens[:v], "df": df[:v],
+            "offsets": offsets,
+            "postings": postings[:p], "tf": tf[:p],
+            "shard_term_off": shard_term_off,
+            "shard_pair_off": shard_pair_off,
+            "doc_ids": doc_ids[:d], "doc_tokens": doc_tokens[:d],
+        }
+
+    def close(self):
+        if self._handle:
+            self._lib.mri_hidx_free(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class HostIndexMerge:
+    """Letter-partitioned parallel reduce over K scanned streams.
+
+    Joins the workers' vocabularies into one global vocabulary + emit
+    order (the fork-join barrier), then :meth:`emit_range` renders any
+    contiguous first-letter range — it is read-only on the merge state
+    and releases the GIL, so M reducer threads (``num_reducers``) call
+    it concurrently.  The union of ``plan_letter_ranges`` calls is
+    byte-identical to a single-stream ``finalize_emit``.
+
+    Keeps references to the source streams: their native runs back the
+    merge until :meth:`close`.
+    """
+
+    def __init__(self, streams):
+        if not streams:
+            raise ValueError("HostIndexMerge needs at least one stream")
+        lib = load()
+        if lib is None:
+            raise RuntimeError(f"native host merge unavailable: {_lib_error}")
+        self._lib = lib
+        self._streams = list(streams)  # keep worker runs alive
+        handles = (ctypes.c_void_p * len(self._streams))(
+            *[s._handle for s in self._streams])
+        stats = _HostStreamStats()
+        self._handle = ctypes.c_void_p(
+            lib.mri_hidxm_new(handles, len(self._streams),
+                              ctypes.byref(stats)))
+        if not self._handle:
+            raise MemoryError("native host merge allocation failure")
+        self._documents = sum(s._documents for s in self._streams)
+        self._stats = stats
+
+    def stats(self) -> dict:
+        return {
+            "documents": self._documents,
+            "tokens": int(self._stats.raw_tokens),
+            "unique_terms": int(self._stats.vocab_size),
+            "unique_pairs": int(self._stats.num_pairs),
+            "lines_written": int(self._stats.vocab_size),
+            "merge_ms": self._stats.finalize_ns / 1e6,
+        }
+
+    def emit_range(self, letter_lo: int, letter_hi: int, out_dir) -> int:
+        """Write letter files ``[letter_lo, letter_hi)``; bytes written.
+
+        An empty range (``lo == hi``, from ``plan_letter_ranges`` with
+        more reducers than letters) writes nothing and returns 0.
+        """
+        os.makedirs(out_dir, exist_ok=True)
+        n = self._lib.mri_hidxm_emit_range(
+            self._handle, ctypes.c_int32(letter_lo),
+            ctypes.c_int32(letter_hi), str(out_dir).encode())
+        if n == -2:
+            raise MemoryError("native host merge emit allocation failure")
+        if n < 0:
+            raise OSError(
+                f"native host merge failed writing letters "
+                f"[{letter_lo}, {letter_hi}) to {out_dir!r}")
+        return int(n)
+
+    def export_arrays(self) -> dict:
+        """Columnar lex-order export of the merged index — the serving
+        artifact's source arrays, no letter-file text round-trip.
+
+        Returns ``vocab_packed`` ((V, width) uint8 NUL-padded rows),
+        ``word_lens`` (V int32), ``df`` (V int64), ``offsets`` (V+1
+        int64 exclusive prefix), ``postings`` (P int32, globally
+        ascending per term), ``df_order`` (V int64 — emit-order
+        permutation over lex indices), ``letter_off`` (27 int64), plus
+        ``vocab``/``width``/``max_doc_id``/``num_pairs`` scalars.
+        Read-only on the merge state.
+        """
+        V, width, P, _, mdi = self.export_info()
+        vocab_packed = np.zeros((max(V, 1), width), dtype=np.uint8)
+        word_lens = np.zeros(max(V, 1), dtype=np.int32)
+        df = np.zeros(max(V, 1), dtype=np.int64)
+        offsets = np.zeros(V + 1, dtype=np.int64)
+        postings = np.zeros(max(P, 1), dtype=np.int32)
+        df_order = np.zeros(max(V, 1), dtype=np.int64)
+        letter_off = np.zeros(27, dtype=np.int64)
+
+        def ptr(a, ctype):
+            return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+        rc = self._lib.mri_hidxm_export(
+            self._handle, ptr(vocab_packed, ctypes.c_uint8),
+            ptr(word_lens, ctypes.c_int32), ptr(df, ctypes.c_int64),
+            ptr(offsets, ctypes.c_int64), ptr(postings, ctypes.c_int32),
+            ptr(df_order, ctypes.c_int64), ptr(letter_off, ctypes.c_int64))
+        if rc == -2:
+            raise MemoryError("native merge export allocation failure")
+        if rc != 0:
+            raise RuntimeError(f"native merge export failed (rc={rc})")
+        return {
+            "vocab_packed": vocab_packed[:V], "word_lens": word_lens[:V],
+            "df": df[:V], "offsets": offsets, "postings": postings[:P],
+            "df_order": df_order[:V], "letter_off": letter_off,
+            "vocab": V, "width": width, "max_doc_id": mdi,
+            "num_pairs": P,
+        }
+
+    def export_info(self) -> tuple[int, int, int, int, int]:
+        """``(vocab, width, num_pairs, blob_bytes, max_doc_id)`` of the
+        merged index — the artifact layout's scalars, O(V)."""
+        v = ctypes.c_int32(0)
+        w = ctypes.c_int32(0)
+        mdi = ctypes.c_int32(0)
+        pairs = ctypes.c_int64(0)
+        blob = ctypes.c_int64(0)
+        self._lib.mri_hidxm_export_info(
+            self._handle, ctypes.byref(v), ctypes.byref(w),
+            ctypes.byref(mdi), ctypes.byref(pairs), ctypes.byref(blob))
+        return (int(v.value), int(w.value), int(pairs.value),
+                int(blob.value), int(mdi.value))
+
+    def export_payload(self, buf: np.ndarray, offsets: dict) -> None:
+        """One-pass fill of an ``index.mri`` file buffer: every payload
+        section written at ``offsets[section]`` (absolute byte offsets
+        into ``buf``), postings already delta-encoded.  Read-only on the
+        merge state; ``buf`` must be C-contiguous uint8."""
+        rc = self._lib.mri_hidxm_export_payload(
+            self._handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            *(ctypes.c_int64(offsets[name]) for name in (
+                "letter_dir", "term_offsets", "term_blob", "df",
+                "post_offsets", "postings", "df_order")))
+        if rc == -2:
+            raise MemoryError("native artifact export allocation failure")
+        if rc != 0:
+            raise RuntimeError(f"native artifact export failed (rc={rc})")
+
+    def export_v2_prepare(self, block_size: int,
+                          score_bits: int = 0) -> tuple[int, int, int]:
+        """Build the format-v2/v2.1 export plan (block skip entries,
+        packed postings/tf words, doc lengths, and — when ``score_bits``
+        is 8 or 16 — the saturated max-tf / min-doc-length columns) and
+        return the section sizes the layout needs: ``(num_blocks,
+        post_data_bytes, tf_data_bytes)``.  ``block_size`` must be a
+        power of two >= 2."""
+        nb = ctypes.c_int64(0)
+        pb = ctypes.c_int64(0)
+        tb = ctypes.c_int64(0)
+        rc = self._lib.mri_hidxm_export_v2_prepare(
+            self._handle, ctypes.c_int32(block_size),
+            ctypes.c_int32(score_bits),
+            ctypes.byref(nb), ctypes.byref(pb), ctypes.byref(tb))
+        if rc == -2:
+            raise MemoryError("native v2 export allocation failure")
+        if rc != 0:
+            raise RuntimeError(f"native v2 export prepare failed (rc={rc})")
+        return int(nb.value), int(pb.value), int(tb.value)
+
+    def export_v2_payload(self, buf: np.ndarray, offsets: dict) -> None:
+        """Fill a format-v2/v2.1 ``index.mri`` file buffer from the
+        prepared plan (:meth:`export_v2_prepare` first) and release the
+        plan.  ``offsets`` maps every payload section name to its
+        absolute byte offset in ``buf``; the v2.1 max-score sections
+        ride between ``blk_tf_width`` and ``post_data`` when present."""
+        names = ["letter_dir", "term_offsets", "term_blob", "df",
+                 "blk_max", "blk_first", "blk_width", "blk_tf_width",
+                 "post_data", "tf_data", "doc_lens", "df_order"]
+        if "blk_max_tf" in offsets:
+            names[8:8] = ["blk_max_tf", "blk_min_dl"]
+        offs = np.array([offsets[name] for name in names], dtype=np.int64)
+        rc = self._lib.mri_hidxm_export_v2_payload(
+            self._handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.c_int32(len(offs)))
+        if rc == -2:
+            raise MemoryError("native v2 artifact export allocation failure")
+        if rc != 0:
+            raise RuntimeError(f"native v2 artifact export failed (rc={rc})")
+
+    def audit(self) -> tuple[int, int]:
+        """Walk every global term's worker runs checking the merge
+        invariants (df sums, per-run monotonicity) in C++.  Returns
+        ``(rc, bad_term)`` — rc 0 ok, 1 df-sum mismatch, 2 non-monotonic
+        run; interpretation (and the raised :class:`~..audit.AuditError`)
+        lives in audit.py, keeping this layer exception-vocabulary-free.
+        """
+        bad = ctypes.c_int32(-1)
+        rc = self._lib.mri_hidxm_audit(self._handle, ctypes.byref(bad))
+        return int(rc), int(bad.value)
+
+    def close(self):
+        if self._handle:
+            self._lib.mri_hidxm_free(self._handle)
+            self._handle = None
+        self._streams = []
 
     def __enter__(self):
         return self

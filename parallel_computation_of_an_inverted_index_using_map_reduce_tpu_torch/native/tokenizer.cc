@@ -7,9 +7,12 @@
 // per-(term, doc) dedup.  Output is the integer corpus the device engine
 // consumes: sorted-vocab term ids + doc ids (one-shot), or packed
 // provisional keys per document window (streaming), the packed sorted
-// vocab, and first-letter ids.  The same source, scan for scan and byte
-// for byte, as the JAX package's native/tokenizer.cc, cut to the entry
-// points this package calls.
+// vocab, and first-letter ids.  The host backend's entry points
+// (`mri_host_index`, the incremental `mri_hidx_*` streams and the
+// `mri_hidxm_*` merge with its artifact exporters) index and emit on the
+// host alone.  The same source, scan for scan and byte for byte, as the
+// JAX package's native/tokenizer.cc, cut to the entry points this
+// package calls.
 //
 // Two frontends over one incremental core (`StreamState` + `ScanChunk`):
 //
@@ -1519,6 +1522,17 @@ int64_t EmitLettersRuns(const uint8_t* vocab_packed, int32_t vocab_size,
   return total;
 }
 
+int64_t EmitLetters(const uint8_t* vocab_packed, int32_t vocab_size,
+                    int32_t width, const int64_t* order, const int64_t* df,
+                    const int64_t* offsets, const uint16_t* postings16,
+                    const int32_t* postings32, const char* out_dir,
+                    const uint32_t* lens = nullptr,
+                    int64_t maxid_hint = -1) {
+  const EmitRun run{postings16, postings32, offsets, df};
+  return EmitLettersRuns(vocab_packed, vocab_size, width, order, &run, 1,
+                         out_dir, lens, maxid_hint);
+}
+
 }  // namespace
 
 // postings16/postings32: exactly one is non-null.  order/df/offsets are
@@ -1557,6 +1571,1297 @@ int64_t mri_emit_runs(const uint8_t* vocab_packed, int32_t vocab_size,
                          n_runs, out_dir);
 } catch (const std::bad_alloc&) {
   return -1;
+}
+
+// ---------------------------------------------------------------------------
+// Host backend: the whole pipeline in one native call (no accelerator).
+//
+// The reference's regime — everything on the host CPU — minus its
+// pathologies (per-token stdio locks, O(T*W) reducer dict scan,
+// bubble sort).  Documents are scanned once through the incremental
+// core — in parallel over contiguous byte-balanced doc ranges when
+// num_threads > 1 (the reference's mapper scheduling, main.c:307-328)
+// — and each worker's combiner appends first (term, doc) occurrences
+// to its local postings vectors, which arrive ascending for free
+// because docs are scanned in manifest order (doc ids are 1-based
+// manifest positions, main.c:275); ranges are contiguous and merged in
+// order, so global postings stay ascending with no token-scale sort.
+// ---------------------------------------------------------------------------
+
+struct HostIndexStats {
+  int64_t raw_tokens;
+  int64_t num_pairs;
+  int32_t vocab_size;
+  int64_t bytes_written;  // -1 = IO error
+};
+
+int32_t mri_host_index(const uint8_t* data, int64_t len,
+                       const int64_t* doc_ends, const int32_t* doc_id_values,
+                       int32_t num_docs, const char* out_dir,
+                       HostIndexStats* stats, int32_t num_threads) try {
+  const int32_t T = std::max(num_threads, 1);
+  const std::vector<int32_t> cuts = PlanRanges(doc_ends, num_docs, T);
+
+  // Per-worker scan: local vocab + local postings (doc-ascending).
+  struct HostWorker {
+    StreamState local;
+    std::vector<std::vector<int32_t>> postings;  // local prov id -> docs
+    std::vector<int32_t> l2g;
+  };
+  std::vector<HostWorker> workers(T);
+  ForkJoin(T, [&](int32_t t) {
+    HostWorker& w = workers[t];
+    const int32_t lo = cuts[t], hi = cuts[t + 1];
+    const int64_t start_pos = lo ? doc_ends[lo - 1] : 0;
+    ScanChunk(w.local, data, len, start_pos, doc_ends, doc_id_values, lo, hi,
+              /*dedup=*/true, [&](int32_t id, int32_t doc) {
+                if (id >= static_cast<int32_t>(w.postings.size()))
+                  w.postings.resize(id + 1);
+                w.postings[id].push_back(doc);
+              });
+  });
+
+  // Vocab-scale merge in range order (the join barrier); with one
+  // worker its local state is the global vocab (identity l2g).
+  StreamState merged;
+  int64_t raw_tokens = 0, num_pairs = 0;
+  for (HostWorker& w : workers) {
+    const uint8_t* base = w.local.arena.data();
+    for (int32_t lid = 0; lid < w.local.next_id; ++lid) {
+      if (T == 1) {
+        w.l2g.push_back(lid);
+        continue;
+      }
+      const uint8_t* word = base + w.local.word_offsets[lid];
+      const uint32_t wl = w.local.word_lens[lid];
+      w.l2g.push_back(merged.Upsert(word, wl, HashWord(word, wl)));
+    }
+    raw_tokens += w.local.raw_tokens;
+    num_pairs += w.local.num_pairs;
+  }
+  StreamState& st = (T == 1) ? workers[0].local : merged;
+
+  const int32_t vocab = st.next_id;
+  // Global postings by prov id: concatenate the workers' runs in range
+  // order — contiguous ranges keep every term's docs ascending.
+  std::vector<int64_t> df_prov(std::max(vocab, 1), 0);
+  for (const HostWorker& w : workers)
+    for (size_t lid = 0; lid < w.postings.size(); ++lid)
+      df_prov[w.l2g[lid]] += static_cast<int64_t>(w.postings[lid].size());
+  std::vector<int64_t> offsets_prov(std::max(vocab, 1));
+  int64_t total_pairs = 0;
+  for (int32_t p = 0; p < vocab; ++p) {
+    offsets_prov[p] = total_pairs;
+    total_pairs += df_prov[p];
+  }
+  std::vector<int32_t> flat(std::max<int64_t>(total_pairs, 1));
+  {
+    std::vector<int64_t> cursor(offsets_prov.begin(), offsets_prov.end());
+    for (const HostWorker& w : workers)
+      for (size_t lid = 0; lid < w.postings.size(); ++lid) {
+        const int32_t gid = w.l2g[lid];
+        std::copy(w.postings[lid].begin(), w.postings[lid].end(),
+                  flat.begin() + cursor[gid]);
+        cursor[gid] += static_cast<int64_t>(w.postings[lid].size());
+      }
+  }
+
+  const std::vector<int32_t> order = SortedOrder(st);
+  int32_t width = 1;
+  for (int32_t i = 0; i < vocab; ++i)
+    width = std::max(width, static_cast<int32_t>(st.word_lens[i]));
+
+  // Rank-space views over prov-space postings (same indirection the
+  // device pipeline's host side does in models/inverted_index.py).
+  std::vector<uint8_t> vocab_packed(
+      std::max<int64_t>(static_cast<int64_t>(vocab) * width, 1), 0);
+  std::vector<int32_t> letter_of_rank(std::max(vocab, 1));
+  std::vector<int64_t> df_rank(std::max(vocab, 1));
+  std::vector<int64_t> offsets_rank(std::max(vocab, 1));
+  for (int32_t rank = 0; rank < vocab; ++rank) {
+    const int32_t prov = order[rank];
+    std::memcpy(vocab_packed.data() + static_cast<int64_t>(rank) * width,
+                st.arena.data() + st.word_offsets[prov], st.word_lens[prov]);
+    letter_of_rank[rank] = vocab_packed[static_cast<int64_t>(rank) * width] - 'a';
+    df_rank[rank] = df_prov[prov];
+    offsets_rank[rank] = offsets_prov[prov];
+  }
+
+  // Emit order: (letter asc, df desc, rank asc) — stable sort supplies
+  // the rank tiebreak == word-ascending (main.c:55-64 semantics).
+  std::vector<int64_t> emit_rank(vocab);
+  for (int32_t i = 0; i < vocab; ++i) emit_rank[i] = i;
+  std::stable_sort(emit_rank.begin(), emit_rank.end(),
+                   [&](int64_t a, int64_t b) {
+                     if (letter_of_rank[a] != letter_of_rank[b])
+                       return letter_of_rank[a] < letter_of_rank[b];
+                     return df_rank[a] > df_rank[b];
+                   });
+
+  stats->raw_tokens = raw_tokens;
+  stats->num_pairs = num_pairs;
+  stats->vocab_size = vocab;
+  stats->bytes_written = EmitLetters(
+      vocab_packed.data(), vocab, width, emit_rank.data(), df_rank.data(),
+      offsets_rank.data(), nullptr, flat.data(), out_dir);
+  return stats->bytes_written < 0 ? -1 : 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// ---------------------------------------------------------------------------
+// Incremental host index: same pipeline as mri_host_index but fed one
+// window at a time so the caller can overlap file reads with the scan
+// (the ctypes layer releases the GIL for the feed call's duration).
+// Single scan state — windows arrive in manifest order, so postings
+// stay doc-ascending for free, exactly like the T == 1 one-shot path.
+// Stage nanoseconds are accumulated so the Python side can report a
+// read/tokenize/emit split without host-side clock instrumentation
+// around every call.
+// ---------------------------------------------------------------------------
+
+struct HostStreamStats {
+  int64_t raw_tokens;
+  int64_t num_pairs;
+  int32_t vocab_size;
+  int32_t reserved;
+  int64_t bytes_written;  // -1 = IO error
+  int64_t scan_ns;        // cumulative mri_hidx_feed time
+  int64_t finalize_ns;    // postings flatten + sorts
+  int64_t emit_ns;        // letter-file render + write
+};
+
+struct HostStreamState {
+  StreamState st;
+  // First (term, doc) occurrences in scan order — term ids flat (ONE
+  // push in the scan's hot loop), with the doc id recovered from
+  // doc_marks: docs are scanned in order, so each mark says "pairs
+  // from this index on belong to this doc" (document-count scale).
+  // The finalize pass scatters by the combiner's df counts.
+  std::vector<int32_t> pair_ids;
+  struct DocMark { int64_t start; int32_t doc; };
+  std::vector<DocMark> doc_marks;
+  int32_t max_doc_id = 0;
+  int64_t scan_ns = 0;
+  // Within-document term frequencies for the v2 artifact's scoring
+  // column: pair_tf[k] counts how often pair_ids[k]'s term occurred in
+  // its document (>= 1), bumped via the scan's emit_dup callback;
+  // term_last_pair maps a prov id to its latest pair index so the bump
+  // is O(1).  doc_tokens records each document's cleaned token count
+  // (the BM25 doc-length column) at document scale.
+  std::vector<int32_t> pair_tf;
+  std::vector<int64_t> term_last_pair;
+  std::vector<std::pair<int32_t, int64_t>> doc_tokens;
+  // Parallel-reduce partial state (mri_hidx_partial): per-term postings
+  // runs, each doc-ascending regardless of window arrival order.  Once
+  // built, pair_ids/doc_marks are released — a partial'd handle can no
+  // longer be finalize_emit'd, only merged via mri_hidxm_new.
+  std::vector<int64_t> local_off;   // local prov id -> run start (+1 end)
+  std::vector<int32_t> local_flat;  // concatenated per-term doc runs
+  std::vector<int32_t> local_flat_tf;  // tf aligned with local_flat
+  bool partial_done = false;
+  int64_t partial_ns = 0;
+};
+
+namespace {
+
+// Emit order for one vocabulary — (letter asc, df desc, word asc) — via
+// a counting pre-partition on the first letter (the bswapped prefix's
+// top byte), which turns one big sort into 26 smaller ones whose
+// comparator never looks at the letter again.  Ties past the 8-byte
+// prefix fall back to the padded tail, which is NUL-filled so prefix
+// words sort first (main.c:55-64 semantics).  `letter_off_out[l]` /
+// `[l+1]` bound letter `l`'s slice of `emit_order` — the letter
+// partition the parallel reduce hands to its reducer workers.
+void BuildEmitOrder(const StreamState& st, const int64_t* df,
+                    int64_t* emit_order, int32_t letter_off_out[27]) {
+  const int32_t vocab = st.next_id;
+  struct EmitKey {
+    uint64_t prefix;
+    int32_t df;
+    int32_t id;
+  };
+  const uint8_t* base = st.arena.data();
+  std::vector<EmitKey> keyed(std::max(vocab, 1));
+  int32_t letter_count[27] = {0};
+  for (int32_t i = 0; i < vocab; ++i) {
+    const uint64_t prefix = __builtin_bswap64(Load64(base + st.word_offsets[i]));
+    ++letter_count[(prefix >> 56) - 'a' + 1];
+    keyed[i] = {prefix, static_cast<int32_t>(df[i]), i};
+  }
+  letter_off_out[0] = 0;
+  for (int i = 1; i < 27; ++i)
+    letter_off_out[i] = letter_off_out[i - 1] + letter_count[i];
+  std::vector<EmitKey> part(std::max(vocab, 1));
+  {
+    int32_t cur[26];
+    std::memcpy(cur, letter_off_out, sizeof(cur));
+    for (int32_t i = 0; i < vocab; ++i)
+      part[cur[(keyed[i].prefix >> 56) - 'a']++] = keyed[i];
+  }
+  const auto by_df_word = [&](const EmitKey& a, const EmitKey& b) {
+    if (a.df != b.df) return a.df > b.df;
+    if (a.prefix != b.prefix) return a.prefix < b.prefix;
+    const uint8_t* pa = base + st.word_offsets[a.id];
+    const uint8_t* pb = base + st.word_offsets[b.id];
+    const uint32_t pla = (st.word_lens[a.id] + 7) & ~7u;
+    const uint32_t plb = (st.word_lens[b.id] + 7) & ~7u;
+    const uint32_t lim = pla > plb ? pla : plb;
+    for (uint32_t i = 8; i < lim; i += 8) {
+      const uint64_t ka = i < pla ? __builtin_bswap64(Load64(pa + i)) : 0;
+      const uint64_t kb = i < plb ? __builtin_bswap64(Load64(pb + i)) : 0;
+      if (ka != kb) return ka < kb;
+    }
+    return false;  // identical words cannot occur (unique vocab)
+  };
+  for (int l = 0; l < 26; ++l)
+    std::sort(part.begin() + letter_off_out[l],
+              part.begin() + letter_off_out[l + 1], by_df_word);
+  for (int32_t i = 0; i < vocab; ++i) emit_order[i] = part[i].id;
+}
+
+// Flatten one worker's scan-order pairs into per-term doc runs
+// (idempotent; runs in the worker's own thread with the GIL released).
+// The steal queue can hand a worker windows in ANY order, so each run
+// is sorted ascending here — a no-op is_sorted check in the common
+// FIFO case — which lets the merged emit restore globally ascending
+// postings with a cheap run merge instead of a token-scale sort.
+void PartialFlatten(HostStreamState& h) {
+  if (h.partial_done) return;
+  const auto t0 = std::chrono::steady_clock::now();
+  StreamState& st = h.st;
+  const int32_t vocab = st.next_id;
+  h.local_off.assign(static_cast<size_t>(std::max(vocab, 1)) + 1, 0);
+  int64_t total = 0;
+  for (int32_t p = 0; p < vocab; ++p) {
+    h.local_off[p] = total;
+    total += st.combiner[p].df;
+  }
+  h.local_off[std::max(vocab, 1)] = total;
+  h.local_flat.resize(std::max<int64_t>(total, 1));
+  h.local_flat_tf.resize(h.local_flat.size());
+  {
+    std::vector<int64_t> cursor(h.local_off.begin(), h.local_off.end() - 1);
+    const size_t n_marks = h.doc_marks.size();
+    for (size_t s = 0; s < n_marks; ++s) {
+      const int64_t seg_end = (s + 1 < n_marks) ? h.doc_marks[s + 1].start
+                                                : static_cast<int64_t>(
+                                                      h.pair_ids.size());
+      const int32_t doc = h.doc_marks[s].doc;
+      for (int64_t k = h.doc_marks[s].start; k < seg_end; ++k) {
+        const int64_t c = cursor[h.pair_ids[k]]++;
+        h.local_flat[c] = doc;
+        h.local_flat_tf[c] = h.pair_tf[k];
+      }
+    }
+  }
+  for (int32_t p = 0; p < vocab; ++p) {
+    const int64_t b = h.local_off[p], e = h.local_off[p + 1];
+    if (std::is_sorted(h.local_flat.begin() + b, h.local_flat.begin() + e))
+      continue;
+    // out-of-order window arrival: co-sort the run and its tf column
+    // through one packed (doc << 32 | tf) key
+    std::vector<uint64_t> packed(static_cast<size_t>(e - b));
+    for (int64_t j = b; j < e; ++j)
+      packed[j - b] =
+          (static_cast<uint64_t>(static_cast<uint32_t>(h.local_flat[j]))
+           << 32) |
+          static_cast<uint32_t>(h.local_flat_tf[j]);
+    std::sort(packed.begin(), packed.end());
+    for (int64_t j = b; j < e; ++j) {
+      h.local_flat[j] = static_cast<int32_t>(packed[j - b] >> 32);
+      h.local_flat_tf[j] =
+          static_cast<int32_t>(packed[j - b] & 0xffffffffu);
+    }
+  }
+  // the token-scale scan buffers are spent; release them pre-merge
+  // (doc_tokens survives: it is document-scale and feeds the v2
+  // artifact's doc-length column)
+  std::vector<int32_t>().swap(h.pair_ids);
+  std::vector<int32_t>().swap(h.pair_tf);
+  std::vector<int64_t>().swap(h.term_last_pair);
+  std::vector<HostStreamState::DocMark>().swap(h.doc_marks);
+  h.partial_done = true;
+  h.partial_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                     std::chrono::steady_clock::now() - t0)
+                     .count();
+}
+
+// Lex order of the vocab by LSD radix sort on the big-endian u64 prefix
+// keys — O(V) per pass, 8 passes, no comparator branches; terms sharing
+// a full 8-byte prefix land adjacent and their (rare) groups get a tiny
+// comparison sort over the padded tails afterwards.  Shared by the v1
+// and v2 artifact exporters, where a comparison sort (SortedOrder) would
+// dominate the pack.
+std::vector<int32_t> LexOrderRadix(const StreamState& st, int32_t V) {
+  const uint8_t* arena = st.arena.data();
+  std::vector<std::pair<uint64_t, int32_t>> part(std::max(V, 1));
+  for (int32_t i = 0; i < V; ++i)
+    part[i] = {__builtin_bswap64(Load64(arena + st.word_offsets[i])), i};
+  {
+    std::vector<std::pair<uint64_t, int32_t>> tmp(std::max(V, 1));
+    for (int pass = 0; pass < 8; ++pass) {
+      const int shift = pass * 8;
+      int32_t cnt[257] = {0};
+      for (int32_t i = 0; i < V; ++i)
+        ++cnt[((part[i].first >> shift) & 0xff) + 1];
+      for (int b = 1; b <= 256; ++b) cnt[b] += cnt[b - 1];
+      for (int32_t i = 0; i < V; ++i)
+        tmp[cnt[(part[i].first >> shift) & 0xff]++] = part[i];
+      part.swap(tmp);
+    }
+  }
+  const auto tail_cmp = [&](const std::pair<uint64_t, int32_t>& a,
+                            const std::pair<uint64_t, int32_t>& b) {
+    const int32_t ia = a.second, ib = b.second;
+    const uint8_t* pa = arena + st.word_offsets[ia];
+    const uint8_t* pb = arena + st.word_offsets[ib];
+    const uint32_t pla = (st.word_lens[ia] + 7) & ~7u;
+    const uint32_t plb = (st.word_lens[ib] + 7) & ~7u;
+    const uint32_t lim = pla > plb ? pla : plb;
+    for (uint32_t i = 8; i < lim; i += 8) {
+      const uint64_t ka = i < pla ? __builtin_bswap64(Load64(pa + i)) : 0;
+      const uint64_t kb = i < plb ? __builtin_bswap64(Load64(pb + i)) : 0;
+      if (ka != kb) return ka < kb;
+    }
+    return false;  // identical words cannot occur (unique vocab)
+  };
+  for (int32_t i = 0; i < V;) {
+    int32_t j = i + 1;
+    while (j < V && part[j].first == part[i].first) ++j;
+    if (j - i > 1) std::sort(part.begin() + i, part.begin() + j, tail_cmp);
+    i = j;
+  }
+  std::vector<int32_t> lex(std::max(V, 1));
+  for (int32_t r = 0; r < V; ++r) lex[r] = part[r].second;
+  return lex;
+}
+
+// Little-endian bit packer over u32 words (format v2 postings/tf): a
+// value's bit k lands at stream bit nbits+k, and stream bit i is bit
+// (i & 31) of word (i >> 5) — exactly what np.unpackbits(bitorder=
+// 'little') recovers on the serve side.
+struct BitPacker {
+  std::vector<uint32_t>& out;
+  uint64_t acc = 0;
+  int nbits = 0;
+  explicit BitPacker(std::vector<uint32_t>& o) : out(o) {}
+  void Push(uint32_t v, int w) {  // caller guarantees v < 2^w, w <= 31
+    acc |= static_cast<uint64_t>(v) << nbits;
+    nbits += w;
+    while (nbits >= 32) {
+      out.push_back(static_cast<uint32_t>(acc));
+      acc >>= 32;
+      nbits -= 32;
+    }
+  }
+  void Flush() {  // pad to the next word boundary (block alignment)
+    if (nbits) {
+      out.push_back(static_cast<uint32_t>(acc));
+      acc = 0;
+      nbits = 0;
+    }
+  }
+};
+
+// Smallest width that can hold v (0 when v == 0: the all-ones delta /
+// all-ones tf case packs to zero bytes).
+inline int BitWidth(uint32_t v) {
+  return v == 0 ? 0 : 32 - __builtin_clz(v);
+}
+
+}  // namespace
+
+void* mri_hidx_new() try {
+  return new HostStreamState();
+} catch (const std::bad_alloc&) {
+  return nullptr;
+}
+
+void mri_hidx_free(void* handle) {
+  delete static_cast<HostStreamState*>(handle);
+}
+
+int32_t mri_hidx_feed(void* handle, const uint8_t* data, int64_t len,
+                      const int64_t* doc_ends, const int32_t* doc_id_values,
+                      int32_t num_docs) try {
+  HostStreamState& h = *static_cast<HostStreamState*>(handle);
+  const auto t0 = std::chrono::steady_clock::now();
+  if (h.pair_ids.capacity() == h.pair_ids.size()) {
+    h.pair_ids.reserve(std::max<size_t>(h.pair_ids.size() * 2, 1 << 16));
+    h.pair_tf.reserve(h.pair_ids.capacity());
+  }
+  for (int32_t d = 0; d < num_docs; ++d)
+    h.max_doc_id = std::max(h.max_doc_id, doc_id_values[d]);
+  int32_t cur_doc = h.doc_marks.empty() ? -1 : h.doc_marks.back().doc;
+  ScanChunk(h.st, data, len, 0, doc_ends, doc_id_values, 0, num_docs,
+            /*dedup=*/true,
+            [&](int32_t id, int32_t doc) {
+              if (doc != cur_doc) {
+                cur_doc = doc;
+                h.doc_marks.push_back(
+                    {static_cast<int64_t>(h.pair_ids.size()), doc});
+                h.doc_tokens.push_back({doc, 0});
+              }
+              // a document's first token is always a new pair, so
+              // doc_tokens.back() below is this doc in both callbacks
+              if (static_cast<size_t>(id) >= h.term_last_pair.size())
+                h.term_last_pair.resize(h.st.word_offsets.size(), -1);
+              h.term_last_pair[id] =
+                  static_cast<int64_t>(h.pair_ids.size());
+              h.pair_ids.push_back(id);
+              h.pair_tf.push_back(1);
+              ++h.doc_tokens.back().second;
+            },
+            [&](int32_t id) {
+              ++h.pair_tf[h.term_last_pair[id]];
+              ++h.doc_tokens.back().second;
+            });
+  h.scan_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                   std::chrono::steady_clock::now() - t0)
+                   .count();
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+int32_t mri_hidx_finalize_emit(void* handle, const char* out_dir,
+                               HostStreamStats* stats) try {
+  HostStreamState& h = *static_cast<HostStreamState*>(handle);
+  StreamState& st = h.st;
+  const auto t0 = std::chrono::steady_clock::now();
+
+  const int32_t vocab = st.next_id;
+  // The combiner already holds every term's deduped document frequency;
+  // scatter the flat scan-order pairs into per-term runs (scan order is
+  // doc-ascending within a term, so the runs arrive sorted).  Doc ids
+  // come from the doc_marks segments, not a parallel per-pair array.
+  std::vector<int64_t> df_prov(std::max(vocab, 1), 0);
+  std::vector<int64_t> offsets_prov(std::max(vocab, 1));
+  int64_t total_pairs = 0;
+  for (int32_t p = 0; p < vocab; ++p) {
+    df_prov[p] = st.combiner[p].df;
+    offsets_prov[p] = total_pairs;
+    total_pairs += df_prov[p];
+  }
+  std::vector<int32_t> flat(std::max<int64_t>(total_pairs, 1));
+  {
+    std::vector<int64_t> cursor(offsets_prov.begin(), offsets_prov.end());
+    const size_t n_marks = h.doc_marks.size();
+    for (size_t s = 0; s < n_marks; ++s) {
+      const int64_t seg_end = (s + 1 < n_marks) ? h.doc_marks[s + 1].start
+                                                : static_cast<int64_t>(
+                                                      h.pair_ids.size());
+      const int32_t doc = h.doc_marks[s].doc;
+      for (int64_t k = h.doc_marks[s].start; k < seg_end; ++k)
+        flat[cursor[h.pair_ids[k]]++] = doc;
+    }
+  }
+
+  int32_t width = 1;
+  for (int32_t i = 0; i < vocab; ++i)
+    width = std::max(width, static_cast<int32_t>(st.word_lens[i]));
+
+  // One sort straight to emit order — (letter asc, df desc, word asc)
+  // — instead of SortedOrder + rank views + a second stable sort.
+  std::vector<int64_t> emit_order(std::max(vocab, 1));
+  int32_t letter_off[27];
+  BuildEmitOrder(st, df_prov.data(), emit_order.data(), letter_off);
+
+  // Fixed-width NUL-padded rows for the shared emit core, prov space.
+  const uint8_t* base = st.arena.data();
+  std::vector<uint8_t> vocab_packed(
+      std::max<int64_t>(static_cast<int64_t>(vocab) * width, 1), 0);
+  for (int32_t p = 0; p < vocab; ++p)
+    std::memcpy(vocab_packed.data() + static_cast<int64_t>(p) * width,
+                base + st.word_offsets[p], st.word_lens[p]);
+  const auto t1 = std::chrono::steady_clock::now();
+
+  stats->raw_tokens = st.raw_tokens;
+  stats->num_pairs = st.num_pairs;
+  stats->vocab_size = vocab;
+  stats->reserved = 0;
+  stats->bytes_written = EmitLetters(
+      vocab_packed.data(), vocab, width, emit_order.data(), df_prov.data(),
+      offsets_prov.data(), nullptr, flat.data(), out_dir,
+      st.word_lens.data(), h.max_doc_id);
+  const auto t2 = std::chrono::steady_clock::now();
+  stats->scan_ns = h.scan_ns;
+  stats->finalize_ns =
+      std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count();
+  stats->emit_ns =
+      std::chrono::duration_cast<std::chrono::nanoseconds>(t2 - t1).count();
+  return stats->bytes_written < 0 ? -1 : 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// ---------------------------------------------------------------------------
+// Parallel reduce over K independently-scanned handles: the paper's M
+// reducer threads (main.c:129-130) rebuilt on the streaming core.  Each
+// of K scan workers owns one HostStreamState; mri_hidx_partial turns
+// its scan buffers into per-term doc runs (the per-worker "partial_a..z"
+// spill, held in memory); mri_hidxm_new joins the K vocabularies into
+// one global vocabulary + emit order; mri_hidxm_emit_range renders a
+// contiguous letter range and is READ-ONLY on the merge state, so M
+// reducer threads call it concurrently with the GIL released.
+//
+// Correctness: every document lives in exactly one window and every
+// window is consumed by exactly one worker, so a term's per-worker doc
+// sets are disjoint — summed df is exact, and an inplace_merge chain
+// over the (individually ascending) runs restores the oracle's globally
+// ascending postings.
+// ---------------------------------------------------------------------------
+
+int32_t mri_hidx_partial(void* handle, int64_t* scan_ns_out,
+                         int64_t* partial_ns_out) try {
+  HostStreamState& h = *static_cast<HostStreamState*>(handle);
+  PartialFlatten(h);
+  if (scan_ns_out) *scan_ns_out = h.scan_ns;
+  if (partial_ns_out) *partial_ns_out = h.partial_ns;
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// ---------------------------------------------------------------------------
+// Out-of-core spill support (build/spill.py): flatten one worker's scan
+// state and export it as flat run arrays partitioned by term-hash shard
+// — terms in (shard asc, lex asc) order, each term's postings run doc-
+// ascending with its tf column, plus the document-scale token counts
+// the v2 artifact's doc-length column needs.  The shard of a term is
+// HashWord(word) % shards — the same canonical zero-padded hash the
+// in-memory vocabulary join uses, so every worker agrees on a term's
+// shard without coordination.  The Python side writes the arrays to a
+// checksummed run file and replaces the handle with a fresh one; the
+// per-shard streaming merge later restores the exact in-memory merge
+// semantics (disjoint doc sets, ascending runs) from disk.
+// ---------------------------------------------------------------------------
+
+int32_t mri_hidx_runpack_info(void* handle, int32_t* vocab_out,
+                              int32_t* width_out, int64_t* pairs_out,
+                              int64_t* ndocs_out, int64_t* max_doc_id_out,
+                              int64_t* raw_tokens_out) try {
+  HostStreamState& h = *static_cast<HostStreamState*>(handle);
+  PartialFlatten(h);
+  StreamState& st = h.st;
+  const int32_t vocab = st.next_id;
+  int32_t width = 1;
+  for (int32_t g = 0; g < vocab; ++g)
+    width = std::max(width, static_cast<int32_t>(st.word_lens[g]));
+  if (vocab_out) *vocab_out = vocab;
+  if (width_out) *width_out = width;
+  if (pairs_out) *pairs_out = h.local_off[std::max(vocab, 1)];
+  if (ndocs_out) *ndocs_out = static_cast<int64_t>(h.doc_tokens.size());
+  if (max_doc_id_out) *max_doc_id_out = h.max_doc_id;
+  if (raw_tokens_out) *raw_tokens_out = st.raw_tokens;
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// Caller sizes every buffer from mri_hidx_runpack_info and zero-fills
+// vocab_packed (rows stay NUL-padded past each word's length).
+// offsets_out has vocab+1 entries (global cumulative, so shard s's
+// pairs live at [shard_pair_off[s], shard_pair_off[s+1])); the shard
+// offset arrays have shards+1 entries.
+int32_t mri_hidx_runpack(void* handle, int32_t shards, uint8_t* vocab_packed,
+                         int32_t* word_lens_out, int64_t* df_out,
+                         int64_t* offsets_out, int32_t* postings_out,
+                         int32_t* tf_out, int64_t* shard_term_off,
+                         int64_t* shard_pair_off, int32_t* doc_ids_out,
+                         int64_t* doc_tokens_out) try {
+  if (shards < 1) return -1;
+  HostStreamState& h = *static_cast<HostStreamState*>(handle);
+  PartialFlatten(h);
+  StreamState& st = h.st;
+  const int32_t vocab = st.next_id;
+  int32_t width = 1;
+  for (int32_t g = 0; g < vocab; ++g)
+    width = std::max(width, static_cast<int32_t>(st.word_lens[g]));
+  const uint8_t* base = st.arena.data();
+  // (shard asc, lex asc) term order: one stable counting partition over
+  // the radix lex order, so each shard's slice stays lex-sorted.
+  std::vector<int32_t> lex = LexOrderRadix(st, vocab);
+  std::vector<uint32_t> shard_of(std::max(vocab, 1));
+  std::vector<int64_t> count(static_cast<size_t>(shards) + 1, 0);
+  for (int32_t g = 0; g < vocab; ++g) {
+    shard_of[g] = static_cast<uint32_t>(
+        HashWord(base + st.word_offsets[g], st.word_lens[g]) %
+        static_cast<uint64_t>(shards));
+    ++count[shard_of[g] + 1];
+  }
+  for (int32_t s = 0; s < shards; ++s) count[s + 1] += count[s];
+  std::vector<int64_t> cur(count.begin(), count.end() - 1);
+  std::vector<int32_t> order(std::max(vocab, 1));
+  for (int32_t r = 0; r < vocab; ++r) {
+    const int32_t g = lex[r];
+    order[cur[shard_of[g]]++] = g;
+  }
+  for (int32_t s = 0; s <= shards; ++s) shard_term_off[s] = count[s];
+  offsets_out[0] = 0;
+  for (int32_t r = 0; r < vocab; ++r) {
+    const int32_t g = order[r];
+    const int64_t lo = h.local_off[g], hi = h.local_off[g + 1];
+    std::memcpy(vocab_packed + static_cast<int64_t>(r) * width,
+                base + st.word_offsets[g], st.word_lens[g]);
+    word_lens_out[r] = static_cast<int32_t>(st.word_lens[g]);
+    df_out[r] = hi - lo;
+    std::copy(h.local_flat.begin() + lo, h.local_flat.begin() + hi,
+              postings_out + offsets_out[r]);
+    std::copy(h.local_flat_tf.begin() + lo, h.local_flat_tf.begin() + hi,
+              tf_out + offsets_out[r]);
+    offsets_out[r + 1] = offsets_out[r] + (hi - lo);
+  }
+  for (int32_t s = 0; s <= shards; ++s)
+    shard_pair_off[s] = offsets_out[shard_term_off[s]];
+  // Document section, doc-id ascending for determinism (the steal
+  // queue can hand windows to this worker in any order).
+  std::vector<std::pair<int32_t, int64_t>> docs(h.doc_tokens);
+  std::sort(docs.begin(), docs.end());
+  for (size_t d = 0; d < docs.size(); ++d) {
+    doc_ids_out[d] = docs[d].first;
+    doc_tokens_out[d] = docs[d].second;
+  }
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+struct HostMergeState {
+  std::vector<HostStreamState*> parts;  // non-owning: caller keeps alive
+  StreamState merged;                   // global vocab when K > 1
+  StreamState* st = nullptr;            // &merged, or part 0's state (K==1)
+  std::vector<int64_t> df_gid;          // global prov id -> merged df
+  // Per-term postings segments as (worker, local id) in CSR layout:
+  // term g's docs are the union of runs seg_off[g] .. seg_off[g+1].
+  std::vector<int64_t> seg_off;
+  std::vector<int32_t> seg_worker, seg_lid;
+  std::vector<int64_t> emit_order;      // global emit permutation
+  int32_t letter_off[27] = {0};         // letter l owns emit_order slice
+  std::vector<uint8_t> vocab_packed;    // prov space, NUL-padded rows
+  int32_t vocab = 0, width = 1, max_doc_id = 0;
+  int64_t raw_tokens = 0, num_pairs = 0;
+  // Format-v2 export plan (mri_hidxm_export_v2_prepare fills, _payload
+  // consumes and releases): lex permutation, per-block skip entries and
+  // bit widths, packed postings/tf words, and the doc-length column.
+  std::vector<int32_t> v2_lex;
+  std::vector<int32_t> v2_blk_max, v2_blk_first;
+  std::vector<uint8_t> v2_blk_width, v2_blk_tf_width;
+  std::vector<uint32_t> v2_post_data, v2_tf_data;
+  std::vector<int32_t> v2_doc_lens;
+  // v2.1 max-score columns as little-endian bytes (score_bits/8 per
+  // block): saturated max tf and min doc length — integers, so these
+  // bytes match the pure-Python packer bit for bit.
+  std::vector<uint8_t> v2_blk_max_tf, v2_blk_min_dl;
+  int32_t v2_block_size = 0;
+  int32_t v2_score_bits = 0;
+};
+
+void* mri_hidxm_new(void* const* handles, int32_t num_handles,
+                    HostStreamStats* stats) try {
+  if (num_handles < 1) return nullptr;
+  const auto t0 = std::chrono::steady_clock::now();
+  auto* m = new HostMergeState();
+  try {
+    const int32_t K = num_handles;
+    m->parts.reserve(K);
+    for (int32_t i = 0; i < K; ++i) {
+      auto* h = static_cast<HostStreamState*>(handles[i]);
+      PartialFlatten(*h);  // no-op when the worker already partial'd
+      m->parts.push_back(h);
+      m->raw_tokens += h->st.raw_tokens;
+      m->num_pairs += h->st.num_pairs;
+      m->max_doc_id = std::max(m->max_doc_id, h->max_doc_id);
+    }
+    // Vocab-scale join in worker order (mri_host_index's merge idiom);
+    // one worker's local state IS the global vocab (identity l2g).
+    std::vector<std::vector<int32_t>> l2g(K);
+    for (int32_t w = 0; w < K; ++w) {
+      StreamState& local = m->parts[w]->st;
+      l2g[w].reserve(local.next_id);
+      const uint8_t* base = local.arena.data();
+      for (int32_t lid = 0; lid < local.next_id; ++lid) {
+        if (K == 1) {
+          l2g[w].push_back(lid);
+          continue;
+        }
+        const uint8_t* word = base + local.word_offsets[lid];
+        const uint32_t wl = local.word_lens[lid];
+        l2g[w].push_back(m->merged.Upsert(word, wl, HashWord(word, wl)));
+      }
+    }
+    m->st = (K == 1) ? &m->parts[0]->st : &m->merged;
+    StreamState& st = *m->st;
+    const int32_t vocab = m->vocab = st.next_id;
+
+    // Disjoint doc sets sum exactly; count segments per global term.
+    m->df_gid.assign(std::max(vocab, 1), 0);
+    std::vector<int64_t> nseg(std::max(vocab, 1), 0);
+    for (int32_t w = 0; w < K; ++w) {
+      StreamState& local = m->parts[w]->st;
+      for (int32_t lid = 0; lid < local.next_id; ++lid) {
+        const int64_t df = local.combiner[lid].df;
+        if (!df) continue;
+        m->df_gid[l2g[w][lid]] += df;
+        ++nseg[l2g[w][lid]];
+      }
+    }
+    m->seg_off.assign(static_cast<size_t>(std::max(vocab, 1)) + 1, 0);
+    for (int32_t g = 0; g < vocab; ++g)
+      m->seg_off[g + 1] = m->seg_off[g] + nseg[g];
+    m->seg_worker.resize(std::max<int64_t>(m->seg_off[std::max(vocab, 1)], 1));
+    m->seg_lid.resize(m->seg_worker.size());
+    {
+      std::vector<int64_t> cur(m->seg_off.begin(), m->seg_off.end() - 1);
+      for (int32_t w = 0; w < K; ++w) {
+        StreamState& local = m->parts[w]->st;
+        for (int32_t lid = 0; lid < local.next_id; ++lid) {
+          if (!local.combiner[lid].df) continue;
+          const int64_t s = cur[l2g[w][lid]]++;
+          m->seg_worker[s] = w;
+          m->seg_lid[s] = lid;
+        }
+      }
+    }
+
+    int32_t width = 1;
+    for (int32_t g = 0; g < vocab; ++g)
+      width = std::max(width, static_cast<int32_t>(st.word_lens[g]));
+    m->width = width;
+    m->vocab_packed.assign(
+        std::max<int64_t>(static_cast<int64_t>(vocab) * width, 1), 0);
+    for (int32_t g = 0; g < vocab; ++g)
+      std::memcpy(m->vocab_packed.data() + static_cast<int64_t>(g) * width,
+                  st.arena.data() + st.word_offsets[g], st.word_lens[g]);
+
+    m->emit_order.resize(std::max(vocab, 1));
+    BuildEmitOrder(st, m->df_gid.data(), m->emit_order.data(), m->letter_off);
+
+    if (stats) {
+      stats->raw_tokens = m->raw_tokens;
+      stats->num_pairs = m->num_pairs;
+      stats->vocab_size = vocab;
+      stats->reserved = 0;
+      stats->bytes_written = 0;
+      stats->scan_ns = 0;
+      stats->finalize_ns =
+          std::chrono::duration_cast<std::chrono::nanoseconds>(
+              std::chrono::steady_clock::now() - t0)
+              .count();
+      stats->emit_ns = 0;
+    }
+  } catch (...) {
+    delete m;
+    throw;
+  }
+  return m;
+} catch (const std::bad_alloc&) {
+  return nullptr;
+}
+
+void mri_hidxm_free(void* mh) {
+  delete static_cast<HostMergeState*>(mh);
+}
+
+// Render letter files [letter_lo, letter_hi).  Returns bytes written,
+// -1 on IO/range error, -2 on OOM.  Reads only shared merge state plus
+// the workers' immutable runs: safe for concurrent reducer threads.
+int64_t mri_hidxm_emit_range(void* mh, int32_t letter_lo, int32_t letter_hi,
+                             const char* out_dir) try {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  if (letter_lo < 0 || letter_hi > 26 || letter_lo > letter_hi) return -1;
+  if (letter_lo == letter_hi) return 0;  // empty partition (R > 26)
+  const int64_t idx_start = m.letter_off[letter_lo];
+  const int64_t idx_end = m.letter_off[letter_hi];
+
+  // Range-scoped postings: gather each in-range term's worker runs and
+  // restore global doc-ascending order by chaining inplace_merge over
+  // the (ascending, disjoint) runs.
+  std::vector<int64_t> off(std::max(m.vocab, 1), 0);
+  std::vector<int64_t> cnt(std::max(m.vocab, 1), 0);
+  int64_t range_df = 0;
+  for (int64_t i = idx_start; i < idx_end; ++i)
+    range_df += m.df_gid[m.emit_order[i]];
+  std::vector<int32_t> flat(std::max<int64_t>(range_df, 1));
+  int64_t cur = 0;
+  for (int64_t i = idx_start; i < idx_end; ++i) {
+    const int64_t g = m.emit_order[i];
+    off[g] = cur;
+    cnt[g] = m.df_gid[g];
+    const int64_t term_start = cur;
+    for (int64_t s = m.seg_off[g]; s < m.seg_off[g + 1]; ++s) {
+      const HostStreamState& h = *m.parts[m.seg_worker[s]];
+      const int32_t lid = m.seg_lid[s];
+      const int64_t lo = h.local_off[lid];
+      const int64_t n = h.local_off[lid + 1] - lo;
+      std::copy(h.local_flat.begin() + lo, h.local_flat.begin() + lo + n,
+                flat.begin() + cur);
+      if (cur != term_start)
+        std::inplace_merge(flat.begin() + term_start, flat.begin() + cur,
+                           flat.begin() + cur + n);
+      cur += n;
+    }
+  }
+  const EmitRun run{nullptr, flat.data(), off.data(), cnt.data()};
+  return EmitLettersRuns(m.vocab_packed.data(), m.vocab, m.width,
+                         m.emit_order.data(), &run, 1, out_dir,
+                         m.st->word_lens.data(), m.max_doc_id,
+                         letter_lo, letter_hi, idx_start, idx_end);
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// ---------------------------------------------------------------------------
+// Integrity probes for the audit layer (audit.py): read-only walks over
+// scan/merge state so the Python-side invariant checks never copy
+// postings out.  Both are safe concurrently with emit_range (nothing
+// here mutates).
+// ---------------------------------------------------------------------------
+
+// Per-worker scan totals: vocab (local provisional ids), deduped
+// (term, doc) pair count, raw token count.
+int32_t mri_hidx_info(void* handle, int32_t* vocab_out, int64_t* pairs_out,
+                      int64_t* raw_tokens_out) {
+  HostStreamState& h = *static_cast<HostStreamState*>(handle);
+  if (vocab_out) *vocab_out = h.st.next_id;
+  if (pairs_out) *pairs_out = h.st.num_pairs;
+  if (raw_tokens_out) *raw_tokens_out = h.st.raw_tokens;
+  return 0;
+}
+
+// Merge invariants over every global term's worker runs: summed run
+// lengths must equal the merged df (disjoint windows sum exactly), and
+// each run must be strictly ascending (each worker's partial restores
+// doc order; equal neighbors would mean a doc counted twice).  Returns
+// 0 ok, 1 df-sum mismatch, 2 non-monotonic run; the offending global
+// term id lands in *bad_term.
+int32_t mri_hidxm_audit(void* mh, int32_t* bad_term) {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  for (int32_t g = 0; g < m.vocab; ++g) {
+    int64_t total = 0;
+    for (int64_t s = m.seg_off[g]; s < m.seg_off[g + 1]; ++s) {
+      const HostStreamState& h = *m.parts[m.seg_worker[s]];
+      const int32_t lid = m.seg_lid[s];
+      const int64_t lo = h.local_off[lid];
+      const int64_t hi = h.local_off[lid + 1];
+      total += hi - lo;
+      for (int64_t k = lo + 1; k < hi; ++k)
+        if (h.local_flat[k - 1] >= h.local_flat[k]) {
+          if (bad_term) *bad_term = g;
+          return 2;
+        }
+    }
+    if (total != m.df_gid[g]) {
+      if (bad_term) *bad_term = g;
+      return 1;
+    }
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Columnar export for the serving artifact (serve/artifact.py): flatten
+// the merge state into lexicographically-ordered arrays — term rows,
+// df, posting offsets, globally-ascending postings, and the emit-order
+// permutation re-expressed over lex indices — so the artifact writer
+// never round-trips through the letter-file text.  Caller allocates
+// (sizes from mri_hidxm_export_info); both calls are read-only on the
+// merge state, safe concurrently with emit_range.
+// ---------------------------------------------------------------------------
+
+int32_t mri_hidxm_export_info(void* mh, int32_t* vocab_out,
+                              int32_t* width_out, int32_t* max_doc_id_out,
+                              int64_t* num_pairs_out,
+                              int64_t* blob_bytes_out) {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  const StreamState& st = *m.st;
+  int64_t pairs = 0, blob = 0;
+  for (int32_t g = 0; g < m.vocab; ++g) {
+    pairs += m.df_gid[g];
+    blob += st.word_lens[g];
+  }
+  if (vocab_out) *vocab_out = m.vocab;
+  if (width_out) *width_out = m.width;
+  if (max_doc_id_out) *max_doc_id_out = m.max_doc_id;
+  if (num_pairs_out) *num_pairs_out = pairs;
+  if (blob_bytes_out) *blob_bytes_out = blob;
+  return 0;
+}
+
+// Fill caller-allocated arrays: vocab_packed (V*width, NUL-padded),
+// word_lens (V), df (V), offsets (V+1 exclusive prefix), postings
+// (num_pairs, ascending per term via the emit path's inplace_merge
+// chain), df_order (V lex indices in (letter asc, df desc, word asc)
+// order), letter_off (27 — shared by lex and emit order, both being
+// letter-contiguous).  Returns 0, or -2 on OOM.
+int32_t mri_hidxm_export(void* mh, uint8_t* vocab_packed, int32_t* word_lens,
+                         int64_t* df, int64_t* offsets, int32_t* postings,
+                         int64_t* df_order, int64_t* letter_off) try {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  const StreamState& st = *m.st;
+  const int32_t V = m.vocab;
+  const std::vector<int32_t> lex = SortedOrder(st);
+  std::vector<int32_t> inv(std::max(V, 1));
+  for (int32_t r = 0; r < V; ++r) inv[lex[r]] = r;
+  int64_t cur = 0;
+  for (int32_t r = 0; r < V; ++r) {
+    const int32_t g = lex[r];
+    std::memcpy(vocab_packed + static_cast<int64_t>(r) * m.width,
+                m.vocab_packed.data() + static_cast<int64_t>(g) * m.width,
+                m.width);
+    word_lens[r] = static_cast<int32_t>(st.word_lens[g]);
+    df[r] = m.df_gid[g];
+    offsets[r] = cur;
+    const int64_t term_start = cur;
+    for (int64_t s = m.seg_off[g]; s < m.seg_off[g + 1]; ++s) {
+      const HostStreamState& h = *m.parts[m.seg_worker[s]];
+      const int32_t lid = m.seg_lid[s];
+      const int64_t lo = h.local_off[lid];
+      const int64_t n = h.local_off[lid + 1] - lo;
+      std::copy(h.local_flat.begin() + lo, h.local_flat.begin() + lo + n,
+                postings + cur);
+      if (cur != term_start)
+        std::inplace_merge(postings + term_start, postings + cur,
+                           postings + cur + n);
+      cur += n;
+    }
+  }
+  offsets[V] = cur;
+  for (int32_t i = 0; i < V; ++i) df_order[i] = inv[m.emit_order[i]];
+  for (int l = 0; l < 27; ++l) letter_off[l] = m.letter_off[l];
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// One-pass artifact payload fill (serve/artifact.py build_from_merge):
+// writes every payload section of the index.mri format DIRECTLY into
+// the caller's file buffer at the offsets the Python layout computed —
+// compact term blob (no fixed-width round-trip), i32 df, and postings
+// DELTA-ENCODED in place right after each term's run merge — so the
+// Python side is left with just checksum + header + one write().
+int32_t mri_hidxm_export_payload(void* mh, uint8_t* base,
+                                 int64_t off_letter_dir,
+                                 int64_t off_term_offsets,
+                                 int64_t off_term_blob, int64_t off_df,
+                                 int64_t off_post_offsets,
+                                 int64_t off_postings,
+                                 int64_t off_df_order) try {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  const StreamState& st = *m.st;
+  const int32_t V = m.vocab;
+  int64_t* letter_dir = reinterpret_cast<int64_t*>(base + off_letter_dir);
+  int64_t* term_offsets = reinterpret_cast<int64_t*>(base + off_term_offsets);
+  uint8_t* term_blob = base + off_term_blob;
+  int32_t* df = reinterpret_cast<int32_t*>(base + off_df);
+  int64_t* post_offsets = reinterpret_cast<int64_t*>(base + off_post_offsets);
+  int32_t* postings = reinterpret_cast<int32_t*>(base + off_postings);
+  int32_t* df_order = reinterpret_cast<int32_t*>(base + off_df_order);
+
+  for (int l = 0; l < 27; ++l) letter_dir[l] = m.letter_off[l];
+  const uint8_t* arena = st.arena.data();
+  const std::vector<int32_t> lex = LexOrderRadix(st, V);
+  std::vector<int32_t> inv(std::max(V, 1));
+  for (int32_t r = 0; r < V; ++r) inv[lex[r]] = r;
+  // blob writes may use fixed-width 8-byte stores (the arena pads every
+  // word to an 8-byte multiple, so the LOAD is always safe); the store
+  // may spill past the word into bytes a later term overwrites, bounded
+  // by the section's alignment pad — re-zeroed after the loop.
+  const int64_t blob_room = off_df - off_term_blob;
+  int64_t blob_cur = 0, cur = 0;
+  for (int32_t r = 0; r < V; ++r) {
+    // The walk visits gids in lex order — random against every
+    // per-gid array — and each term chains 3+ dependent loads (CSR
+    // slot -> run bounds -> run data).  Two-distance software
+    // prefetch keeps several of those misses in flight: first-level
+    // rows far ahead, the second-level values they feed closer in.
+    if (r + 16 < V) {
+      const int32_t gf = lex[r + 16];
+      __builtin_prefetch(&m.seg_off[gf]);
+      __builtin_prefetch(&m.df_gid[gf]);
+      __builtin_prefetch(&st.word_offsets[gf]);
+    }
+    if (r + 4 < V) {
+      const int32_t gn = lex[r + 4];
+      __builtin_prefetch(arena + st.word_offsets[gn]);
+      const int64_t sn = m.seg_off[gn];
+      __builtin_prefetch(&m.seg_worker[sn]);
+      __builtin_prefetch(&m.seg_lid[sn]);
+    }
+    if (r + 1 < V) {
+      const int32_t g1 = lex[r + 1];
+      const int64_t s1 = m.seg_off[g1];
+      const HostStreamState& h1 = *m.parts[m.seg_worker[s1]];
+      __builtin_prefetch(h1.local_flat.data() + h1.local_off[m.seg_lid[s1]]);
+    }
+    const int32_t g = lex[r];
+    term_offsets[r] = blob_cur;
+    const uint32_t wl = st.word_lens[g];
+    if (wl <= 8 && blob_cur + 8 <= blob_room)
+      std::memcpy(term_blob + blob_cur, arena + st.word_offsets[g], 8);
+    else
+      std::memcpy(term_blob + blob_cur, arena + st.word_offsets[g], wl);
+    blob_cur += wl;
+    df[r] = static_cast<int32_t>(m.df_gid[g]);
+    post_offsets[r] = cur;
+    const int64_t term_start = cur;
+    const int64_t seg_lo = m.seg_off[g], seg_hi = m.seg_off[g + 1];
+    if (seg_hi - seg_lo == 1) {
+      // single worker run (the K=1 common case): fused gather + delta,
+      // one pass instead of copy-then-encode
+      const HostStreamState& h = *m.parts[m.seg_worker[seg_lo]];
+      const int32_t lid = m.seg_lid[seg_lo];
+      const int64_t lo = h.local_off[lid];
+      const int64_t n = h.local_off[lid + 1] - lo;
+      const int32_t* src = h.local_flat.data() + lo;
+      int32_t prev = 0;  // first id stays absolute
+      for (int64_t j = 0; j < n; ++j) {
+        postings[cur + j] = src[j] - prev;
+        prev = src[j];
+      }
+      cur += n;
+    } else {
+      for (int64_t s = seg_lo; s < seg_hi; ++s) {
+        const HostStreamState& h = *m.parts[m.seg_worker[s]];
+        const int32_t lid = m.seg_lid[s];
+        const int64_t lo = h.local_off[lid];
+        const int64_t n = h.local_off[lid + 1] - lo;
+        std::copy(h.local_flat.begin() + lo, h.local_flat.begin() + lo + n,
+                  postings + cur);
+        if (cur != term_start)
+          std::inplace_merge(postings + term_start, postings + cur,
+                             postings + cur + n);
+        cur += n;
+      }
+      // delta-encode the merged run in place, backwards (first id stays
+      // absolute) — the format's cumsum-decodable wire form
+      for (int64_t j = cur - 1; j > term_start; --j)
+        postings[j] -= postings[j - 1];
+    }
+  }
+  if (blob_cur < blob_room)  // fixed-width stores may have scribbled pad
+    std::memset(term_blob + blob_cur, 0, blob_room - blob_cur);
+  term_offsets[V] = blob_cur;
+  post_offsets[V] = cur;
+  for (int32_t i = 0; i < V; ++i)
+    df_order[i] = inv[m.emit_order[i]];
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// ---------------------------------------------------------------------------
+// Format-v2 export (serve/artifact.py build_from_merge with
+// MRI_SERVE_FORMAT=2): postings as fixed-size blocks of bitpacked
+// (delta - 1) values with per-block skip entries (max doc id, first doc
+// id, bit width), a parallel bitpacked (tf - 1) column, and the BM25
+// doc-length column.  Two calls: _prepare merges + packs everything
+// into the plan vectors (one pass over the runs, block widths chosen on
+// the fly) and reports the section sizes the Python layout needs;
+// _payload memcpys the plan into the caller's file buffer at the layout
+// offsets and releases it.
+// ---------------------------------------------------------------------------
+
+int32_t mri_hidxm_export_v2_prepare(void* mh, int32_t block_size,
+                                    int32_t score_bits,
+                                    int64_t* num_blocks_out,
+                                    int64_t* post_bytes_out,
+                                    int64_t* tf_bytes_out) try {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  const StreamState& st = *m.st;
+  const int32_t V = m.vocab;
+  const int32_t B = block_size;
+  if (B < 2 || B > (1 << 20) || (B & (B - 1)) != 0) return -1;
+  if (score_bits != 0 && score_bits != 8 && score_bits != 16) return -1;
+  m.v2_block_size = B;
+  m.v2_score_bits = score_bits;
+  m.v2_lex = LexOrderRadix(st, V);
+  m.v2_blk_max.clear();
+  m.v2_blk_first.clear();
+  m.v2_blk_width.clear();
+  m.v2_blk_tf_width.clear();
+  m.v2_blk_max_tf.clear();
+  m.v2_blk_min_dl.clear();
+  m.v2_post_data.clear();
+  m.v2_tf_data.clear();
+
+  // doc-length column: each worker's doc_tokens entries are disjoint
+  // doc spans, so += sums exactly (a doc split across feeds of one
+  // worker contributes multiple entries)
+  m.v2_doc_lens.assign(static_cast<size_t>(m.max_doc_id) + 1, 0);
+  for (const HostStreamState* p : m.parts)
+    for (const auto& dt : p->doc_tokens)
+      if (dt.first >= 0 && dt.first <= m.max_doc_id)
+        m.v2_doc_lens[dt.first] += static_cast<int32_t>(dt.second);
+
+  BitPacker pp(m.v2_post_data), tp(m.v2_tf_data);
+  std::vector<int32_t> docs, tfs;
+  std::vector<uint64_t> packed;
+  for (int32_t r = 0; r < V; ++r) {
+    const int32_t g = m.v2_lex[r];
+    const int64_t df = m.df_gid[g];
+    if (df == 0) continue;
+    const int64_t seg_lo = m.seg_off[g], seg_hi = m.seg_off[g + 1];
+    const int32_t* dptr;
+    const int32_t* tptr;
+    if (seg_hi - seg_lo == 1) {
+      // single worker run (the K=1 common case): pack straight from
+      // the worker's immutable run, no copy
+      const HostStreamState& h = *m.parts[m.seg_worker[seg_lo]];
+      const int32_t lid = m.seg_lid[seg_lo];
+      const int64_t lo = h.local_off[lid];
+      dptr = h.local_flat.data() + lo;
+      tptr = h.local_flat_tf.data() + lo;
+    } else {
+      // multi-run: co-merge docs and tf through packed u64 keys (docs
+      // are disjoint across workers, so doc order == key order)
+      packed.resize(static_cast<size_t>(df));
+      int64_t cur = 0;
+      for (int64_t s = seg_lo; s < seg_hi; ++s) {
+        const HostStreamState& h = *m.parts[m.seg_worker[s]];
+        const int32_t lid = m.seg_lid[s];
+        const int64_t lo = h.local_off[lid];
+        const int64_t n = h.local_off[lid + 1] - lo;
+        for (int64_t j = 0; j < n; ++j)
+          packed[cur + j] =
+              (static_cast<uint64_t>(
+                   static_cast<uint32_t>(h.local_flat[lo + j]))
+               << 32) |
+              static_cast<uint32_t>(h.local_flat_tf[lo + j]);
+        if (cur)
+          std::inplace_merge(packed.begin(), packed.begin() + cur,
+                             packed.begin() + cur + n);
+        cur += n;
+      }
+      docs.resize(static_cast<size_t>(df));
+      tfs.resize(static_cast<size_t>(df));
+      for (int64_t j = 0; j < df; ++j) {
+        docs[j] = static_cast<int32_t>(packed[j] >> 32);
+        tfs[j] = static_cast<int32_t>(packed[j] & 0xffffffffu);
+      }
+      dptr = docs.data();
+      tptr = tfs.data();
+    }
+    for (int64_t b0 = 0; b0 < df; b0 += B) {
+      const int32_t cnt = static_cast<int32_t>(std::min<int64_t>(B, df - b0));
+      m.v2_blk_first.push_back(dptr[b0]);
+      m.v2_blk_max.push_back(dptr[b0 + cnt - 1]);
+      uint32_t maxd = 0, maxt = 0;
+      for (int32_t j = 1; j < cnt; ++j)
+        maxd = std::max(
+            maxd, static_cast<uint32_t>(dptr[b0 + j] - dptr[b0 + j - 1] - 1));
+      for (int32_t j = 0; j < cnt; ++j)
+        maxt = std::max(maxt, static_cast<uint32_t>(tptr[b0 + j] - 1));
+      const int wd = BitWidth(maxd);
+      const int wt = BitWidth(maxt);
+      m.v2_blk_width.push_back(static_cast<uint8_t>(wd));
+      m.v2_blk_tf_width.push_back(static_cast<uint8_t>(wt));
+      if (score_bits) {
+        // maxt holds max(tf - 1); the columns store saturated max tf
+        // and min doc length (same integer saturation as the Python
+        // packer — the engines derive the float bound at query time)
+        const uint32_t cap = (1u << score_bits) - 1;
+        uint32_t mind = UINT32_MAX;
+        for (int32_t j = 0; j < cnt; ++j)
+          mind = std::min(
+              mind, static_cast<uint32_t>(m.v2_doc_lens[dptr[b0 + j]]));
+        const uint32_t mt = std::min(maxt + 1, cap);
+        const uint32_t md = std::min(mind, cap);
+        m.v2_blk_max_tf.push_back(static_cast<uint8_t>(mt & 0xff));
+        m.v2_blk_min_dl.push_back(static_cast<uint8_t>(md & 0xff));
+        if (score_bits == 16) {
+          m.v2_blk_max_tf.push_back(static_cast<uint8_t>(mt >> 8));
+          m.v2_blk_min_dl.push_back(static_cast<uint8_t>(md >> 8));
+        }
+      }
+      for (int32_t j = 1; j < cnt; ++j)
+        pp.Push(static_cast<uint32_t>(dptr[b0 + j] - dptr[b0 + j - 1] - 1),
+                wd);
+      pp.Flush();
+      for (int32_t j = 0; j < cnt; ++j)
+        tp.Push(static_cast<uint32_t>(tptr[b0 + j] - 1), wt);
+      tp.Flush();
+    }
+  }
+  if (num_blocks_out)
+    *num_blocks_out = static_cast<int64_t>(m.v2_blk_max.size());
+  if (post_bytes_out)
+    *post_bytes_out = static_cast<int64_t>(m.v2_post_data.size()) * 4;
+  if (tf_bytes_out)
+    *tf_bytes_out = static_cast<int64_t>(m.v2_tf_data.size()) * 4;
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
+}
+
+// Fill the v2/v2.1 payload sections.  `offs` holds byte offsets into
+// `base`, in fixed section order: letter_dir, term_offsets, term_blob,
+// df, blk_max, blk_first, blk_width, blk_tf_width, [blk_max_tf,
+// blk_min_dl,] post_data, tf_data, doc_lens, df_order — 12 offsets for
+// a v2 plan (score_bits 0), 14 for a v2.1 plan.  Releases the prepare
+// plan on success.
+int32_t mri_hidxm_export_v2_payload(void* mh, uint8_t* base,
+                                    const int64_t* offs,
+                                    int32_t n_offs) try {
+  HostMergeState& m = *static_cast<HostMergeState*>(mh);
+  const StreamState& st = *m.st;
+  const int32_t V = m.vocab;
+  if (m.v2_block_size == 0) return -1;
+  if (n_offs != (m.v2_score_bits ? 14 : 12)) return -1;
+  const int tail = m.v2_score_bits ? 10 : 8;  // post_data's slot
+  int64_t* letter_dir = reinterpret_cast<int64_t*>(base + offs[0]);
+  int64_t* term_offsets = reinterpret_cast<int64_t*>(base + offs[1]);
+  uint8_t* term_blob = base + offs[2];
+  int32_t* df = reinterpret_cast<int32_t*>(base + offs[3]);
+  int32_t* df_order =
+      reinterpret_cast<int32_t*>(base + offs[tail + 3]);
+
+  for (int l = 0; l < 27; ++l) letter_dir[l] = m.letter_off[l];
+  const uint8_t* arena = st.arena.data();
+  int64_t blob_cur = 0;
+  for (int32_t r = 0; r < V; ++r) {
+    const int32_t g = m.v2_lex[r];
+    term_offsets[r] = blob_cur;
+    std::memcpy(term_blob + blob_cur, arena + st.word_offsets[g],
+                st.word_lens[g]);
+    blob_cur += st.word_lens[g];
+    df[r] = static_cast<int32_t>(m.df_gid[g]);
+  }
+  term_offsets[V] = blob_cur;
+  const auto copy_bytes = [&](int idx, const void* src, size_t n) {
+    if (n) std::memcpy(base + offs[idx], src, n);
+  };
+  copy_bytes(4, m.v2_blk_max.data(), m.v2_blk_max.size() * 4);
+  copy_bytes(5, m.v2_blk_first.data(), m.v2_blk_first.size() * 4);
+  copy_bytes(6, m.v2_blk_width.data(), m.v2_blk_width.size());
+  copy_bytes(7, m.v2_blk_tf_width.data(), m.v2_blk_tf_width.size());
+  if (m.v2_score_bits) {
+    copy_bytes(8, m.v2_blk_max_tf.data(), m.v2_blk_max_tf.size());
+    copy_bytes(9, m.v2_blk_min_dl.data(), m.v2_blk_min_dl.size());
+  }
+  copy_bytes(tail, m.v2_post_data.data(), m.v2_post_data.size() * 4);
+  copy_bytes(tail + 1, m.v2_tf_data.data(), m.v2_tf_data.size() * 4);
+  copy_bytes(tail + 2, m.v2_doc_lens.data(), m.v2_doc_lens.size() * 4);
+  std::vector<int32_t> inv(std::max(V, 1));
+  for (int32_t r = 0; r < V; ++r) inv[m.v2_lex[r]] = r;
+  for (int32_t i = 0; i < V; ++i) df_order[i] = inv[m.emit_order[i]];
+
+  std::vector<int32_t>().swap(m.v2_lex);
+  std::vector<int32_t>().swap(m.v2_blk_max);
+  std::vector<int32_t>().swap(m.v2_blk_first);
+  std::vector<uint8_t>().swap(m.v2_blk_width);
+  std::vector<uint8_t>().swap(m.v2_blk_tf_width);
+  std::vector<uint8_t>().swap(m.v2_blk_max_tf);
+  std::vector<uint8_t>().swap(m.v2_blk_min_dl);
+  std::vector<uint32_t>().swap(m.v2_post_data);
+  std::vector<uint32_t>().swap(m.v2_tf_data);
+  std::vector<int32_t>().swap(m.v2_doc_lens);
+  m.v2_block_size = 0;
+  m.v2_score_bits = 0;
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -2;
 }
 
 // =====================================================================

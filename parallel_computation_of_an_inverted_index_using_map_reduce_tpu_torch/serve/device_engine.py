@@ -809,6 +809,10 @@ class DeviceEngine:
 
     # -- bookkeeping ---------------------------------------------------------------
 
+    @property
+    def cache(self) -> LRUCache:
+        return self._cache
+
     def cache_stats(self) -> dict:
         return self._cache.stats()
 

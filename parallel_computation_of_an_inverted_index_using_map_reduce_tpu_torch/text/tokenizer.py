@@ -70,6 +70,9 @@ class TokenizedCorpus:
     def vocab_size(self) -> int:
         return int(self.vocab.shape[0])
 
+    def vocab_strings(self) -> list[str]:
+        return [w.decode("ascii") for w in self.vocab]
+
 
 def corpus_from_numpy(term_ids, doc_ids, vocab, letter_of_term) -> TokenizedCorpus:
     """A :class:`TokenizedCorpus` from plain arrays — e.g. the fields of
@@ -252,3 +255,11 @@ def tokenize(contents: list[bytes], doc_ids: list[int],
             return native.tokenize_native(
                 contents, doc_ids, dedup_pairs=dedup_pairs, num_threads=num_threads)
     return tokenize_documents(contents, doc_ids)
+
+
+def tokenize_corpus(manifest, use_native: bool = True) -> TokenizedCorpus:
+    """Manifest -> TokenizedCorpus (loads files, warn-and-skip unreadable)."""
+    from ..corpus.manifest import load_documents
+
+    contents, doc_ids = load_documents(manifest)
+    return tokenize(contents, doc_ids, use_native=use_native)

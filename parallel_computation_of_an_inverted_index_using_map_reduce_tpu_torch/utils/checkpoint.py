@@ -76,11 +76,21 @@ def manifest_fingerprint(manifest) -> str:
     Resume trusts the checkpoint over the corpus bytes, like the
     reference's leftover spill files; a changed file count or a renamed
     path is a different corpus and is rejected at load.
+
+    A virtual manifest (corpus/synthetic.py) carries its identity in
+    ``fingerprint_extra`` (the generator's parameters) and is hashed by
+    that string alone: its paths are placeholders, equal for any two
+    corpora of one size.  The JAX package hashes the same bytes, so the
+    fingerprint of any manifest is equal in both packages.
     """
     h = hashlib.md5()
     h.update(str(len(manifest)).encode())
-    for p in manifest.paths:
-        h.update(b"\0" + p.encode("utf-8", "surrogateescape"))
+    extra = getattr(manifest, "fingerprint_extra", "")
+    if extra:
+        h.update(extra.encode())
+    else:
+        for p in manifest.paths:
+            h.update(b"\0" + p.encode("utf-8", "surrogateescape"))
     return h.hexdigest()
 
 

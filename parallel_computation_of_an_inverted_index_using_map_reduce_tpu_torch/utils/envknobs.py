@@ -32,6 +32,26 @@ _KNOBS: dict[str, _Knob] = {
     "MRI_TPU_CKPT_STRETCH": _Knob(int, 4),
     # test hook: raise after this device-stream window (0: disabled)
     "MRI_TPU_STREAM_CRASH_AFTER_WINDOWS": _Knob(int, 0),
+    # -- the host backend (backend='cpu') --
+    # bytes per host scan window (unset: the backend's ~2 MB); tests
+    # force tiny values for multi-window plans on small corpora
+    "MRI_CPU_WINDOW_BYTES": _Knob(int, None),
+    # seeded shuffle of the steal queue's window order (unset: manifest
+    # order)
+    "MRI_STEAL_SHUFFLE_SEED": _Knob(int, None),
+    # per-window lease deadline in seconds: a worker holding a lease
+    # past it is retired and its windows requeued (unset: no watchdog)
+    "MRI_WINDOW_DEADLINE_S": _Knob(float, None),
+    # scan-worker respawn budget after worker deaths (clamped to >= 0)
+    "MRI_WORKER_RESPAWNS": _Knob(int, 1),
+    # term-hash shard count of the out-of-core build's spill runs
+    "MRI_BUILD_SHARDS": _Knob(int, 8, minimum=1),
+    # per-worker postings budget in bytes: when set, scan workers spill
+    # term-hash-sharded runs at this estimated footprint and the reduce
+    # k-way-merges them (unset: the in-memory merge)
+    "MRI_BUILD_SPILL_BYTES": _Knob(int, None, minimum=1),
+    # crash hook: SIGKILL the process after N complete spill run files
+    "MRI_SPILL_KILL_AFTER": _Knob(int, None),
     # -- fault injection and read retries --
     # fault spec armed at the first faults.active() call (subprocess
     # arming); the grammar of --fault-spec
