@@ -169,7 +169,37 @@ Phases, each failing loudly (exit 1, no result line):
    One ``path_m`` line holds each leg's phases, ``host_threads``, spill
    runs and the process's peak RSS during the leg, beside the card and
    the host's CPU model.
-15. Kernels: each CUDA kernel against its plain PyTorch version on the
+15. Path N — the live index (``segments/``) on Path B's corpus, in the
+   phase ``path_n`` line: N1 the default card build with ``--artifact``
+   over files 1-16,000 as the seed, then ``append --add`` of
+   16,001-18,000 and 18,001-20,000 as two segments on the host; df and
+   postings at batches 1 and 1,024 of Zipf words, AND/OR of 2-3 words
+   and letter top-10 of the multi-segment engine equal the card's
+   ``DeviceEngine`` over Path H's artifact (BM25 is not compared: the
+   card's seed has no real tf); N2 ``delete --docs`` of 1,000 ids across
+   the three segments, one again (no new tombstone), the same answers
+   as a from-scratch card build of the 19,000 live files, ids mapped by
+   rank; N3 a ``compact --fault-spec compact-crash`` child exits 2 with
+   the manifest unchanged, ``compact --force`` at
+   ``MRI_SEGMENT_COMPACT_TRIGGER=2`` folds the two appended segments,
+   ``--verify`` exits 0, N2's answers again; N4 ``serve`` in a child over
+   four appends of 1,000 files (the multi-segment engine): eight read
+   clients of Path L's mix, each request carrying the last acknowledged
+   generation as ``min_generation``, while a mutation client appends
+   1,000 files, deletes 200 ids at ``MRI_SEGMENT_TOMBSTONE_FLUSH=8`` and
+   compacts; every distinct read then equals a host ``Engine`` exactly
+   and the card's ``DeviceEngine`` (BM25 rel 1e-4, ties in any order)
+   over a from-scratch ``--backend cpu`` build of the live files; five
+   deletes acknowledged buffered, SIGKILL, restart: the startup recovery
+   replays them (``recover`` on a copy writes the same manifest) and the
+   answers equal the new reference; N5 ``serve --replica-of`` that
+   primary (armed with one ``fetch-partial``) on an empty directory at
+   ``MRI_REPLICA_POLL_MS=200``: the torn ship rejected and retried, every
+   file byte-equal, one more primary append followed within 10 s.  ms
+   per append, delete, compact, recover and engine open, per-op query
+   ms, read p50/p99 under mutations, ack ms, convergence ms, peak device
+   memory and both kernels' launches (0: the seed is the pipelined plan).
+16. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -180,7 +210,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-16. Engine: the warm device time of each engine program a path runs, at
+17. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -194,7 +224,8 @@ Phases, each failing loudly (exit 1, no result line):
 default build with ``--artifact`` on Path B's corpus and Path J alone, on
 every card the machine has (4 shards, shard i on card i % cards);
 ``--serve-only`` runs the build, the default build with ``--artifact``
-on Path B's corpus and Path L alone.
+on Path B's corpus and Path L alone; ``--segments-only`` the build, the
+same ``--artifact`` build and Path N alone.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
@@ -2413,6 +2444,541 @@ def path_m(torch, K, cli, formatter, faults, synthetic, build_index, IndexConfig
     return launches
 
 
+# -- Path N: the live index (segments/) ----------------------------------------
+
+N_READ_CONNS = 8       # N4's read clients while the mutation client runs
+N_READS = 120          # requests in each read client's list (cycled until the mutations end)
+N_FLUSH = 8            # MRI_SEGMENT_TOMBSTONE_FLUSH of N4's daemon
+N_BUFFERED = 5         # acknowledged deletes still buffered at N4's SIGKILL
+N_POLL_MS = 200        # MRI_REPLICA_POLL_MS of N5's replica
+N_CONVERGE_S = 10.0    # N5: the replica reaches the primary's generation within this
+#: compaction folds this many adjacent segments a round (N3 and N4): the
+#: two cheapest, so the seed's vocabulary stays out of the per-term loop
+N_COMPACT_TRIGGER = "2"
+
+
+def n_list(manifest_mod, tmp: Path, name: str, paths) -> Path:
+    lst = tmp / f"{name}_list.txt"
+    manifest_mod.write_manifest(lst, [str(p) for p in paths])
+    return lst
+
+
+def n_queries(np, rng, ranked: list[bytes]) -> dict:
+    """Zipf words: 16 batches of 1, 4 of 1,024; 32 AND/OR queries of 2-3
+    words; every letter for top-10."""
+    return {"b1": [zipf_terms(np, rng, ranked, 1) for _ in range(16)],
+            "b1024": [zipf_terms(np, rng, ranked, 1024) for _ in range(4)],
+            "bool": [zipf_terms(np, rng, ranked, 2 + i % 2) for i in range(32)],
+            "letters": "abcdefghijklmnopqrstuvwxyz"}
+
+
+def n_ids(np, a, live, label: str) -> list:
+    """Global doc ids as ``live``'s ranks (1-based; ``live`` ascending),
+    or unchanged when ``live`` is None; a deleted id fails."""
+    a = np.asarray(a, dtype=np.int64)
+    if live is None:
+        return a.tolist()
+    pos = np.searchsorted(live, a)
+    check(bool(len(a) == 0 or ((pos < len(live)).all()
+                               and (live[np.minimum(pos, len(live) - 1)] == a).all())),
+          f"{label}: a deleted document was answered")
+    return (pos + 1).tolist()
+
+
+def n_compare(np, multi, ref, q: dict, label: str, live=None) -> None:
+    """``multi``'s df and postings (batches 1 and 1,024), AND and OR of 2-3
+    words and letter top-10 equal ``ref``'s, ``multi``'s ids mapped to
+    ``ref``'s by rank in ``live`` when given."""
+    for batch in q["b1"] + q["b1024"]:
+        bm, br = multi.encode_batch(batch), ref.encode_batch(batch)
+        check(multi.df(bm).tolist() == ref.df(br).tolist(),
+              f"{label}: df of a batch of {len(batch)} differ")
+        for w, a, b in zip(batch, multi.postings(bm), ref.postings(br)):
+            check((a is None) == (b is None)
+                  and (a is None or n_ids(np, a, live, label) == b.tolist()),
+                  f"{label}: postings of {w!r} differ")
+    for words in q["bool"]:
+        for op in ("query_and", "query_or"):
+            got = n_ids(np, getattr(multi, op)(multi.encode_batch(words)), live, label)
+            check(got == getattr(ref, op)(ref.encode_batch(words)).tolist(),
+                  f"{label}: {op} {words} differ")
+    for letter in q["letters"]:
+        check(multi.top_k(letter, 10) == ref.top_k(letter, 10),
+              f"{label}: top-10 of {letter!r} differ")
+
+
+def n_op_ms(eng, q: dict) -> dict:
+    """Host-clock ms of one call (the answer on the host), median over
+    the query sets, each op warmed once."""
+    ops = {"df@1": (lambda b: eng.df(eng.encode_batch(b)), q["b1"]),
+           "postings@1": (lambda b: eng.postings(eng.encode_batch(b)), q["b1"]),
+           "df@1024": (lambda b: eng.df(eng.encode_batch(b)), q["b1024"]),
+           "postings@1024": (lambda b: eng.postings(eng.encode_batch(b)), q["b1024"]),
+           "and@2-3": (lambda b: eng.query_and(eng.encode_batch(b)), q["bool"]),
+           "or@2-3": (lambda b: eng.query_or(eng.encode_batch(b)), q["bool"])}
+    out = {}
+    for name, (fn, args) in ops.items():
+        fn(args[0])
+        out[name] = timed_each(fn, args)["host_ms"]
+    return out
+
+
+def n_serve(log: Path, root: Path, *extra: str, **env_extra) -> subprocess.Popen:
+    """``serve DIR`` in a child on its default engine (stdout piped for
+    the listening line, stderr into ``log``)."""
+    with open(log, "ab") as errf:
+        return subprocess.Popen(
+            [sys.executable, "-m", PKG, "serve", str(root), "--listen", "127.0.0.1:0", *extra],
+            cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT), **env_extra},
+            stdout=subprocess.PIPE, stderr=errf)
+
+
+def n_ready(proc: subprocess.Popen, log: Path, label: str) -> dict:
+    line = proc.stdout.readline()
+    check(bool(line), f"{label}: serve died: {log.read_text(errors='replace')[-2000:]}")
+    ready = json.loads(line)
+    check(ready["event"] == "listening" and ready["engine"] == "multi",
+          f"{label}: listening line {ready}, want the multi-segment engine")
+    return ready
+
+
+def n_stop(proc: subprocess.Popen) -> int | None:
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    proc.stdout.close()
+    return proc.returncode
+
+
+class NReference:
+    """The answers a live directory's daemon must give: a from-scratch
+    ``--backend cpu --artifact`` build of the live files, served by the
+    host ``Engine`` (held exactly, BM25 floats included) and by the
+    card's ``DeviceEngine`` (BM25 within rel 1e-4, ties in any order)."""
+
+    def __init__(self, np, cli, manifest_mod, tmp: Path, name: str, paths, live, device: str):
+        from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+            DeviceEngine, Engine)
+
+        self.np, self.live = np, live
+        out = tmp / f"{name}_ref"
+        rc, _ = run_cli(cli, ["4", "26", str(n_list(manifest_mod, tmp, name,
+                                                    [paths[g - 1] for g in live.tolist()])),
+                              "--backend", "cpu", "--artifact", "--output-dir", str(out)])
+        check(rc == 0, f"path N {name} reference build: exit {rc}")
+        self.host = Engine(out)
+        self.dev = DeviceEngine(out, device=device)
+        self._memo: dict = {}
+
+    def close(self) -> None:
+        self.host.close()
+        self.dev.close()
+
+    def check(self, r: dict, got: dict, label: str) -> None:
+        key = json.dumps({k: v for k, v in r.items() if k not in ("id", "min_generation")},
+                         sort_keys=True)
+        if key not in self._memo:
+            self._memo[key] = (l_expected(self.host, r), l_expected(self.dev, r))
+        want_host, want_dev = self._memo[key]
+        np, live = self.np, self.live
+        got = {k: v for k, v in got.items() if k not in ("id", "trace_id")}
+        kind = l_kind(r)
+        if kind == "postings":
+            got["postings"] = [None if p is None else n_ids(np, p, live, label)
+                               for p in got.get("postings", [])]
+        elif kind == "bm25":
+            docs = got.get("docs", [])
+            got["docs"] = [[m, s] for m, (_, s) in
+                           zip(n_ids(np, [d for d, _ in docs], live, label), docs)]
+        elif kind in ("and", "or"):
+            got["docs"] = n_ids(np, got.get("docs", []), live, label)
+        check(got == want_host, f"{label}: {json.dumps(r)[:200]}: {json.dumps(got)[:200]} != "
+              f"host {json.dumps(want_host)[:200]}")
+        if kind == "bm25":
+            check_bm25_ties([tuple(x) for x in got["docs"]], [tuple(x) for x in want_dev["docs"]],
+                            1e-4, f"{label} vs the card")
+        else:
+            check(got == want_dev, f"{label}: {json.dumps(r)[:200]} != the card's answer")
+
+
+def n_traffic(np, addr, conns: list, mutations, acked: dict) -> tuple[dict, dict]:
+    """N4's traffic: ``len(conns)`` read clients, each cycling its request
+    list (at least once) until ``mutations(client)`` returns, every
+    request carrying the generation of the last acknowledged mutation as
+    ``min_generation``; every answer must be ``ok``.  Returns the read
+    latencies in s per kind while the mutations ran, and the result of
+    ``mutations``."""
+    import threading
+
+    done = threading.Event()
+    lat: dict = {}
+    errs: list = []
+    result: dict = {}
+
+    def reader(reqs):
+        try:
+            c = LClient(addr)
+            try:
+                passes = 0
+                while passes == 0 or not done.is_set():
+                    for r in reqs:
+                        t = time.monotonic()
+                        ans = c.rpc(**r, min_generation=acked["gen"])
+                        dt = time.monotonic() - t
+                        check("error" not in ans, f"path N4 read {r}: {ans}")
+                        if not done.is_set():
+                            lat.setdefault(l_kind(r), []).append(dt)
+                    passes += 1
+            finally:
+                c.close()
+        except Exception as e:  # surfaced on the main thread
+            errs.append(e)
+
+    def writer():
+        try:
+            c = LClient(addr)
+            try:
+                result.update(mutations(c))
+            finally:
+                c.close()
+        except Exception as e:
+            errs.append(e)
+        finally:
+            done.set()
+
+    threads = [threading.Thread(target=reader, args=(reqs,)) for reqs in conns]
+    threads.append(threading.Thread(target=writer))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "path N4: a client hung")
+    if errs:
+        raise errs[0]
+    return lat, result
+
+
+def n_tree(root: Path, man) -> dict:
+    """The manifest and every file a generation names, by relative path."""
+    out = {"segments.manifest.json": (root / "segments.manifest.json").read_bytes()}
+    for e in man.entries:
+        for name in ("index.mri",) + ((e.tombstones,) if e.tombstones else ()):
+            p = root / "segments" / e.name / name
+            out[str(p.relative_to(root))] = p.read_bytes()
+    return out
+
+
+def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, card: str,
+           device: str = "cuda") -> dict:
+    """Path N — the live index (``segments/``) on Path B's corpus.
+
+    N1: the default card build with ``--artifact`` over the first 80% of
+    the files, then ``append --add`` of the next two 10% as two segments:
+    df and postings at batches 1 and 1,024, AND/OR and letter top-10 of
+    the multi-segment engine equal the card's ``DeviceEngine`` over Path
+    H's artifact of all the files (the same ids).  N2: ``delete --docs``
+    of 5% of the ids across the three segments, one of them again (no
+    new tombstone); the same answers as a from-scratch card build of the
+    live files, ids mapped by rank.  N3: a ``compact
+    --fault-spec compact-crash`` child exits 2 and the generation serves
+    unchanged; ``compact --force`` (the two cheapest segments), then
+    ``--verify`` and N2's answers again.  N4: a directory of four appends
+    of 5% of the files served by the ``serve`` CLI in a child (its
+    default engine: the multi-segment engine); eight read clients send
+    Path L's mix carrying the last acknowledged generation as
+    ``min_generation`` while a mutation client appends 5% more, deletes
+    1% at ``MRI_SEGMENT_TOMBSTONE_FLUSH`` = 8 and compacts; then every
+    distinct read equals a host ``Engine`` (exactly) and the card's
+    ``DeviceEngine`` (BM25 rel 1e-4) over a from-scratch ``--backend
+    cpu`` build of the live files.  Five more deletes are acknowledged
+    buffered, the daemon is SIGKILLed and restarted: its startup recovery
+    replays them (``recover`` on a copy gives the same manifest), and the
+    answers equal the new reference.  N5: ``serve --replica-of`` the
+    restarted primary (armed with one ``fetch-partial``) on an empty
+    directory: the torn ship is rejected and retried, the replica starts
+    at the primary's generation with every file byte-equal, and follows
+    one more append within ``N_CONVERGE_S``."""
+    import shutil
+
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import segments
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+        DeviceEngine, Engine, artifact as TA, create_engine)
+
+    on_card = device == "cuda"
+    dev = [] if on_card else ["--device", "cpu"]
+    t_path = time.perf_counter()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    paths = list(manifest_mod.read_manifest(list_b).paths)
+    n = len(paths)
+    n_seed, n_app, n_small = n * 4 // 5, n // 10, n // 20
+    out: dict = {"card": card, "files": n}
+    ms: dict = {}
+    stage_s: dict = {}
+    t_stage = [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    with TA.load_artifact(h_path) as art:
+        ranked = [art.term(int(i)) for i in np.argsort(-art.df.astype(np.int64), kind="stable")]
+    rng = np.random.default_rng(31)
+    q = n_queries(np, rng, ranked)
+
+    # -- N1: seed on the card, two appends on the host -------------------------
+    live_dir = tmp / "N_live"
+    t0 = time.perf_counter()
+    rc, st = run_cli(cli, ["4", "26", str(n_list(manifest_mod, tmp, "N_seed", paths[:n_seed])),
+                           "--artifact", "--stats", "--output-dir", str(live_dir), *dev])
+    check(rc == 0, f"path N1 seed build: exit {rc}")
+    check_pipelined(st, "path N1 seed")
+    ms["seed_build"] = (time.perf_counter() - t0) * 1e3
+    if on_card:
+        out["seed_build_peak_memory"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ms["append_segment"] = []
+    for a, b in ((n_seed, n_seed + n_app), (n_seed + n_app, n)):
+        t0 = time.perf_counter()
+        rc, res = run_cli(cli, ["append", str(live_dir), "--add", *paths[a:b]])
+        ms["append_segment"].append((time.perf_counter() - t0) * 1e3)
+        check(rc == 0 and res["doc_ids"][0] == a + 1 and res["docs"] == b - a,
+              f"path N1 append {a + 1}..{b}: exit {rc}, {json.dumps(res)[:300]}")
+    check(res["segments"] == 3 and res["generation"] == 3, f"path N1: {res}")
+    t0 = time.perf_counter()
+    multi = create_engine(str(live_dir))  # no engine named: the multi-segment engine
+    ms["open_multi"] = (time.perf_counter() - t0) * 1e3
+    check(multi.engine_name == "multi", f"path N1 opened {multi.engine_name}")
+    with DeviceEngine(h_path, device=device) as full, Engine(h_path) as host_full:
+        n_compare(np, multi, full, q, "path N1")
+        out["n1"] = {"seed_pairs": st.get("unique_pairs"), "multi_ms": n_op_ms(multi, q),
+                     "device_full_ms": n_op_ms(full, q), "host_full_ms": n_op_ms(host_full, q),
+                     "segments": [(s["name"], s["docs"], s["vocab"], s["bytes"])
+                                  for s in multi.describe()["segments"]]}
+    multi.close()
+    stage("n1")
+
+    # -- N2: deletes across the three segments ----------------------------------
+    victims = np.sort(rng.choice(n, size=n // 20, replace=False) + 1)
+    for lo, hi in ((0, n_seed), (n_seed, n_seed + n_app), (n_seed + n_app, n)):
+        check(bool(((victims > lo) & (victims <= hi)).any()), "path N2: a segment without deletes")
+    t0 = time.perf_counter()
+    rc, res = run_cli(cli, ["delete", str(live_dir), "--docs", *map(str, victims.tolist())])
+    ms["delete"] = (time.perf_counter() - t0) * 1e3
+    check(rc == 0 and res["newly_tombstoned"] == len(victims), f"path N2 delete: {rc} {res}")
+    rc, res = run_cli(cli, ["delete", str(live_dir), "--docs", str(int(victims[0]))])
+    check(rc == 0 and res["newly_tombstoned"] == 0, f"path N2 re-delete: {rc} {res}")
+    # N3's crashed compaction runs in its child beside N2's reference build
+    # and checks: it holds the mutation lock through its merge, and reads
+    # need no lock
+    before = (live_dir / "segments.manifest.json").read_bytes()
+    crash_log = tmp / "N3_crash.log"
+    crash = start_child(["compact", str(live_dir), "--fault-spec", "compact-crash"], crash_log,
+                        MRI_SEGMENT_COMPACT_TRIGGER=N_COMPACT_TRIGGER)
+    live = np.setdiff1d(np.arange(1, n + 1), victims)
+    rc, _ = run_cli(cli, ["4", "26", str(n_list(manifest_mod, tmp, "N2_live",
+                                                [paths[g - 1] for g in live.tolist()])),
+                          "--artifact", "--output-dir", str(tmp / "N2_ref"), *dev])
+    check(rc == 0, f"path N2 reference build: exit {rc}")
+    ref2 = DeviceEngine(tmp / "N2_ref", device=device)
+    with create_engine(str(live_dir)) as multi:
+        n_compare(np, multi, ref2, q, "path N2", live=live)
+        out["n2"] = {"deleted": len(victims), "multi_ms": n_op_ms(multi, q),
+                     "device_ref_ms": n_op_ms(ref2, q)}
+    stage("n2")
+
+    # -- N3: compaction, the crashed one (started in N2) first -------------------
+    rc = wait_child(crash, crash_log, "path N3 compact-crash")
+    text = crash_log.read_text(errors="replace")
+    check(rc == 2 and "injected compaction crash" in text,
+          f"path N3 compact-crash: exit {rc}: {text[-1000:]}")
+    check((live_dir / "segments.manifest.json").read_bytes() == before,
+          "path N3: the crashed compaction changed the manifest")
+    with create_engine(str(live_dir)) as multi:
+        n_compare(np, multi, ref2, q, "path N3 after the crash", live=live)
+    with env(MRI_SEGMENT_COMPACT_TRIGGER=N_COMPACT_TRIGGER):
+        t0 = time.perf_counter()
+        rc, res = run_cli(cli, ["compact", str(live_dir), "--force"])
+        ms["compact"] = (time.perf_counter() - t0) * 1e3
+    check(rc == 0 and res["compacted"] and res["segments"] == 2,
+          f"path N3 compact: exit {rc}, {res}")
+    rc, err = verify_cli(cli, live_dir)
+    check(rc == 0, f"path N3 --verify: exit {rc}: {err[-500:]}")
+    t0 = time.perf_counter()
+    with create_engine(str(live_dir)) as multi:
+        ms["open_multi_compacted"] = (time.perf_counter() - t0) * 1e3
+        n_compare(np, multi, ref2, q, "path N3", live=live)
+        out["n3"] = {"compact": {k: res[k] for k in ("inputs", "tombstones_dropped", "bytes",
+                                                    "compact_ms")},
+                     "multi_ms": n_op_ms(multi, q)}
+    ref2.close()
+    stage("n3")
+
+    # -- N4: the daemon over a directory built by appends ------------------------
+    n4 = tmp / "N4_live"
+    for i in range(4):
+        rc, res = run_cli(cli, ["append", str(n4), "--add",
+                                *paths[i * n_small:(i + 1) * n_small]])
+        check(rc == 0, f"path N4 append {i}: exit {rc}")
+    n4_env = {"MRI_SEGMENT_TOMBSTONE_FLUSH": str(N_FLUSH),
+              "MRI_SEGMENT_COMPACT_TRIGGER": N_COMPACT_TRIGGER}
+    log = tmp / "N4_serve.log"
+    proc = n_serve(log, n4, **n4_env)
+    try:
+        ready = n_ready(proc, log, "path N4")
+        addr = (ready["host"], ready["port"])
+        reads = [l_requests(np, rng, ranked, N_READS, 1 + i * N_READS)
+                 for i in range(N_READ_CONNS)]
+        span = 5 * n_small
+        doomed = np.sort(rng.choice(span, size=n // 100, replace=False) + 1)
+        acked = {"gen": 4}
+        acks: dict = {}
+
+        def mutations(c):
+            def ack(op, **kw):
+                t = time.monotonic()
+                r = c.rpc(op=op, **kw)
+                acks.setdefault(op, []).append(time.monotonic() - t)
+                check(r.get("ok") is True, f"path N4 {op}: {json.dumps(r)[:300]}")
+                acked["gen"] = max(acked["gen"], r["result"]["generation"])
+                return r["result"]
+
+            res = ack("append", files=paths[4 * n_small:span])
+            check(res["doc_ids"][0] == 4 * n_small + 1, f"path N4 append: {res}")
+            for i in range(0, len(doomed), N_FLUSH):
+                ack("delete", docs=doomed[i:i + N_FLUSH].tolist())
+            res = ack("compact")
+            check(res["compacted"], f"path N4 compact: {res}")
+            return {"compact": res}
+
+        stage("n4_appends_and_start")
+        lat, mres = n_traffic(np, addr, reads, mutations, acked)
+        stage("n4_traffic")
+        live4 = np.setdiff1d(np.arange(1, span + 1), doomed)
+        ref4 = NReference(np, cli, manifest_mod, tmp, "N4", paths, live4, device)
+        stage("n4_reference")
+        c = LClient(addr)
+        distinct = {json.dumps({k: v for k, v in r.items() if k != "id"}, sort_keys=True): r
+                    for conn in reads for r in conn}
+        for r in distinct.values():
+            ref4.check(r, c.rpc(**r), "path N4")
+        ref4.close()
+        stage("n4_checks")
+        # five acknowledged deletes left buffered, then SIGKILL
+        last = np.setdiff1d(live4, [1])[:N_BUFFERED]
+        for i, d in enumerate(last.tolist()):
+            r = c.rpc(id=900 + i, op="delete", docs=[d])
+            check(r.get("ok") and r["result"].get("buffered") and r["result"]["wal_seq"] > 0,
+                  f"path N4 buffered delete: {r}")
+        gen_killed = c.rpc(op="healthz")["generation"]
+        c.close()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        n_stop(proc)
+    man = segments.load_manifest(n4)
+    check(man.generation == gen_killed, f"path N4: generation {man.generation} after the kill")
+    copy = tmp / "N4_copy"
+    shutil.copytree(n4, copy)
+    t0 = time.perf_counter()
+    rc, rep = run_cli(cli, ["recover", str(copy)])
+    ms["recover"] = (time.perf_counter() - t0) * 1e3
+    check(rc == 0 and rep["replayed"] == N_BUFFERED, f"path N4 recover: {rc} {rep}")
+    live5 = np.setdiff1d(live4, last)
+    ref5 = NReference(np, cli, manifest_mod, tmp, "N5", paths, live5, device)
+    stage("n4_kill_recover_reference")
+    t0 = time.perf_counter()
+    proc = n_serve(log, n4, "--fault-spec", "fetch-partial", **n4_env)
+    rep_log = tmp / "N5_replica.log"
+    replica = None
+    try:
+        ready = n_ready(proc, log, "path N4 restart")
+        restart_s = time.perf_counter() - t0
+        addr = (ready["host"], ready["port"])
+        c = LClient(addr)
+        gen = c.rpc(op="healthz")["generation"]
+        check(gen == gen_killed + N_BUFFERED, f"path N4 restart: generation {gen}, want "
+              f"{gen_killed + N_BUFFERED} (the buffered deletes replayed)")
+        check((copy / "segments.manifest.json").read_bytes()
+              == (n4 / "segments.manifest.json").read_bytes(),
+              "path N4: startup recovery and recover on a copy differ")
+        # -- N5's replica starts here, its interpreter loading while the
+        # restarted primary's answers are checked
+        t0 = time.perf_counter()
+        replica = n_serve(rep_log, tmp / "N5_replica", "--replica-of",
+                          f"{addr[0]}:{addr[1]}", MRI_REPLICA_POLL_MS=str(N_POLL_MS))
+        for r in distinct.values():
+            ref5.check(r, c.rpc(**r), "path N4 restart")
+        ref5.close()
+        stage("n4_restart_checks")
+
+        # -- N5: a replica of the restarted primary ----------------------------------
+        rready = n_ready(replica, rep_log, "path N5")
+        bootstrap_s = time.perf_counter() - t0
+        rcl = LClient((rready["host"], rready["port"]))
+        h = rcl.rpc(op="healthz")
+        check(h["generation"] == gen, f"path N5: replica at {h['generation']}, primary at {gen}")
+        check("attempt 1" in rep_log.read_text(errors="replace"),
+              "path N5: the fetch-partial ship was not rejected")
+        check(n_tree(tmp / "N5_replica", segments.load_manifest(n4))
+              == n_tree(n4, segments.load_manifest(n4)), "path N5: files differ after bootstrap")
+        r = c.rpc(op="append", files=paths[span:span + n_small // 10])
+        check(r.get("ok") is True, f"path N5 primary append: {r}")
+        new_gen = r["result"]["generation"]
+        t0 = time.perf_counter()
+        while True:
+            h = rcl.rpc(op="healthz")
+            if h["generation"] == new_gen and h["ready"]:
+                break
+            check(time.perf_counter() - t0 < N_CONVERGE_S,
+                  f"path N5: replica at {h['generation']} after {N_CONVERGE_S} s, want {new_gen}")
+            time.sleep(0.01)
+        converge_ms = (time.perf_counter() - t0) * 1e3
+        man = segments.load_manifest(n4)
+        check(n_tree(tmp / "N5_replica", man) == n_tree(n4, man),
+              "path N5: files differ after following")
+        batch = q["b1024"][0]
+        check(rcl.rpc(op="df", terms=batch)["df"] == c.rpc(op="df", terms=batch)["df"],
+              "path N5: the replica's df differ from the primary's")
+        check(rcl.rpc(op="delete", docs=[2]).get("error") == "mutation_rejected",
+              "path N5: the replica took a mutation")
+        rcl.close()
+        c.close()
+        stage("n5")
+    finally:
+        if replica is not None:
+            check(n_stop(replica) == 0, f"path N5 replica exit {replica.returncode}")
+        check(n_stop(proc) == 0, f"path N4 primary exit {proc.returncode}")
+
+    out["n4"] = {"reads_while_mutating": l_quantiles(np, lat),
+                 "ack_ms": {op: {"n": len(v), "p50": float(np.percentile(v, 50)) * 1e3,
+                                 "max": max(v) * 1e3} for op, v in acks.items()},
+                 "compact": {k: mres["compact"][k] for k in ("inputs", "tombstones_dropped",
+                                                             "compact_ms")},
+                 "distinct_reads_checked": len(distinct), "restart_s": restart_s}
+    out["n5"] = {"bootstrap_s": bootstrap_s, "converge_ms": converge_ms,
+                 "generation": new_gen, "poll_ms": N_POLL_MS}
+    out["ms"] = ms
+    out["stages_s"] = stage_s
+    # after the seed build: the engines' columns and the reference builds
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if on_card else None
+    launches = {"unique_mask_count": K.unique_mask_count.launches,
+                "bucket_histogram": K.bucket_histogram.launches}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"phase path_n: card={card} {json.dumps(out)}", flush=True)
+    return launches
+
+
 def serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
                    ) -> int:
     """``--serve-only``: the default build with ``--artifact`` on Path B's
@@ -2431,6 +2997,29 @@ def serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str,
         launches = {"unique_mask_count": K.unique_mask_count.launches,
                     "bucket_histogram": K.bucket_histogram.launches}
         check(not any(launches.values()), f"path L launched a kernel of csrc/: {launches}")
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def segments_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
+                      ) -> int:
+    """``--segments-only``: the default build with ``--artifact`` on Path
+    B's corpus (Path H's v2.1 artifact, N1's reference) and Path N alone,
+    for iterating on the live index; the run with no arguments drives
+    every path."""
+    with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+            num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+        stats_h, launches_h = drive_path(
+            torch, K, formatter, cli_run(cli, "path H", list_b, tmp / "H_out", ["--artifact"]),
+            tmp / "H_out", "path H")
+        print_path("path_h", stats_h, launches_h, card=repr(card))
+        launches = path_n(torch, K, cli, manifest_mod, list_b, tmp / "H_out" / "index.mri", tmp,
+                          card)
+        check(not any(launches.values()), f"path N launched a kernel of csrc/: {launches}")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -2520,8 +3109,11 @@ def main() -> int:
             return mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
         if sys.argv[1:] == ["--serve-only"]:
             return serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
-        check(not sys.argv[1:],
-              f"unknown arguments {sys.argv[1:]} (only --mesh-only or --serve-only)")
+        if sys.argv[1:] == ["--segments-only"]:
+            return segments_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card,
+                                     kind)
+        check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} "
+              "(only --mesh-only, --serve-only or --segments-only)")
 
         launches_by_path = {}
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
@@ -2800,6 +3392,12 @@ def main() -> int:
             launches_by_path["M"] = path_m(
                 torch, K, cli, formatter, faults, synthetic, build_index, IndexConfig,
                 list_a, list_b, tmp, md5_oracle, stats_c["md5"], h_paths, served, card)
+
+            # -- Path N: the live index on Path B's corpus -----------------------
+            launches_by_path["N"] = path_n(torch, K, cli, manifest_mod, list_b, h_paths[3], tmp,
+                                           card)
+            check(not any(launches_by_path["N"].values()),
+                  f"path N launched a kernel of csrc/: {launches_by_path['N']}")
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

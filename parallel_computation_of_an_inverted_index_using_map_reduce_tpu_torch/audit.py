@@ -16,8 +16,10 @@ worker's entries are discarded with its native handle, so at merge time
 exactly one live entry per planned window must remain),
 :func:`check_merge` (the native merge walk: per-term df sums equal the
 worker run lengths and every run ascends, plus the pair and vocab totals)
-and :func:`check_spill` (its out-of-core analogue).  Verifying a
-segment-managed directory comes with the segments layer (ROADMAP A15b).
+and :func:`check_spill` (its out-of-core analogue).  On a
+segment-managed directory ``--verify`` also re-hashes every live segment
+artifact and tombstone bitmap against ``segments.manifest.json``
+(:func:`verify_segments`).
 
 Integrity failures raise :class:`AuditError` (the CLI maps it to exit
 2): an integrity violation must never exit 0 or 3.
@@ -208,14 +210,60 @@ def write_output_manifest(out_dir, extra: dict | None = None) -> dict:
     return doc
 
 
+def verify_segments(out_dir) -> list[str]:
+    """Re-hash every live segment artifact and tombstone file against
+    ``segments.manifest.json`` (whose own body checksum gates the walk).
+    Returns a problem list — empty when clean OR when the directory was
+    never segment-managed."""
+    from . import segments
+
+    out_dir = Path(out_dir)
+    try:
+        man = segments.load_manifest(out_dir)
+    except segments.SegmentError as e:
+        return [str(e)]
+    if man is None:
+        return []
+    problems: list[str] = []
+    for entry in man.entries:
+        sdir = segments.segment_dir(out_dir, entry.name)
+        art = sdir / artifact_mod.ARTIFACT_NAME
+        try:
+            crc, size = artifact_mod.checksum(art)
+        except OSError as e:
+            problems.append(f"{art}: {e}")
+        else:
+            if crc != entry.adler32 or size != entry.bytes:
+                problems.append(
+                    f"{art}: checksum mismatch (manifest "
+                    f"{entry.adler32}/{entry.bytes}B, on disk "
+                    f"{crc}/{size}B)")
+        if entry.tombstones is None:
+            continue
+        tpath = sdir / entry.tombstones
+        try:
+            data = tpath.read_bytes()
+        except OSError as e:
+            problems.append(f"{tpath}: {e}")
+            continue
+        crc = f"{zlib.adler32(data):08x}"
+        if crc != entry.tomb_adler32 or len(data) != entry.tomb_bytes:
+            problems.append(
+                f"{tpath}: checksum mismatch (manifest "
+                f"{entry.tomb_adler32}/{entry.tomb_bytes}B, on disk "
+                f"{crc}/{len(data)}B)")
+    return problems
+
+
 def verify_output_dir(out_dir) -> tuple[bool, list[str]]:
-    """Re-hash ``out_dir`` against its ``index.manifest.json``.
+    """Re-hash ``out_dir`` against its ``index.manifest.json`` and — for
+    a segment-managed directory — its ``segments.manifest.json``.
 
     Returns ``(ok, problems)`` — problems is a human-readable list of
     every mismatched or missing file (empty when ok).  Never raises on a
     content mismatch; a missing or corrupt manifest is itself a problem.
-    A segment-managed directory is a problem naming ROADMAP A15b (its
-    segments cannot be verified yet), as ``create_engine`` refuses it.
+    A directory that is only segment-managed (appends into a directory
+    that never had an ``--audit`` build) skips the letter-file check.
     """
     out_dir = Path(out_dir)
     problems: list[str] = []
@@ -243,7 +291,5 @@ def verify_output_dir(out_dir) -> tuple[bool, list[str]]:
             if name not in actual:
                 problems.append(f"{name}: in manifest but missing on disk")
     if seg_managed:
-        problems.append(
-            f"{out_dir} is segment-managed ({artifact_mod.SEGMENTS_MANIFEST_NAME} "
-            "present): verifying its segments is not ported yet (ROADMAP A15b)")
+        problems.extend(verify_segments(out_dir))
     return not problems, problems

@@ -32,17 +32,29 @@ the resident daemon over it and its operator clients:
 
     ... serve out [--listen HOST:PORT] [--engine host|device|auto]
         [--shards N] [--listen-metrics PORT] [--fault-spec SPEC]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--replica-of HOST:PORT]
     ... metrics HOST:PORT|DIR      (Prometheus text)
     ... flightdump HOST:PORT [--out FILE]
     ... top HOST:PORT|DIR [--once] [--json]
 
 ``serve`` prints one ``{"event": "listening", ...}`` line, drains on
 SIGTERM/SIGINT (exit 0; a second signal exits 1) with a ``drained``
-line, reloads on SIGHUP and dumps the flight recorder on SIGQUIT.  The
-segment subcommands (``shard``, ``router``, ``append``, ``delete``,
-``compact``, ``recover``, ``replicate``) and ``serve --replica-of`` exit
-2: they need the segment layer, not ported yet (ROADMAP A15b).
+line, reloads on SIGHUP and dumps the flight recorder on SIGQUIT.
+
+The live index (``segments/``) keeps an ``--artifact`` directory
+current without a rebuild, with the JAX CLI's arguments, JSON stdout and
+exit codes:
+
+    ... append out --add FILE [FILE ...]   (one new immutable segment)
+    ... delete out --docs ID [ID ...]      (tombstones)
+    ... compact out [--force] [--prune]
+    ... recover out                        (replay the mutation WAL)
+    ... replicate out --from HOST:PORT     (one catch-up round)
+
+each with ``--fault-spec SPEC``.  ``query``/``serve`` on such a
+directory open the host multi-segment engine unless ``--engine device``
+is named (exit 2, as the JAX CLI).  The cluster subcommands (``shard``,
+``router``) exit 2: they are not ported yet (ROADMAP A15c).
 """
 
 from __future__ import annotations
@@ -326,9 +338,8 @@ def _query_main(argv: list[str]) -> int:
     return 0
 
 
-#: JAX CLI subcommands that need the segment layer (ROADMAP A15b)
-SEGMENT_SUBCOMMANDS = ("shard", "router", "append", "delete", "compact",
-                       "recover", "replicate")
+#: JAX CLI subcommands of the cluster layer, not ported yet (ROADMAP A15c)
+CLUSTER_SUBCOMMANDS = ("shard", "router")
 
 
 def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
@@ -371,15 +382,13 @@ def _serve_main(argv: list[str]) -> int:
                         "HTTP on 127.0.0.1:PORT (0 = ephemeral; the "
                         "chosen port is printed in the 'listening' line)")
     p.add_argument("--replica-of", default=None, metavar="HOST:PORT",
-                   help="not ported yet: replicas need the segment layer "
-                        "(ROADMAP A15b); exits 2")
+                   help="run as a read-only replica of the primary "
+                        "daemon at HOST:PORT: catch up by segment "
+                        "shipping every MRI_REPLICA_POLL_MS, reject "
+                        "mutations, report replica_lagging in healthz "
+                        "until the first round succeeds")
     _device_arg(p, "(alone or inside auto)")
     args = p.parse_args(argv)
-
-    if args.replica_of is not None:
-        print(f"error: --replica-of needs segment shipping: the segment layer "
-              "is not ported yet (ROADMAP A15b)", file=sys.stderr)
-        return 2
     # the daemon is the one long-lived process: route every mri_torch.*
     # logger through the structured obs funnel (MRI_OBS_LOG_FORMAT);
     # in-process embedding (ServeDaemon.start()) leaves logging alone
@@ -409,18 +418,29 @@ def _serve_main(argv: list[str]) -> int:
               file=sys.stderr)
         return 2
 
+    from . import segments
     from .serve import ArtifactError
     from .serve.daemon import ServeDaemon
     from .serve.engine import NativeUnavailable
 
+    if args.replica_of is not None:
+        try:
+            segments.replica.parse_addr(args.replica_of)
+        except segments.SegmentError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     try:
         # resolved before the daemon exists so a bad value is the
         # one-line exit-2 knob contract, not a traceback mid-serve
         gc_freeze = envknobs.get("MRI_SERVE_GC_FREEZE")
+        # construction runs startup WAL recovery (primaries) before the
+        # first engine open — a torn directory rejects here, exit 2
         daemon = ServeDaemon(args.index_dir, host, port, engine=args.engine,
                              cache_terms=args.cache_terms, shards=args.shards,
-                             metrics_port=args.listen_metrics, device=args.device)
-    except (ArtifactError, ValueError, OSError, DeviceUnavailable, NativeUnavailable) as e:
+                             metrics_port=args.listen_metrics,
+                             replica_of=args.replica_of, device=args.device)
+    except (ArtifactError, segments.SegmentError, ValueError, OSError,
+            DeviceUnavailable, NativeUnavailable) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     try:
@@ -771,15 +791,159 @@ def _top_main(argv: list[str]) -> int:
         return 0
 
 
+def _segments_main(cmd: str, argv: list[str]) -> int:
+    """``mri-torch append|delete|compact DIR ...`` — incremental indexing.
+
+    Mutations are serialized under the segments lock and published by
+    atomic manifest swap: readers on the old generation are never
+    disturbed, and a failed mutation leaves the old manifest live."""
+    p = argparse.ArgumentParser(
+        prog=f"mri-torch {cmd}",
+        description={
+            "append": "index new files as one immutable segment and "
+                      "publish the next manifest generation",
+            "delete": "tombstone global doc ids (query-invisible "
+                      "immediately; space reclaimed at compaction)",
+            "compact": "merge the cheapest adjacent segment run into "
+                       "one replacement segment, dropping tombstones",
+        }[cmd])
+    p.add_argument("index_dir", help="an --artifact output dir (first "
+                                     "append seeds segments/ from its "
+                                     "index.mri)")
+    if cmd == "append":
+        p.add_argument("--add", nargs="+", required=True, metavar="FILE",
+                       help="text files to index as the new segment")
+    elif cmd == "delete":
+        p.add_argument("--docs", nargs="+", required=True, type=int,
+                       metavar="ID", help="global doc ids to tombstone")
+    else:
+        p.add_argument("--force", action="store_true",
+                       help="compact even below the "
+                            "MRI_SEGMENT_COMPACT_TRIGGER segment count")
+        p.add_argument("--prune", action="store_true",
+                       help="after compacting, delete retired segment "
+                            "dirs no longer referenced by the manifest "
+                            "(unsafe while readers hold old generations)")
+    p.add_argument("--fault-spec", default=None,
+                   help="inject faults (see mri-torch --help for grammar)")
+    args = p.parse_args(argv)
+
+    if args.fault_spec is not None:
+        try:
+            faults.install(args.fault_spec)
+        except faults.FaultSpecError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    from . import segments
+    try:
+        if cmd == "append":
+            missing = [f for f in args.add if not os.path.exists(f)]
+            if missing:
+                print(f"error: input files do not exist: {missing}",
+                      file=sys.stderr)
+                return 2
+            res = segments.append_files(args.index_dir, args.add)
+        elif cmd == "delete":
+            res = segments.delete_docs(args.index_dir, args.docs)
+        else:
+            res = segments.compact(args.index_dir, force=args.force)
+        print(json.dumps(res, sort_keys=True))
+        if cmd == "compact" and args.prune:
+            pruned = segments.prune_retired(args.index_dir)
+            print(json.dumps({"pruned": pruned}, sort_keys=True))
+    except segments.SegmentError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except faults.InjectedCompactCrash as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _recover_main(argv: list[str]) -> int:
+    """``mri-torch recover DIR`` — roll a live index directory forward to
+    the last acknowledged mutation (segments/wal.py): replay WAL
+    records above the manifest's generation, quarantine torn tail
+    records, sweep mutation scratch.  Idempotent; also runs implicitly
+    when a primary daemon starts."""
+    p = argparse.ArgumentParser(
+        prog="mri-torch recover",
+        description="replay the mutation WAL after a crash: apply "
+                    "acknowledged-but-unpublished records, quarantine "
+                    "torn tail records, remove mutation scratch")
+    p.add_argument("index_dir", help="a live (segment-managed) index "
+                                     "directory")
+    p.add_argument("--fault-spec", default=None,
+                   help="inject faults (see mri-torch --help for grammar)")
+    args = p.parse_args(argv)
+    if args.fault_spec is not None:
+        try:
+            faults.install(args.fault_spec)
+        except faults.FaultSpecError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    from . import segments
+    try:
+        report = segments.recover(args.index_dir)
+    except segments.SegmentError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(report, sort_keys=True))
+    return 0
+
+
+def _replicate_main(argv: list[str]) -> int:
+    """``mri-torch replicate DIR --from HOST:PORT`` — one catch-up round
+    against a primary daemon (segments/replica.py): fetch the segment
+    files this directory is missing (adler32-verified, staged, then
+    atomically adopted) plus the primary's WAL tail.  Never re-indexes.
+    Run it in a loop — or use ``mri-torch serve --replica-of`` — for a
+    live replica."""
+    p = argparse.ArgumentParser(
+        prog="mri-torch replicate",
+        description="catch a local index directory up to a primary "
+                    "daemon by segment shipping (snapshot diff + "
+                    "verified fetch + WAL tail adoption)")
+    p.add_argument("index_dir", help="the replica's index directory "
+                                     "(created if empty)")
+    p.add_argument("--from", dest="source", required=True,
+                   metavar="HOST:PORT",
+                   help="the primary daemon's --listen address")
+    p.add_argument("--timeout", type=float, default=30.0,
+                   help="per-RPC socket timeout in seconds")
+    p.add_argument("--fault-spec", default=None,
+                   help="inject faults (see mri-torch --help for grammar)")
+    args = p.parse_args(argv)
+    if args.fault_spec is not None:
+        try:
+            faults.install(args.fault_spec)
+        except faults.FaultSpecError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    from . import segments
+    try:
+        addr = segments.replica.parse_addr(args.source)
+        res = segments.replicate(args.index_dir, addr,
+                                 timeout=args.timeout)
+    except (segments.SegmentError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(res, sort_keys=True))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     sub = {"query": _query_main, "serve": _serve_main, "metrics": _metrics_main,
-           "flightdump": _flightdump_main, "top": _top_main}
+           "flightdump": _flightdump_main, "top": _top_main,
+           "recover": _recover_main, "replicate": _replicate_main}
     if argv and argv[0] in sub:
         return sub[argv[0]](argv[1:])
-    if argv and argv[0] in SEGMENT_SUBCOMMANDS:
-        print(f"error: {argv[0]!r} needs the segment layer, which is not ported "
-              "yet (ROADMAP A15b)", file=sys.stderr)
+    if argv and argv[0] in ("append", "delete", "compact"):
+        return _segments_main(argv[0], argv[1:])
+    if argv and argv[0] in CLUSTER_SUBCOMMANDS:
+        print(f"error: {argv[0]!r} needs the cluster layer, which is not ported "
+              "yet (ROADMAP A15c)", file=sys.stderr)
         return 2
     # --verify DIR is a standalone mode (no reference positionals)
     if "--verify" in argv:

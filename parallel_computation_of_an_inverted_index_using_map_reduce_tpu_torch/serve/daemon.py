@@ -51,9 +51,9 @@ Protocol — one JSON object per line, one response line per request::
     {"id": 8, "op": "reload"}       # admin: swap to the new index.mri
     {"id": 9, "op": "metrics"}      # admin: Prometheus text exposition
     {"id": 10, "op": "trace", "n": 8}   # admin: recent request traces
-    {"id": 11, "op": "append", "files": ["d.txt"]}   # admin: live append (A15b)
-    {"id": 12, "op": "delete", "docs": [7, 9]}       # admin: tombstone (A15b)
-    {"id": 13, "op": "compact"}     # admin: merge a segment run (no-op here)
+    {"id": 11, "op": "append", "files": ["d.txt"]}   # admin: live append
+    {"id": 12, "op": "delete", "docs": [7, 9]}       # admin: tombstone
+    {"id": 13, "op": "compact"}     # admin: merge a segment run
     {"id": 14, "op": "flightdump"}  # admin: flight-recorder contents
     {"id": 15, "op": "top_k", "score": "bm25", "k": 3,
                "terms": ["big", "cat"], "explain": true}  # cost report
@@ -66,17 +66,31 @@ Protocol — one JSON object per line, one response line per request::
     {"id": 20, "op": "df", "terms": ["cat"],
                "tenant": "search-ui"}  # multi-tenant QoS lane
 
-Segments are not ported yet (ROADMAP A15b), so this daemon serves one
-plain artifact and refuses the rest of the JAX daemon's segment surface:
-a segment-managed directory or one holding a mutation WAL raises
-``ArtifactError`` at construction, ``replica_of`` raises ``ValueError``,
-and the ``append``/``delete`` ops answer a counted
-``mutation_rejected``.  ``compact`` and the replication-source ops
-answer what the JAX daemon answers on a plain artifact directory
-(``compact`` a counted no-op, ``snapshot`` and ``fetch_segment`` a
-``bad_request``, ``wal_tail`` no records).  The generation stays 0, so
-a request's ``min_generation`` > 0 answers ``stale_generation``, as on
-an unmutated JAX directory.
+Live mutations (the ``append``/``delete``/``compact`` ops) run on the
+reader thread under the reload lock — never the dispatcher — publish a
+new segment-manifest generation on disk, open a fresh engine over it
+(the host ``MultiSegmentEngine``, as in the JAX package), and swap
+under the dispatch lock exactly like a hot reload.  Any failure keeps
+the OLD generation serving and counts ``mutation_rejected``.  Deletes
+batch per ``MRI_SEGMENT_TOMBSTONE_FLUSH`` (a generation is published
+every N delete ops; a ``compact`` or drain flushes the remainder).
+
+Durability: with ``MRI_SEGMENT_WAL`` on (default), every mutation's
+checksummed WAL record is fsync'd BEFORE its manifest swap and before
+the ack leaves the wire — buffered delete ops included, so a SIGKILL
+between an acknowledged delete and its batched tombstone flush is
+replayed by the startup recovery (``segments.recover``) that runs
+before the first engine opens.  Replication: ``snapshot`` /
+``fetch_segment`` / ``wal_tail`` serve a replica's catch-up round
+(``--replica-of`` or ``replicate``); a replica is read-only, reports
+``replica_lagging`` in healthz until a round succeeds, and adopts
+shipped generations with a quiet engine swap.  Read-your-writes across
+failover: mutation acks echo a ``generation`` token, and any request
+may carry ``min_generation`` — a node still behind that generation
+answers ``stale_generation`` instead of serving stale state.  With
+``MRI_SEGMENT_LEASE_TTL_S`` > 0 mutations renew a TTL'd primary lease
+inside ``segments.lock`` first; a live foreign holder rejects the
+mutation with a ``lease_lost`` detail.
 
 Result cache: repeat data queries are answered from a
 generation-keyed whole-payload cache (:mod:`.result_cache`,
@@ -138,6 +152,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import queue
 import re
 import socket
@@ -156,18 +171,10 @@ from ..obs import watchdog as obs_watchdog
 from ..obs import windows as obs_windows
 from ..utils import envknobs
 from . import result_cache as result_cache_mod
-from .artifact import SEGMENTS_MANIFEST_NAME, ArtifactError
+from .artifact import ArtifactError
 from .engine import create_engine
 
 log = logging.getLogger("mri_torch.serve.daemon")
-
-#: the segment layer's files this daemon refuses to serve next to
-WAL_NAME = "segments.wal"
-SEGMENTS_DIR = "segments"
-#: what every refused segment operation names
-SEGMENTS_TODO = "the segment layer is not ported yet (ROADMAP A15b)"
-_SEGMENT_NAME = re.compile(r"^seg_\d+_\d+$")
-_TOMB_NAME = re.compile(r"^tombstones_\d+\.bin$")
 
 COALESCE_ENV = "MRI_SERVE_COALESCE_US"
 QUEUE_ENV = "MRI_SERVE_QUEUE_DEPTH"
@@ -212,18 +219,6 @@ _COUNTER_NAMES = (
     ("stale_generation", "mri_serve_stale_generation_total"),
     ("codel_sheds", "mri_serve_codel_sheds_total"),
 )
-
-
-def _refuse_segments(path) -> None:
-    """``ArtifactError`` when ``path`` holds the segment layer's files:
-    a segment manifest (``create_engine`` refuses it too) or a mutation
-    WAL, whose acknowledged records only the segment layer can replay."""
-    p = Path(path)
-    root = p if p.is_dir() else p.parent
-    for name, what in ((SEGMENTS_MANIFEST_NAME, "segment-managed"),
-                       (WAL_NAME, "a mutation WAL is present")):
-        if (root / name).exists():
-            raise ArtifactError(f"{path}: {what} ({name}): {SEGMENTS_TODO}")
 
 
 class _CoDelGate:
@@ -653,11 +648,38 @@ class ServeDaemon:
                  metrics_port: int | None = None,
                  replica_of: str | None = None,
                  device=None):
-        if replica_of is not None:
-            raise ValueError(f"replica_of={replica_of!r}: replicas need segment "
-                             f"shipping; {SEGMENTS_TODO}")
-        _refuse_segments(path)
         self._path = path
+        # the segment layer's directory: ``path``, or the directory of an
+        # ``index.mri`` path (the JAX daemon refuses a file path here;
+        # ROADMAP §C)
+        p = Path(path)
+        self._root = p.parent if p.is_file() else p
+        self._replica_of = replica_of
+        if replica_of is None:
+            # startup recovery BEFORE the first engine opens: WAL
+            # records acknowledged by a crashed predecessor are part of
+            # the index, not debris — roll the directory forward to the
+            # exact last-acked generation.  Replicas skip this: their
+            # adopted tail may reference source files that only exist
+            # on the primary, so they converge by segment shipping.
+            from .. import segments
+            rep = segments.recover(self._root)
+            if rep.get("replayed"):
+                log.info("startup recovery: %s", json.dumps(rep))
+        else:
+            # bootstrap catch-up so a replica born on an empty dir has
+            # a generation to open; an unreachable primary only warns —
+            # an existing local generation serves stale while the poll
+            # loop heals (a dir with nothing to serve still fails the
+            # engine open below)
+            from .. import segments
+            from ..segments import replica as segrep
+            addr = segrep.parse_addr(replica_of)
+            try:
+                segrep.replicate(self._root, addr)
+            except (segments.SegmentError, OSError) as e:
+                log.warning("initial replica catch-up from %s failed: "
+                            "%s", replica_of, e)
         self._device = device
         self._engine_choice = engine
         self._cache_terms = cache_terms
@@ -746,10 +768,30 @@ class ServeDaemon:
         self._metrics_port = metrics_port
         self._metrics_listener: socket.socket | None = None
         self._metrics_thread: threading.Thread | None = None
-        # last published generation: a plain artifact's is 0
-        self._generation = 0
-        # registered as the JAX daemon registers it, so the scrape text
-        # names the same families
+        # live-mutation state (segment-managed dirs); buffered delete
+        # ops flush every MRI_SEGMENT_TOMBSTONE_FLUSH ops (guarded by:
+        # self._reload_lock, like every mutation)
+        self._pending_deletes: list[int] = []
+        self._delete_ops = 0
+        self._tomb_flush = envknobs.get("MRI_SEGMENT_TOMBSTONE_FLUSH")
+        # a failed delete flush leaves acked WAL records above the
+        # manifest's wal_seq; the next mutation replays them first so
+        # truncation can never pass an unapplied acked record
+        self._stale_wal = False  # guarded by: self._reload_lock
+        self._lease_owner = f"pid{os.getpid()}"  # rebound on start()
+        # last published generation — the read-your-writes token echoed
+        # on mutation acks and checked against ``min_generation``
+        from .. import segments
+        try:
+            man = segments.load_manifest(self._root)
+        except segments.SegmentError:
+            man = None
+        self._generation = 0 if man is None else man.generation
+        self._replica_stop = threading.Event()
+        self._replica_thread: threading.Thread | None = None
+        # a replica is born lagging: not ready until one catch-up
+        # round against the primary has succeeded
+        self._replica_lagging = replica_of is not None
         self._g_replica_lag = \
             self.registry.gauge("mri_replica_lag_generations")
         self._host = host
@@ -766,6 +808,7 @@ class ServeDaemon:
         ls.settimeout(0.2)
         self._listener = ls
         self._host, self._port = ls.getsockname()[:2]
+        self._lease_owner = f"{self._host}:{self._port}#{os.getpid()}"
         self._watchdog.register("dispatcher")
         self._watchdog.register("accept")
         self._rolling.start()
@@ -789,6 +832,11 @@ class ServeDaemon:
                 target=self._metrics_loop, name="mri-serve-metrics",
                 daemon=True)
             self._metrics_thread.start()
+        if self._replica_of is not None:
+            self._replica_thread = threading.Thread(
+                target=self._replica_loop, name="mri-serve-replica",
+                daemon=True)
+            self._replica_thread.start()
         log.info("serving %s on %s:%d (engine=%s coalesce_us=%d "
                  "queue_depth=%d max_batch=%d)", self._path, self._host,
                  self._port, self._engine.engine_name, self.coalesce_us,
@@ -856,6 +904,8 @@ class ServeDaemon:
             reasons.append("reloading")
         if self._watchdog.stalled():
             reasons.append("stalled")
+        if self._replica_of is not None and self._replica_lagging:
+            reasons.append("replica_lagging")
         limit = self._overload_shed_rate
         if limit > 0:
             counts = self._rolling.counts(10.0)
@@ -1213,15 +1263,36 @@ class ServeDaemon:
                 else:
                     payload = {"error": "mutation_rejected", "detail": out}
         elif op in ("snapshot", "fetch_segment", "wal_tail"):
-            # the replication-source ops over a plain artifact directory:
-            # the JAX daemon's answers there (no manifest, no segment
-            # files, no WAL — the constructor refused any of them)
-            err = self._replication_refusal(op, req)
-            if err is not None:
+            # read-only views over PUBLISHED state (manifest, immutable
+            # segment files, the WAL tail) — a replica's catch-up round
+            # is snapshot → fetch_segment per missing file → wal_tail
+            from .. import segments
+            from ..segments import replica as segrep
+            try:
+                if op == "snapshot":
+                    payload = {"ok": True,
+                               "snapshot":
+                                   segrep.snapshot_payload(self._root),
+                               "lease": segments.read_lease(self._root)}
+                elif op == "fetch_segment":
+                    payload = {"ok": True,
+                               **segrep.segment_file_payload(
+                                   self._root,
+                                   str(req.get("segment") or ""),
+                                   str(req.get("file") or ""))}
+                else:  # wal_tail
+                    after = req.get("after_seq", 0)
+                    if not isinstance(after, int) \
+                            or isinstance(after, bool) or after < 0:
+                        raise segments.ReplicaError(
+                            f"after_seq must be a non-negative "
+                            f"integer, got {after!r}")
+                    payload = {"ok": True,
+                               "records": segrep.wal_tail_payload(
+                                   self._root, after)}
+            except segments.SegmentError as e:
                 self._count("bad_request")
-                payload = {"error": "bad_request", "detail": err}
-            else:
-                payload = {"ok": True, "records": []}
+                payload = {"error": "bad_request", "detail": str(e)}
         else:  # reload
             t0 = time.monotonic()
             ok, detail = self.reload()
@@ -1604,56 +1675,157 @@ class ServeDaemon:
                 "top": [[t.decode("ascii", "replace"), int(d)]
                         for t, d in top]}
 
-    def _replication_refusal(self, op: str, req: dict) -> str | None:
-        """The ``bad_request`` detail of a replication-source op on a
-        plain artifact directory, or None for ``wal_tail``'s empty tail."""
-        if op == "snapshot":
-            return f"{self._path}: not segment-managed (nothing to replicate)"
-        if op == "wal_tail":
-            after = req.get("after_seq", 0)
-            if not isinstance(after, int) or isinstance(after, bool) or after < 0:
-                return f"after_seq must be a non-negative integer, got {after!r}"
-            return None
-        segment = str(req.get("segment") or "")
-        file = str(req.get("file") or "")
-        if not _SEGMENT_NAME.match(segment):
-            return f"bad segment name {segment!r}"
-        if file != "index.mri" and not _TOMB_NAME.match(file):
-            return f"bad segment file name {file!r}"
-        path = Path(self._path) / SEGMENTS_DIR / segment / file
-        if not path.exists():
-            return (f"{path}: cannot ship segment file ([Errno 2] No such file "
-                    f"or directory: {str(path)!r})")
-        return f"{path}: segment shipping: {SEGMENTS_TODO}"
+    # -- live mutations (segment-managed dirs) -------------------------
 
-    # -- live mutations (the segment layer's, refused until ported) ----
+    def _flush_deletes_locked(self):
+        """Publish every buffered delete op as ONE tombstone generation.
+        Caller holds ``_reload_lock``.  Returns the mutation result, or
+        None when the buffer was empty.  On failure the buffer is
+        dropped (the caller reports the rejection) so a poisoned flush
+        can never wedge later compactions."""
+        if not self._pending_deletes:
+            return None
+        from .. import segments
+        from ..segments import wal as wal_mod
+        ids = sorted(set(self._pending_deletes))
+        self._pending_deletes = []
+        self._delete_ops = 0
+        try:
+            return segments.delete_docs(self._root, ids,
+                                        registry=self.registry)
+        except Exception:
+            # the buffer is gone but its acked per-op WAL records are
+            # not: the next mutation must replay them before logging
+            # anything newer, or truncation would pass them unapplied
+            self._stale_wal = wal_mod.wal_enabled()
+            raise
 
     def mutate(self, op: str, *, files=None, docs=None,
                force: bool = True) -> tuple[bool, dict | str]:
-        """A live-index mutation (``append`` / ``delete`` /
-        ``compact``) on the plain artifact this daemon serves.
+        """Run one live-index mutation (``append`` / ``delete`` /
+        ``compact``) and swap in an engine over the new generation.
 
-        ``compact`` answers what the JAX daemon answers on a plain
-        directory: a counted no-op ("fewer than two segments") at
-        generation 0, which drops the result cache as a published
-        generation does.  ``append`` (which the JAX daemon turns into a
-        segment conversion) and ``delete`` are refused and counted
-        ``mutation_rejected`` — the artifact keeps serving — until the
-        segment layer is ported."""
-        t0 = time.monotonic()
-        if op == "compact":
-            res = {"compacted": False, "reason": "fewer than two segments",
-                   "generation": self._generation, "segments": 0}
-            self._result_cache.on_epoch(self._generation)
+        Runs on the caller's thread (a connection reader), serialized
+        with hot reloads under ``_reload_lock`` — never the dispatcher.
+        The mutation publishes its manifest generation atomically on
+        disk first; only then is a fresh engine opened and swapped under
+        the dispatch lock.  On ANY failure the old generation keeps
+        serving and the attempt is counted ``mutation_rejected``.
+
+        Durability (acknowledgement) ordering: every mutation's WAL
+        record is fsync'd BEFORE its manifest swap — for buffered
+        deletes the record is fsync'd here, before the ack, even though
+        the tombstone generation publishes ops later.  With leasing
+        enabled (``MRI_SEGMENT_LEASE_TTL_S`` > 0) the lease is renewed
+        first; a live foreign holder rejects the mutation with
+        ``lease_lost`` while reads keep serving."""
+        from .. import segments
+        from ..segments import wal as wal_mod
+        if self._replica_of is not None:
+            self._count("mutation_rejected")
+            return False, ("replica is read-only: mutations go to the "
+                           f"primary at {self._replica_of}")
+        with self._reload_lock:
+            t0 = time.monotonic()
+            published = True
+            try:
+                segments.renew_lease(self._root, self._lease_owner)
+                if self._stale_wal:
+                    # a failed delete flush left acked records above
+                    # the manifest's wal_seq — apply them before this
+                    # mutation logs (and later truncates past) a
+                    # higher seq
+                    segments.replay(self._root, registry=self.registry)
+                    self._stale_wal = False
+                if op == "append":
+                    # buffered deletes flush first: WAL seq order must
+                    # match apply order, and the append's published
+                    # wal_seq must never cover an unapplied delete
+                    self._flush_deletes_locked()
+                    res = segments.append_files(self._root, files,
+                                                registry=self.registry)
+                    auto = segments.compact_to_limit(
+                        self._root, registry=self.registry)
+                    if auto:
+                        res = dict(res, auto_compactions=len(auto),
+                                   segments=auto[-1]["segments"],
+                                   generation=auto[-1]["generation"])
+                elif op == "delete":
+                    man = segments.load_manifest(self._root)
+                    if man is None:
+                        raise segments.SegmentError(
+                            f"{self._root}: not segment-managed "
+                            "(append first)")
+                    bad = [d for d in docs if not any(
+                        e.doc_base < d <= e.doc_base + e.docs
+                        for e in man.entries)]
+                    if bad:
+                        raise segments.SegmentError(
+                            f"doc ids {bad} are outside every segment "
+                            f"(live span is 1..{man.doc_span})")
+                    wal_seq = None
+                    if self._delete_ops + 1 < self._tomb_flush \
+                            and wal_mod.wal_enabled():
+                        # durability point for a buffered ack: the
+                        # tombstone generation publishes later, but
+                        # this fsync'd record survives a crash now
+                        # (replayed by recover; made idempotent by
+                        # bitmap-OR semantics)
+                        with segments.mutation_lock(self._root):
+                            wal_seq = wal_mod.log_mutation(
+                                self._root, "delete",
+                                {"docs": sorted(set(docs))},
+                                registry=self.registry)
+                    self._pending_deletes.extend(docs)
+                    self._delete_ops += 1
+                    if self._delete_ops >= self._tomb_flush:
+                        res = self._flush_deletes_locked()
+                    else:
+                        published = False
+                        res = {"buffered": True,
+                               "pending_docs":
+                                   len(set(self._pending_deletes)),
+                               "pending_ops": self._delete_ops,
+                               "wal_seq": wal_seq,
+                               "generation": self._generation}
+                else:  # compact (flushes buffered deletes first, so the
+                    #    merge sees every tombstone it should drop)
+                    self._flush_deletes_locked()
+                    res = segments.compact(self._root, force=force,
+                                           registry=self.registry)
+                if published:
+                    new_engine = create_engine(
+                        self._path, self._engine_choice,
+                        cache_terms=self._cache_terms,
+                        shards=self._shards, device=self._device)
+            except (segments.SegmentError, ArtifactError, ValueError,
+                    OSError, faults.InjectedCompactCrash) as e:
+                self._count("mutation_rejected")
+                self._admin_trace(op, t0, status="mutation_rejected")
+                log.warning("%s rejected, old generation keeps "
+                            "serving: %s", op, e)
+                return False, str(e)
+            if published:
+                with self._engine_lock:
+                    old, self._engine = self._engine, new_engine
+                old.close()
+                if isinstance(res, dict) \
+                        and res.get("generation") is not None:
+                    self._generation = int(res["generation"])
+                # generation bumped (or content republished): entries
+                # keyed under the old generation are dead — drop them
+                self._result_cache.on_epoch(self._generation)
             self._count("mutations")
-            self._admin_trace(op, t0, generation=self._generation)
-            log.info("%s: %s", op, json.dumps(res))
+            dur_ms = round((time.monotonic() - t0) * 1e3, 3)
+            # mutation op lands here; the span carries the generation it
+            # produced.  A buffered delete publishes nothing — its ack
+            # echoes the CURRENT generation as a read-your-writes token,
+            # which must not masquerade as a produced one here.
+            gen = res.get("generation") \
+                if isinstance(res, dict) and published else None
+            self._admin_trace(op, t0, generation=gen)
+            log.info("%s: %s (%.1f ms)", op, json.dumps(res), dur_ms)
             return True, res
-        self._count("mutation_rejected")
-        self._admin_trace(op, t0, status="mutation_rejected")
-        detail = f"{op}: live mutations need segments; {SEGMENTS_TODO}"
-        log.warning("%s rejected, the artifact keeps serving: %s", op, detail)
-        return False, detail
 
     # -- hot reload ----------------------------------------------------
 
@@ -1696,6 +1868,54 @@ class ServeDaemon:
                 return True, ""
             finally:
                 self._reloading = False
+
+    # -- replica catch-up ----------------------------------------------
+
+    def _replica_loop(self) -> None:
+        """Poll the primary every ``MRI_REPLICA_POLL_MS``: one
+        :func:`~..segments.replica.replicate` round per tick, adopting
+        the shipped generation when it changed.  Failures mark the
+        replica lagging (healthz ``replica_lagging``) and keep
+        polling — a partition heals by itself."""
+        from .. import segments
+        from ..segments import replica as segrep
+        try:
+            addr = segrep.parse_addr(self._replica_of)
+        except segments.SegmentError as e:
+            log.error("replica mode dead on arrival: %s", e)
+            return
+        period = max(0.001, envknobs.get(segrep.POLL_ENV) / 1e3)
+        while True:
+            try:
+                res = segrep.replicate(self._root, addr,
+                                       registry=self.registry)
+                self._g_replica_lag.set(max(0, res["behind"]))
+                if res["changed"] or self._replica_lagging:
+                    self._adopt_generation(res["generation"])
+                self._replica_lagging = False
+                self._g_replica_lag.set(0)
+            except (segments.SegmentError, ArtifactError, ValueError,
+                    OSError) as e:
+                self._replica_lagging = True
+                log.warning("replica catch-up from %s failed: %s",
+                            self._replica_of, e)
+            if self._replica_stop.wait(period):
+                return
+
+    def _adopt_generation(self, generation: int) -> None:
+        """Swap in an engine over a freshly shipped generation.  Quiet
+        on purpose: adoption is not a reload — no ``reload_ok`` count,
+        no ``reloading`` readiness blip — readers never notice."""
+        with self._reload_lock:
+            new_engine = create_engine(
+                self._path, self._engine_choice,
+                cache_terms=self._cache_terms, shards=self._shards,
+                device=self._device)
+            with self._engine_lock:
+                old, self._engine = self._engine, new_engine
+            old.close()
+            self._generation = generation
+            self._result_cache.on_epoch(generation)
 
     # -- stats ---------------------------------------------------------
 
@@ -1871,6 +2091,9 @@ class ServeDaemon:
         # threads gone with the rest
         self._watchdog.stop()
         self._rolling.stop()
+        self._replica_stop.set()
+        if self._replica_thread is not None:
+            self._replica_thread.join(timeout=5.0)
         deadline = time.monotonic() + self.drain_s
         if self._listener is not None:
             try:
@@ -1933,6 +2156,17 @@ class ServeDaemon:
                 conn.writer.join(timeout=1.0)
         with self._conn_lock:
             self._conns.clear()
+        # buffered deletes must not die with the process
+        with self._reload_lock:
+            try:
+                self._flush_deletes_locked()
+            except Exception as e:
+                log.warning("drain: buffered delete flush failed: %s", e)
+        # a clean exit hands the lease to the successor immediately
+        # instead of making it wait out the TTL
+        with contextlib.suppress(Exception):
+            from .. import segments
+            segments.release_lease(self._root, self._lease_owner)
         self.final_stats = self.stats()
         with self._engine_lock:
             self._engine.close()

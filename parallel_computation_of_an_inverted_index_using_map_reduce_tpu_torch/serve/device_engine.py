@@ -293,7 +293,8 @@ class DeviceEngine:
         if artifact_mod.is_segment_managed(path):
             raise artifact_mod.ArtifactError(
                 f"{path} is segment-managed (segments.manifest.json "
-                "present): the device engine serves single artifacts only")
+                "present): the device engine serves single artifacts "
+                "only — use create_engine with host/auto")
         self._device = torch.device("cuda" if device is None else device)
         resolve_device(self._device.type)
         if shards is None:

@@ -123,8 +123,9 @@ class Engine:
         if artifact_mod.is_segment_managed(path):
             raise artifact_mod.ArtifactError(
                 f"{path} is segment-managed (segments.manifest.json "
-                "present): its root index.mri may be stale, and the "
-                "multi-segment engine is not ported yet (ROADMAP A15b)")
+                "present): its root index.mri may be stale — open it "
+                "with serve.engine.create_engine, which routes to the "
+                "multi-segment engine")
         self.artifact = artifact_mod.load_artifact(path)
         art = self.artifact
         V, width = art.vocab, max(art.width, 1)
@@ -1384,10 +1385,7 @@ def _sidecar_refusal(path) -> str | None:
     side = (p if p.is_dir() else p.parent) / CLUSTER_SIDECAR_NAME
     if side.exists():
         return (f"{path} is a cluster shard ({CLUSTER_SIDECAR_NAME} present): "
-                "the shard engine is not ported yet (ROADMAP A15b)")
-    if artifact_mod.is_segment_managed(path):
-        return (f"{path} is segment-managed ({artifact_mod.SEGMENTS_MANIFEST_NAME} "
-                "present): the multi-segment engine is not ported yet (ROADMAP A15b)")
+                "the shard engine is not ported yet (ROADMAP A15c)")
     return None
 
 
@@ -1398,12 +1396,29 @@ def create_engine(path, engine: str | None = None, *, cache_terms: int = 4096,
     inside ``auto`` (``cuda`` when None), and ``shards`` sizes its batch
     mesh (the JAX meaning: None is ``$MRI_SERVE_SHARDS``, else every
     visible card).  All engines answer the same API with the same
-    answers.  A cluster shard or a segment-managed directory raises
-    ``ArtifactError``."""
+    answers.
+
+    A segment-managed directory (or its root ``index.mri``) opens the
+    host :class:`~.multi_engine.MultiSegmentEngine` over the directory
+    under ``host``, ``auto`` or no choice at all (neither ``engine`` nor
+    ``$MRI_SERVE_ENGINE``), as the JAX package routes ``auto`` and
+    ``host``; a ``device`` the caller named raises ``ArtifactError`` with
+    the JAX message (the reference has no device multi-segment engine).
+    A cluster shard raises ``ArtifactError``."""
+    named = engine or envknobs.get(ENGINE_ENV)
     which = resolve_engine(engine)
     why = _sidecar_refusal(path)
     if why is not None:
         raise artifact_mod.ArtifactError(why)
+    if artifact_mod.is_segment_managed(path):
+        if named == "device":
+            raise artifact_mod.ArtifactError(
+                f"{path} is segment-managed: the device engine serves "
+                "single artifacts only (use host or auto, which route "
+                "to the multi-segment engine)")
+        from .multi_engine import MultiSegmentEngine
+        p = Path(path)
+        return MultiSegmentEngine(p.parent if p.is_file() else p, cache_terms=cache_terms)
     if which == "device":
         from .device_engine import DeviceEngine
         return DeviceEngine(path, cache_terms=cache_terms, device=device, shards=shards)

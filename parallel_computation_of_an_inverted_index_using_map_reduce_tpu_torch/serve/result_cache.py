@@ -15,9 +15,12 @@ engine provably returns byte-identical payloads for both:
 
 - ``and`` / ``or``: results are ascending doc-id merges, independent of
   term order and duplicates — key is ``sorted(set(terms))``.
-- ``top_k`` (ranked): BM25 sums per-term contributions and breaks ties
-  on ``(-score, gid)``, so term *order* is irrelevant but duplicates
-  are not (a repeated term scores twice) — key is ``sorted(terms)``.
+- ``top_k`` (ranked): BM25 adds per-term contributions in the query's
+  term order, and float addition is not associative — the same terms
+  in another order can score a document one ulp apart (or swap two near
+  ties) — so key is the term tuple verbatim.  (The JAX package keys
+  ``sorted(terms)`` here and so can answer one permutation with
+  another's bytes; ROADMAP §C.)
 - ``df`` / ``postings``: replies are positional per input term — key is
   the term tuple verbatim.
 - letter ``top_k``: keyed on the letter (no terms).
@@ -56,9 +59,7 @@ def key_for(op: str, terms, letter, k, score) -> tuple | None:
     tt = tuple(str(t) for t in terms)
     if op in ("and", "or"):
         norm = tuple(sorted(set(tt)))
-    elif op == "top_k":
-        norm = tuple(sorted(tt))
-    else:  # df / postings: positional replies
+    else:  # ranked top_k (summed in term order), df / postings (positional)
         norm = tt
     return (op, norm, int(k or 0), str(score or ""))
 

@@ -120,6 +120,22 @@ _KNOBS: dict[str, _Knob] = {
     "MRI_SERVE_GC_FREEZE": _Knob(int, 1, choices=(0, 1)),
     # per-tenant lane depth (0: MRI_SERVE_QUEUE_DEPTH)
     "MRI_SERVE_TENANT_QUEUE_DEPTH": _Knob(int, 0, minimum=0),
+    # -- the live index (segments/) --
+    # segment count at which compaction kicks in; also the width of the
+    # adjacent run each round folds
+    "MRI_SEGMENT_COMPACT_TRIGGER": _Knob(int, 4, minimum=2),
+    # segment-count backstop: the daemon compacts after an append while
+    # the live set exceeds it
+    "MRI_SEGMENT_MAX_SEGMENTS": _Knob(int, 16, minimum=1),
+    # daemon delete batching: one tombstone generation every N delete ops
+    "MRI_SEGMENT_TOMBSTONE_FLUSH": _Knob(int, 1, minimum=1),
+    # the mutation write-ahead log (0: publish-only durability; replay
+    # of an existing log still runs)
+    "MRI_SEGMENT_WAL": _Knob(int, 1, choices=(0, 1)),
+    # primary lease TTL in seconds inside segments.lock (0: no leasing)
+    "MRI_SEGMENT_LEASE_TTL_S": _Knob(float, 0.0, minimum=0),
+    # replica catch-up poll period in ms ('serve --replica-of')
+    "MRI_REPLICA_POLL_MS": _Knob(int, 500, minimum=1),
     # -- observability of the daemon --
     # per-request tracing: auto trace ids and the trace ring
     "MRI_OBS_ENABLE": _Knob(int, 1, choices=(0, 1)),

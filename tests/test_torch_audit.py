@@ -1,8 +1,8 @@
 """The port's integrity and observability options against the JAX
 package's: ``--audit`` writes the JAX ``index.manifest.json`` byte for
 byte (with and without ``index.mri``), ``--verify DIR`` accepts an
-untouched directory and names every flipped file, a segment-managed
-directory is refused naming ROADMAP A15; ``--trace-out`` writes the JAX
+untouched directory and names every flipped file, on a segment-managed
+directory its segments and tombstones too; ``--trace-out`` writes the JAX
 device plans' sparse trace and nothing without the flag;
 ``--profile-dir`` writes a torch.profiler trace on the CPU; and the new
 config fields raise the JAX messages."""
@@ -148,12 +148,29 @@ def test_verify_without_a_manifest_or_dir(tmp_path, capsys):
 
 
 def test_verify_refuses_a_segment_managed_dir(corpus, tmp_path, capsys):
+    """A torn segment manifest is refused as the JAX ``--verify`` refuses
+    it; a live directory verifies its segments and tombstones, and a
+    flipped segment byte is named, with the JAX problem list."""
     _build(corpus, tmp_path / "out", capsys, "--audit", "--artifact")
     (tmp_path / "out" / "segments.manifest.json").write_text("{}")
     ok, problems = audit.verify_output_dir(tmp_path / "out")
-    assert not ok and len(problems) == 1 and "ROADMAP A15" in problems[0]
+    assert not ok and len(problems) == 1 and "not a segment manifest" in problems[0]
+    assert (ok, problems) == jaudit.verify_output_dir(tmp_path / "out")
     rc, _, err = _run(main, ["--verify", str(tmp_path / "out")], capsys)
-    assert rc == 2 and "A15" in err
+    assert rc == 2 and "not a segment manifest" in err
+    (tmp_path / "out" / "segments.manifest.json").unlink()
+    # generation 1 seeded from the artifact, then a tombstone generation
+    assert main(["delete", str(tmp_path / "out"), "--docs", "3", "7"]) == 0
+    assert audit.verify_output_dir(tmp_path / "out") == (True, [])
+    rc, lines, _ = _run(main, ["--verify", str(tmp_path / "out")], capsys)
+    assert rc == 0 and "matches its index manifest" in lines[-1]
+    seg = tmp_path / "out" / "segments" / "seg_1_0"
+    _flip(seg / "index.mri")
+    _flip(seg / "tombstones_2.bin", at=9)
+    ok, problems = audit.verify_output_dir(tmp_path / "out")
+    assert not ok and len(problems) == 2
+    assert all("checksum mismatch" in p for p in problems)
+    assert (ok, problems) == jaudit.verify_output_dir(tmp_path / "out")
 
 
 # -- --trace-out and --profile-dir --------------------------------------

@@ -48,9 +48,6 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.models.inverted_index import (
     DeviceUnavailable,
 )
-from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
-    ArtifactError,
-)
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve.daemon import (
     ServeDaemon as TDaemon,
 )
@@ -385,6 +382,10 @@ def test_tenants_and_result_cache_match_jax(built, kind, monkeypatch):
 
 
 def test_segment_surface_refused_as_jax_answers_a_plain_dir(built, tmp_path):
+    """The segment ops on a plain artifact directory answer as the JAX
+    daemon's do there: a delete (nothing to tombstone yet) and an append
+    of a missing file are ``mutation_rejected`` with the JAX detail,
+    ``compact`` a counted no-op, the replication ops ``bad_request``."""
     jdir, tdir, _ = built
     reqs = [{"id": 1, "op": "delete", "docs": [1, 2]}, {"id": 2, "op": "compact"},
             {"id": 3, "op": "snapshot"}, {"id": 4, "op": "wal_tail", "after_seq": 0},
@@ -393,35 +394,47 @@ def test_segment_surface_refused_as_jax_answers_a_plain_dir(built, tmp_path):
             {"id": 7, "op": "fetch_segment", "segment": "seg_1_1", "file": "x.bin"},
             {"id": 8, "op": "fetch_segment", "segment": "seg_1_1", "file": "index.mri"},
             {"id": 9, "op": "delete", "docs": "x"},
-            {"id": 10, "op": "df", "terms": ["cat"], "min_generation": 1}]
+            {"id": 10, "op": "df", "terms": ["cat"], "min_generation": 1},
+            {"id": 11, "op": "append", "files": ["d.txt"]}]
     with pair(built, "host") as (jd, td):
         jgot, tgot = exchange(jd, reqs), exchange(td, reqs)
-        appended = exchange(td, [{"id": 11, "op": "append", "files": ["d.txt"]}])[0]
         jc, tc = (exchange(d, [{"id": 12, "op": "stats"}])[0]["stats"]["counters"]
                   for d in (jd, td))
     for j, t in zip(jgot, tgot):
-        if j["id"] == 1:  # the kind and the count match; the reason differs
-            assert t["error"] == j["error"] == "mutation_rejected"
-            assert "ROADMAP A15b" in t["detail"]
-            continue
         detail = j.get("detail")
         if detail is not None:
             j = dict(j, detail=detail.replace(str(jdir), str(tdir)))
         assert strip(t) == strip(j)
-    assert appended["error"] == "mutation_rejected" and "A15b" in appended["detail"]
+    assert tgot[0]["error"] == "mutation_rejected" and "append first" in tgot[0]["detail"]
     assert tgot[1]["result"]["compacted"] is False  # nothing to compact
+    assert tgot[10]["error"] == "mutation_rejected" and "d.txt" in tgot[10]["detail"]
     for key in ("mutation_rejected", "bad_request", "stale_generation", "mutations"):
-        assert tc[key] == jc[key] + (key == "mutation_rejected"), key
-    # what the port refuses at construction
-    with pytest.raises(ValueError, match="A15b"):
-        TDaemon(str(tdir), engine="host", replica_of="127.0.0.1:1")
+        assert tc[key] == jc[key], key
+    assert not (tdir / "segments.manifest.json").exists()
+    # a replica whose primary is down starts lagging over its own
+    # artifact, as the JAX one does
+    with serving(JDaemon, jdir, engine="host", replica_of="127.0.0.1:1") as jr, \
+            serving(TDaemon, tdir, engine="host", replica_of="127.0.0.1:1") as tr:
+        jh, th = (exchange(d, [{"id": 1, "op": "healthz"}])[0] for d in (jr, tr))
+    assert th["reasons"] == jh["reasons"] and "replica_lagging" in th["reasons"]
+    # a torn manifest refuses at construction with the JAX message; a
+    # torn WAL is quarantined by the startup recovery and the artifact serves
     for name in ("segments.manifest.json", "segments.wal"):
-        d = tmp_path / name.replace(".", "_")
-        d.mkdir()
-        (d / "index.mri").write_bytes((tdir / "index.mri").read_bytes())
-        (d / name).write_text("{}")
-        with pytest.raises(ArtifactError, match="A15b"):
-            TDaemon(str(d), engine="host")
+        errs = []
+        for pkg, cls in (("jax", JDaemon), ("port", TDaemon)):
+            d = tmp_path / pkg / name.replace(".", "_")
+            d.mkdir(parents=True)
+            (d / "index.mri").write_bytes((tdir / "index.mri").read_bytes())
+            (d / name).write_text("{}")
+            try:
+                with serving(cls, d, engine="host"):
+                    errs.append(None)
+            except Exception as e:  # noqa: BLE001 - the two packages' raises compared
+                errs.append((type(e).__name__, str(e).replace(str(d), "DIR")))
+            if name == "segments.wal":
+                assert (d / "segments.wal.corrupt").read_text() == "{}"
+        assert errs[1] == errs[0]
+        assert (errs[0] is None) == (name == "segments.wal")
 
 
 def test_default_engine_is_the_card(built):

@@ -30,6 +30,13 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve 
     engine as eng_mod,
 )
 
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
+    segments as tsegments,
+)
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve.multi_engine import (
+    MultiSegmentEngine,
+)
+
 from test_torch_serve_device import _build, _naive
 
 pytestmark = pytest.mark.serve
@@ -207,15 +214,25 @@ def test_create_engine_refuses_sidecar_dirs(built, tmp_path, which):
     shard.mkdir()
     (shard / "index.mri").write_bytes((outs["3"] / "index.mri").read_bytes())
     (shard / "cluster_shard.json").write_text("{}")
-    with pytest.raises(ArtifactError, match="cluster shard.*A15"):
+    with pytest.raises(ArtifactError, match="cluster shard.*A15c"):
         create_engine(shard, which, device="cpu")
-    with pytest.raises(ArtifactError, match="cluster shard.*A15"):
+    with pytest.raises(ArtifactError, match="cluster shard.*A15c"):
         create_engine(shard / "index.mri", which, device="cpu")
+    # a live directory (generation 1 seeded from the artifact by a
+    # delete): host and auto open the multi-segment engine, a named
+    # device refuses with the JAX message
     seg = tmp_path / "seg"
     seg.mkdir()
-    (seg / "segments.manifest.json").write_text("{}")
-    with pytest.raises(ArtifactError, match="segment-managed.*A15"):
-        create_engine(seg, which, device="cpu")
+    (seg / "index.mri").write_bytes((outs["3"] / "index.mri").read_bytes())
+    tsegments.delete_docs(seg, [1])
+    if which == "device":
+        with pytest.raises(ArtifactError, match="segment-managed: the device engine serves "
+                                                "single artifacts only"):
+            create_engine(seg, which, device="cpu")
+    else:
+        with create_engine(seg, which, device="cpu") as e:
+            assert type(e) is MultiSegmentEngine and e.describe()["engine"] == "multi"
+            assert e.describe()["tombstoned_docs"] == 1
 
 
 def test_answers_equal_across_engines(built):

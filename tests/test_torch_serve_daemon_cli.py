@@ -4,8 +4,9 @@ its ``listening`` line, answers, serves HTTP ``/metrics``, reloads on
 SIGHUP, dumps the flight recorder on SIGQUIT and drains to exit 0 with
 the ``drained`` line on SIGTERM; ``metrics``, ``flightdump`` and ``top
 --once --json`` run against it in this process.  A missing artifact, a
-bad knob and ``--replica-of`` each exit 2 with one line; the segment
-subcommands exit 2 naming ROADMAP A15b; ``metrics``/``top`` on a
+bad knob and a ``--replica-of`` that is no HOST:PORT each exit 2 with
+one line; the cluster subcommands exit 2 naming ROADMAP A15c and the
+segment subcommands answer as the JAX CLI's; ``metrics``/``top`` on a
 directory need the card unless ``--device cpu``; ``query --explain``
 prints the JAX CLI's report."""
 
@@ -131,8 +132,8 @@ def test_serve_cli_refusals_exit_2(out, tmp_path, case):
                     "cannot open"),
         "bad_knob": (["serve", str(out), "--device", "cpu"],
                      {"MRI_SERVE_CODEL_TARGET_MS": "nope"}, "MRI_SERVE_CODEL_TARGET_MS"),
-        "replica_of": (["serve", str(out), "--device", "cpu", "--replica-of", "h:1"], None,
-                       "A15b")}[case]
+        "replica_of": (["serve", str(out), "--device", "cpu", "--replica-of", "h-1"], None,
+                       "replica source must be HOST:PORT, got 'h-1'")}[case]
     proc = _child(*args, env_extra=env)
     stdout, stderr = proc.communicate(timeout=120)
     assert proc.returncode == 2 and stdout == ""
@@ -140,10 +141,35 @@ def test_serve_cli_refusals_exit_2(out, tmp_path, case):
     assert len(lines) == 1 and lines[0].startswith("error: ") and want in lines[0]
 
 
-def test_static_clients_and_segment_subcommands(out, capsys):
-    for sub in ("shard", "router", "append", "delete", "compact", "recover", "replicate"):
+def test_static_clients_and_segment_subcommands(out, capsys, tmp_path):
+    for sub in ("shard", "router"):
         assert tcli.main([sub, str(out)]) == 2
-        assert "ROADMAP A15b" in capsys.readouterr().err
+        assert "ROADMAP A15c" in capsys.readouterr().err
+    # the segment subcommands over a copy of the plain artifact directory:
+    # the JAX CLI's exit codes and stdout
+    copies = []
+    for pkg in ("jax", "port"):
+        d = tmp_path / pkg
+        d.mkdir()
+        (d / "index.mri").write_bytes((out / "index.mri").read_bytes())
+        copies.append(str(d))
+    for argv in (["recover"], ["compact"], ["compact", "--force", "--prune"],
+                 ["delete", "--docs", "9"], ["delete", "--docs", "2"], ["recover"],
+                 ["replicate", "--from", "h-1"]):
+        got = []
+        for main, d in zip((jcli.main, tcli.main), copies):
+            rc = main([argv[0], d, *argv[1:]])
+            o, e = capsys.readouterr()
+            got.append((rc, o, e.replace(d, "DIR")))
+        assert got[1] == got[0], argv
+    assert got[1][0] == 2 and "HOST:PORT" in got[1][2]  # the replicate
+    assert (tmp_path / "port" / "segments" / "seg_1_0" / "index.mri").read_bytes() == \
+        (out / "index.mri").read_bytes()  # the delete seeded generation 1
+    for sub in ("append", "delete", "replicate"):  # a required flag missing: argparse
+        with pytest.raises(SystemExit) as ex:
+            tcli.main([sub, str(out)])
+        assert ex.value.code == 2
+        capsys.readouterr()
     if not torch.cuda.is_available():  # the default is the card, never a quiet CPU
         for sub in ("metrics", "top"):
             assert tcli.main([sub, str(out)]) == 2

@@ -18,6 +18,9 @@ import torch
 
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu import cli as jcli
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.serve import Engine as JHost
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.serve.artifact import (
+    ArtifactError as JArtifactError,
+)
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.serve.device_engine import (
     DeviceEngine as JDevice,
 )
@@ -208,7 +211,11 @@ def test_engine_refusals(zipf, tmp_path, monkeypatch):
         DeviceEngine(out, device="cpu")
     monkeypatch.delenv("MRI_SERVE_SHARDS")
     (tmp_path / "segments.manifest.json").write_text("{}")
-    with pytest.raises(ArtifactError, match="segment-managed"):
+    with pytest.raises(JArtifactError) as jerr:
+        JDevice(tmp_path)
+    with pytest.raises(ArtifactError) as terr:
         DeviceEngine(tmp_path, device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert "segment-managed" in str(terr.value) and "host/auto" in str(terr.value)
     with pytest.raises(ArtifactError, match="cannot open"):
         DeviceEngine(tmp_path / "nowhere", device="cpu")

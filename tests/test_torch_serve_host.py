@@ -18,6 +18,7 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.obs import (
     attribution as jattrib,
 )
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.serve import (
+    artifact as jartifact,
     cache as jcache,
     engine as jengine,
 )
@@ -254,8 +255,12 @@ def test_attribution_reports_parity(pair, monkeypatch):
 def test_engine_refusals(built, tmp_path, monkeypatch):
     outs, _ = built
     (tmp_path / "segments.manifest.json").write_text("{}")
-    with pytest.raises(ArtifactError, match="segment-managed"):
+    with pytest.raises(jartifact.ArtifactError) as jerr:
+        jengine.Engine(tmp_path)
+    with pytest.raises(ArtifactError) as terr:
         Engine(tmp_path)
+    # the JAX text: the root artifact may be stale, create_engine routes
+    assert str(terr.value) == str(jerr.value) and "create_engine" in str(terr.value)
     with pytest.raises(ArtifactError, match="cannot open"):
         Engine(tmp_path / "nowhere")
     monkeypatch.setenv("MRI_SERVE_NATIVE", "yes")
