@@ -199,7 +199,30 @@ Phases, each failing loudly (exit 1, no result line):
    per append, delete, compact, recover and engine open, per-op query
    ms, read p50/p99 under mutations, ack ms, convergence ms, peak device
    memory and both kernels' launches (0: the seed is the pipelined plan).
-16. Kernels: each CUDA kernel against its plain PyTorch version on the
+16. Path O — the doc-sharded cluster (``cluster/``, host code as in the
+   JAX package) on Path B's corpus, in the phase ``path_o`` line: O1
+   ``shard --shards 4 --verify`` (round-robin, 5,000 files a shard: ms
+   of each shard's host build, of the global-stats pass and of the
+   command), ``--verify-only`` (0, then 2 naming shard 2 after a flipped
+   ``docs.list`` byte), the monolith on Path M4's argv; O2 five ``serve``
+   children (shard 0 on two replicas, the shard engine) and a ``router``
+   child, Path L's traffic through the router equal to the host
+   ``Engine`` over the monolith exactly and to the card's
+   ``DeviceEngine`` over it (BM25 rel 1e-4, ties in any order), and the
+   same traffic against one ``serve --engine host`` child over the
+   monolith (requests/s, p50/p99 per op of both); O4 a second router
+   with ``--hedge-ms 5`` and a slowed shard-0 replica (hedges and hedge
+   wins, the answers unchanged); O3 shard 0's first replica SIGKILLed
+   under traffic (every request answered once and correctly, failovers
+   counted); O5 shard 1's only replica SIGKILLed (typed
+   ``shard_unavailable`` under ``fail``; ``partial`` answers at
+   ``docs_fraction`` 0.75 equal to ``ShardRestrictedOracle`` under
+   ``allow``; a breaker ``open`` in ``top ROUTER --once --json``); O6 a
+   ``ParagraphManifest`` over 355 generated files of Zipf paragraphs
+   (5.8 MB), salted to 20,000 documents, built on the card by the
+   default plan and the streaming all-device plan, each md5 equal to
+   ``oracle_index``, and its vocabulary curve.
+17. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -210,7 +233,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-17. Engine: the warm device time of each engine program a path runs, at
+18. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -225,12 +248,14 @@ default build with ``--artifact`` on Path B's corpus and Path J alone, on
 every card the machine has (4 shards, shard i on card i % cards);
 ``--serve-only`` runs the build, the default build with ``--artifact``
 on Path B's corpus and Path L alone; ``--segments-only`` the build, the
-same ``--artifact`` build and Path N alone.
+same ``--artifact`` build and Path N alone; ``--cluster-only`` the build,
+the same ``--artifact`` build and Path O alone.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
 or ``build_index`` in this process (Path L: ``ServeDaemon`` and the
-``serve`` CLI's child), with the kernels' launch counts set
+``serve`` CLI's child; Path O: the ``serve`` and ``router`` CLIs'
+children), with the kernels' launch counts set
 to 0 just before and read just after each; a kernel's ``launches`` in
 the ``kernels`` line is their sum, ``launches_by_path`` the parts.  The
 last lines are the card,
@@ -2979,6 +3004,558 @@ def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, c
     return launches
 
 
+# -- Path O: the doc-sharded cluster (cluster/) ---------------------------------
+
+O_SHARDS = 4            # O1's round-robin shards of Path B's 20,000 files
+O_CONNS, O_PER_CONN = L_CONNS, L_PER_CONN  # O2: Path L's traffic through the router
+O3_CONNS, O3_PER_CONN = 8, 125  # O3's connections (Path L's mix) while shard 0's primary dies
+O_KILL_AFTER = 300      # O3: requests the router has admitted before the SIGKILL
+O_HEDGE_SPEC = "shard-slow:shard=0:replica=0:ms=40:times=3"
+O5_REQUESTS = 240       # O5: requests under partial_policy allow held against the oracle
+O_PARAGRAPH_FILES = 355         # O6: the reference's chapter files (SURVEY §2.2)
+O_PARAGRAPHS = 13_400           # ... its paragraphs
+O_PARAGRAPH_BYTES = 5_790_000   # ... its bytes
+O_PARAGRAPH_DOCS = 20_000       # O6: the manifest cycled (salted) to this many documents
+
+
+class StampedLines(io.TextIOBase):
+    """A stdout that keeps each line with the host-clock second it was
+    written at (the ``shard`` subcommand's progress events)."""
+
+    def __init__(self):
+        self.lines: list = []
+        self._buf = ""
+
+    def write(self, s: str) -> int:
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+
+def o_child(log: Path, *argv: str, **env_extra) -> subprocess.Popen:
+    """The port's CLI in a child (``serve``/``router``): stdout piped for
+    its ``listening`` line, stderr appended to ``log``."""
+    with open(log, "ab") as errf:
+        return subprocess.Popen(
+            [sys.executable, "-m", PKG, *argv], cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT), **env_extra},
+            stdout=subprocess.PIPE, stderr=errf, text=True)
+
+
+def o_ready(proc: subprocess.Popen, log: Path, label: str, t0: float) -> dict:
+    line = proc.stdout.readline()
+    check(bool(line), f"{label}: died before listening: {log.read_text(errors='replace')[-2000:]}")
+    ready = json.loads(line)
+    check(ready["event"] == "listening", f"{label}: first line {ready}")
+    ready["start_s"] = time.perf_counter() - t0
+    return ready
+
+
+def o_stop(proc: subprocess.Popen, label: str) -> dict | None:
+    """SIGTERM a child and read its ``drained`` line (None if it was
+    already gone)."""
+    drained = None
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            check(proc.wait(timeout=60) == 0, f"{label}: drain exit {proc.returncode}")
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise SmokeFailure(f"{label}: did not drain within 60 s") from None
+        tail = proc.stdout.read().strip().splitlines()
+        drained = json.loads(tail[-1]) if tail else None
+    proc.stdout.close()
+    return drained
+
+
+def o_paragraph_dir(np, synthetic, root: Path, seed: int) -> dict:
+    """O6's source: ``O_PARAGRAPH_FILES`` files of blank-line separated
+    Zipf paragraphs over a 33,000-word vocabulary (Path A's), each
+    paragraph opening with a capital and ending with a full stop, their
+    lengths lognormal, about ``O_PARAGRAPH_BYTES`` in all, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    vocab = synthetic.make_vocab(33_000, seed=seed)
+    p = np.arange(1, len(vocab) + 1, dtype=np.float64) ** -1.05
+    p /= p.sum()
+    word_bytes = float((p * np.array([len(w) for w in vocab])).sum()) + 1.0
+    mean_words = O_PARAGRAPH_BYTES / word_bytes / O_PARAGRAPHS
+    lens = np.clip(rng.lognormal(np.log(mean_words) - 0.18, 0.6, O_PARAGRAPHS), 3, 2000)
+    lens = lens.astype(np.int64)
+    ids = rng.choice(len(vocab), size=int(lens.sum()), p=p)
+    words = np.array(vocab, dtype=object)[ids]
+    ends = np.cumsum(lens)
+    paras = [b" ".join(words[e - n:e]).capitalize() + b"." for n, e in zip(lens.tolist(),
+                                                                            ends.tolist())]
+    root.mkdir(parents=True)
+    per = np.array_split(np.arange(len(paras)), O_PARAGRAPH_FILES)
+    total = 0
+    for i, idx in enumerate(per):
+        blob = b"\n\n".join(paras[j] for j in idx.tolist()) + b"\n"
+        (root / f"chapter_{i:03d}.txt").write_bytes(blob)
+        total += len(blob)
+    return {"files": O_PARAGRAPH_FILES, "paragraphs": len(paras), "bytes": total}
+
+
+def path_o(torch, K, cli, manifest_mod, synthetic, build_index, IndexConfig, oracle_index,
+           formatter, list_b: Path, tmp: Path, card: str, device: str = "cuda") -> dict:
+    """Path O — the doc-sharded cluster (``cluster/``: host code, as in
+    the JAX package) on Path B's corpus, the card's ``DeviceEngine`` the
+    reference it is held against.
+
+    O1: ``shard LIST --shards 4 --out CL --verify`` (round-robin, 5,000
+    files a shard; ms of each shard's host build, of the global-stats
+    pass and of the command); ``--verify-only`` exits 0, and 2 naming
+    shard 2 after one byte of its ``docs.list`` is flipped; the monolith
+    is Path M4's argv (``8 4 --artifact --backend cpu``).  O2: five
+    ``serve`` children (shard 0 on two replicas; no engine named: the
+    shard engine) and a ``router`` child; Path L's traffic through the
+    router, every answer equal to the host ``Engine`` over the monolith
+    exactly (BM25 floats included) and to the card's ``DeviceEngine``
+    over it (BM25 rel 1e-4, ties in any order); the same traffic against
+    one ``serve --engine host`` child over the monolith; requests/s and
+    p50/p99 per op of both.  O4: a second router with ``--hedge-ms 5
+    --fault-spec`` ``O_HEDGE_SPEC``: hedges and hedge wins, the answers
+    unchanged, then its drain.  O3: Path L's mix on ``O3_CONNS``
+    connections through the first router while shard 0's first replica
+    is SIGKILLed: every request answered once and correctly,
+    ``failovers`` >= 1.  O5: shard 1's only replica SIGKILLed: every
+    data op a typed ``shard_unavailable`` naming shard 1 under the
+    default policy; under ``allow`` each answer ``partial`` with
+    ``docs_fraction`` 0.75 and equal to ``ShardRestrictedOracle`` over
+    the live shards (BM25 floats included); ``breakers_open`` >= 1 and
+    ``top ROUTER --once --json`` showing the dead replica's breaker
+    ``open``.  O6: a ``ParagraphManifest`` over a generated paragraph
+    directory (the reference's file, paragraph and byte counts), salted
+    to ``O_PARAGRAPH_DOCS`` documents, built on the card by the default
+    plan and the streaming all-device plan, each md5 equal to
+    ``oracle_index``; its vocabulary curve."""
+    import threading
+
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.cluster import (
+        partition as part_mod)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus.realtext import (
+        ParagraphManifest)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+        DeviceEngine, Engine, artifact as TA)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve.multi_engine import (
+        ShardRestrictedOracle)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.text.tokenizer import (
+        MAX_WORD_LETTERS)
+
+    on_card = device == "cuda"
+    t_path = time.perf_counter()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    n_docs = len(manifest_mod.read_manifest(list_b))
+    out: dict = {"card": card}
+    stage_s: dict = {}
+    t_stage = [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    # -- O1: partition, verify, the monolith ------------------------------------
+    cl = tmp / "O_cluster"
+    builds: list = []
+    real_build = part_mod._build_shard
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_build(*a, **kw)
+        finally:
+            builds.append((t, time.perf_counter()))
+
+    lines = StampedLines()
+    part_mod._build_shard = timed_build
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(lines):
+            rc = cli.main(["shard", str(list_b), "--shards", str(O_SHARDS), "--out", str(cl),
+                           "--verify"])
+        t1 = time.perf_counter()
+    finally:
+        part_mod._build_shard = real_build
+    check(rc == 0, f"path O1 shard: exit {rc}")
+    events = {json.loads(line)["event"]: (t, json.loads(line)) for t, line in lines.lines
+              if line.startswith("{") and json.loads(line)["event"] != "progress"}
+    check(set(events) == {"partitioned", "verified"} and events["verified"][1]["verified"],
+          f"path O1: events {sorted(events)}")
+    cluster = events["partitioned"][1]
+    check(cluster["shards"] == O_SHARDS and cluster["total_docs"] == n_docs,
+          f"path O1: {cluster}")
+    out["o1"] = {"shard_build_ms": [(b - a) * 1e3 for a, b in builds],
+                 "global_stats_ms": (events["partitioned"][0] - builds[-1][1]) * 1e3,
+                 "verify_ms": (events["verified"][0] - events["partitioned"][0]) * 1e3,
+                 "command_ms": (t1 - t0) * 1e3,
+                 "ndocs": cluster["ndocs"], "avgdl": cluster["avgdl"]}
+    sides = [json.loads((cl / f"shard-{s}" / "cluster_shard.json").read_text())
+             for s in range(O_SHARDS)]
+    check([len(sd["gids"]) for sd in sides] == [n_docs // O_SHARDS] * O_SHARDS,
+          f"path O1: round-robin shards of {n_docs // O_SHARDS} files")
+    out["o1"]["shard_terms"] = [len(sd["global_df"]) for sd in sides]
+    # the shard daemons start now: their interpreters load while the
+    # checks below and the monolith's build run
+    logs = tmp / "O_logs"
+    logs.mkdir()
+    spec_reps = [2, 1, 1, 1]
+    t_start = time.perf_counter()
+    shard_procs = [[o_child(logs / f"shard{s}_r{r}.log", "serve", str(cl / f"shard-{s}"),
+                            "--listen", "127.0.0.1:0") for r in range(n)]
+                   for s, n in enumerate(spec_reps)]
+    procs = [p for reps in shard_procs for p in reps]
+    routers: list = []
+    try:
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+            rc = cli.main(["shard", str(list_b), "--shards", str(O_SHARDS), "--out", str(cl),
+                           "--verify-only"])
+        check(rc == 0, f"path O1 --verify-only: exit {rc}: {err.getvalue()}")
+        victim = cl / "shard-2" / "docs.list"
+        orig = victim.read_bytes()
+        victim.write_bytes(orig[:-2] + bytes([orig[-2] ^ 1]) + orig[-1:])
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+            rc = cli.main(["shard", str(list_b), "--shards", str(O_SHARDS), "--out", str(cl),
+                           "--verify-only"])
+        victim.write_bytes(orig)
+        check(rc == 2 and err.getvalue().startswith(
+                  "error: shard 2: docs.list does not byte-match"),
+              f"path O1 flipped docs.list: exit {rc}: {err.getvalue()}")
+        mono = tmp / "O_mono"
+        t0 = time.perf_counter()
+        rc, _ = run_cli(cli, ["8", "4", str(list_b), "--artifact", "--backend", "cpu",
+                              "--output-dir", str(mono)])
+        check(rc == 0, f"path O1 monolith: exit {rc}")
+        out["o1"]["monolith_ms"] = (time.perf_counter() - t0) * 1e3
+        with Engine(mono) as host:
+            _, ndocs, avgdl = host._bm25_corpus()
+        check((ndocs, avgdl) == (cluster["ndocs"], cluster["avgdl"]),
+              f"path O1: global stats {cluster['ndocs']}, {cluster['avgdl']} != the "
+              f"monolith's {ndocs}, {avgdl}")
+        stage("o1")
+
+        # -- O2: five shard daemons, a router, Path L's traffic -----------------
+        t_mono = time.perf_counter()
+        mono_proc = o_child(logs / "mono.log", "serve", str(mono), "--engine", "host",
+                            "--listen", "127.0.0.1:0")
+        procs.append(mono_proc)
+        ready = [[o_ready(p, logs / f"shard{s}_r{r}.log", f"path O2 shard {s} replica {r}",
+                          t_start) for r, p in enumerate(reps)]
+                 for s, reps in enumerate(shard_procs)]
+        check(all(r["engine"] == "shard" for reps in ready for r in reps),
+              f"path O2: shard daemons' engines {[r['engine'] for rr in ready for r in rr]}")
+        spec = ",".join("|".join(f"{r['host']}:{r['port']}" for r in reps) for reps in ready)
+        t1 = time.perf_counter()
+        r1 = o_child(logs / "router1.log", "router", "--shards", spec,
+                     "--listen", "127.0.0.1:0")
+        routers.append(r1)
+
+        with TA.load_artifact(mono / "index.mri") as art:
+            ranked = [art.term(int(i))
+                      for i in np.argsort(-art.df.astype(np.int64), kind="stable")]
+        rng = np.random.default_rng(37)
+        conns = [l_requests(np, rng, ranked, O_PER_CONN, 1 + i * O_PER_CONN)
+                 for i in range(O_CONNS)]
+        memo: dict = {}
+        host = Engine(mono)
+        dev = DeviceEngine(mono / "index.mri", device=device)
+        try:
+            def expected(r):
+                key = json.dumps({k: v for k, v in r.items() if k != "id"}, sort_keys=True)
+                if key not in memo:
+                    want_h = l_expected(host, r)
+                    want_d = l_expected(dev, r)
+                    if l_kind(r) == "bm25":
+                        check_bm25_ties([tuple(x) for x in want_d["docs"]],
+                                        [tuple(x) for x in want_h["docs"]], 1e-4,
+                                        f"path O2 the card vs the host on {key}")
+                    else:
+                        check(want_d == want_h, f"path O2: the card's answer to {key} "
+                              f"{json.dumps(want_d)[:200]} != the host's "
+                              f"{json.dumps(want_h)[:200]}")
+                    memo[key] = want_h
+                return memo[key]
+
+            def exact(got: dict, want: dict, label: str) -> None:
+                got = {k: v for k, v in got.items() if k not in ("id", "trace_id")}
+                check(got == want, f"{label}: {json.dumps(got)[:300]} != "
+                      f"{json.dumps(want)[:300]}")
+
+            t_ref = time.perf_counter()
+            want = [[expected(r) for r in c] for c in conns]
+            out["reference_s"] = time.perf_counter() - t_ref
+            out["distinct_requests"] = len(memo)
+            mono_ready = o_ready(mono_proc, logs / "mono.log", "path O2 monolith serve", t_mono)
+            check(mono_ready["engine"] == "host",
+                  f"path O2: monolith engine {mono_ready['engine']}")
+            r1_ready = o_ready(r1, logs / "router1.log", "path O2 router", t1)
+            check(r1_ready["shards"] == O_SHARDS and r1_ready["replicas"] == spec_reps,
+                  f"path O2 router: {r1_ready}")
+            r1_addr = (r1_ready["host"], r1_ready["port"])
+            # each child's seconds from its spawn to its listening line (the
+            # shard daemons' overlap O1's checks and monolith build, the
+            # router's and the monolith daemon's the reference answers)
+            out["start_s"] = {"shards": [[r["start_s"] for r in reps] for reps in ready],
+                              "monolith": mono_ready["start_s"],
+                              "router": r1_ready["start_s"]}
+            stage("o2_start_and_reference")
+            legs = {}
+            for name, addr in (("router", r1_addr),
+                               ("monolith", (mono_ready["host"], mono_ready["port"]))):
+                (tmp / f"O2_{name}").mkdir()
+                t_leg = time.perf_counter()
+                answers, lat, wall = l_traffic(addr, conns, tmp / f"O2_{name}")
+                leg_s = time.perf_counter() - t_leg
+                for got_c, want_c in zip(answers, want):
+                    for got, w in zip(got_c, want_c):
+                        exact(got, w, f"path O2 {name}")
+                n_req = sum(len(c) for c in conns)
+                # leg_s: the clients' spawn, connect, traffic and exit
+                legs[name] = {"requests": n_req, "wall_s": wall, "requests_per_s": n_req / wall,
+                              "leg_s": leg_s, "client_ms": l_quantiles(np, lat)}
+            out["o2"] = legs
+            with contextlib.closing(LClient(r1_addr)) as c:
+                st = c.rpc(op="stats")["stats"]
+            out["o2"]["router_counters"] = {k: v for k, v in st["counters"].items() if v}
+            out["o2"]["result_cache"] = st["result_cache"]
+            stage("o2_traffic")
+
+            # -- O4: a second router, hedging a slowed replica -------------------
+            t1 = time.perf_counter()
+            r2 = o_child(logs / "router2.log", "router", "--shards", spec, "--listen",
+                         "127.0.0.1:0", "--hedge-ms", "5", "--fault-spec", O_HEDGE_SPEC)
+            routers.append(r2)
+            r2_ready = o_ready(r2, logs / "router2.log", "path O4 router", t1)
+            r2_addr = (r2_ready["host"], r2_ready["port"])
+            hedge_terms = [t.decode() for t in ranked[:2]]
+            hedge_want = expected({"op": "df", "terms": hedge_terms})
+            with contextlib.closing(LClient(r2_addr)) as c:
+                for i in range(3):
+                    exact(c.rpc(id=i, op="df", terms=hedge_terms), hedge_want, "path O4 df")
+                deadline = time.monotonic() + 5.0
+                while True:
+                    hc = c.rpc(op="stats")["stats"]["counters"]
+                    if hc["hedges"] >= 1 and hc["hedge_wins"] >= 1 \
+                            or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.02)
+            check(hc["hedges"] >= 1 and hc["hedge_wins"] >= 1,
+                  f"path O4: hedges {hc['hedges']}, hedge wins {hc['hedge_wins']}")
+            drained = o_stop(r2, "path O4 router")
+            routers.remove(r2)
+            check(drained is not None and drained["event"] == "drained",
+                  f"path O4 router: no drained line ({drained})")
+            out["o4"] = {"hedges": hc["hedges"], "hedge_wins": hc["hedge_wins"],
+                         "scatter_rpcs": hc["scatter_rpcs"], "start_s": r2_ready["start_s"]}
+            stage("o4")
+
+            # -- O3: shard 0's first replica SIGKILLed mid-traffic ----------------
+            rng3 = np.random.default_rng(41)
+            conns3 = [l_requests(np, rng3, ranked, O3_PER_CONN, 100_000 + i * O3_PER_CONN)
+                      for i in range(O3_CONNS)]
+            want3 = [[expected(r) for r in c] for c in conns3]
+            with contextlib.closing(LClient(r1_addr)) as c:
+                base = c.rpc(op="stats")["stats"]["counters"]
+            res3: dict = {}
+
+            def traffic3():
+                try:
+                    (tmp / "O3").mkdir()
+                    res3["out"] = l_traffic(r1_addr, conns3, tmp / "O3")
+                except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+                    res3["error"] = e
+
+            th = threading.Thread(target=traffic3)
+            th.start()
+            killed_at = None
+            with contextlib.closing(LClient(r1_addr)) as c:
+                deadline = time.monotonic() + 120
+                while th.is_alive() and time.monotonic() < deadline:
+                    now = c.rpc(op="stats")["stats"]["counters"]
+                    if now["requests"] - base["requests"] >= O_KILL_AFTER:
+                        shard_procs[0][0].send_signal(signal.SIGKILL)
+                        killed_at = now["requests"] - base["requests"]
+                        break
+                    time.sleep(0.002)
+            th.join(timeout=600)
+            check(not th.is_alive() and "error" not in res3,
+                  f"path O3 traffic: {res3.get('error')}")
+            check(killed_at is not None, "path O3: the traffic ended before the kill")
+            shard_procs[0][0].wait(timeout=30)
+            answers, lat, wall = res3["out"]
+            n3 = 0
+            for got_c, want_c in zip(answers, want3):
+                check(len(got_c) == len(want_c), "path O3: a connection lost answers")
+                for got, w in zip(got_c, want_c):
+                    exact(got, w, "path O3 acknowledged answer")
+                    n3 += 1
+            with contextlib.closing(LClient(r1_addr)) as c:
+                after = c.rpc(op="stats")["stats"]
+            fo = after["counters"]["failovers"] - base["failovers"]
+            check(fo >= 1, f"path O3: failovers {fo}")
+            out["o3"] = {"requests": n3, "killed_after_requests": killed_at,
+                         "failovers": fo,
+                         "shard_errors": after["counters"]["shard_errors"]
+                         - base["shard_errors"],
+                         "requests_per_s": n3 / wall, "client_ms": l_quantiles(np, lat)}
+            stage("o3")
+
+            # -- O5: every replica of shard 1 SIGKILLed -----------------------------
+            shard_procs[1][0].send_signal(signal.SIGKILL)
+            shard_procs[1][0].wait(timeout=30)
+            probe = [t.decode() for t in ranked[:3]]
+            data_ops = [{"op": "df", "terms": probe}, {"op": "postings", "terms": probe},
+                        {"op": "and", "terms": probe[:2]}, {"op": "or", "terms": probe},
+                        {"op": "top_k", "terms": probe, "k": 10, "score": "bm25"},
+                        {"op": "top_k", "letter": "s", "k": 10}]
+            oracle = ShardRestrictedOracle.round_robin(host, O_SHARDS, covered={0, 2, 3})
+            rng5 = np.random.default_rng(43)
+            reqs5 = data_ops + l_requests(np, rng5, ranked, O5_REQUESTS, 200_000)
+            n5 = 0
+            with contextlib.closing(LClient(r1_addr)) as c:
+                for i, r in enumerate(data_ops):
+                    got = c.rpc(id=i, **r)
+                    check(got.get("error") == "shard_unavailable" and got.get("shard") == 1,
+                          f"path O5 fail policy {r}: {got}")
+                t5 = time.perf_counter()
+                for r in reqs5:
+                    got = c.rpc(partial_policy="allow", **r)
+                    check(got.get("ok") and got.get("partial") is True
+                          and got["coverage"] == {"shards_answered": 3, "shards_total": 4,
+                                                  "missing": [1], "docs_fraction": 0.75},
+                          f"path O5 allow {r}: {json.dumps(got)[:300]}")
+                    got = {k: v for k, v in got.items() if k not in ("partial", "coverage")}
+                    exact(got, l_expected(oracle, r), f"path O5 partial vs the oracle {r}")
+                    n5 += 1
+                allow_s = time.perf_counter() - t5
+                deadline = time.monotonic() + 15
+                while c.rpc(op="stats")["stats"]["cluster"]["breakers_open"] < 1:
+                    check(time.monotonic() < deadline, "path O5: no breaker opened")
+                    c.rpc(op="df", terms=probe, partial_policy="allow")
+                    time.sleep(0.05)
+            target = f"{r1_addr[0]}:{r1_addr[1]}"
+            deadline = time.monotonic() + 10
+            while True:
+                rc, sample = run_cli(cli, ["top", target, "--once", "--json"])
+                check(rc == 0 and sample is not None, f"path O5 top: exit {rc}")
+                breaker = sample["stats"]["cluster"]["shards"][1]["replicas"][0]["breaker"]
+                if breaker == "open" or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+            check(breaker == "open", f"path O5: top shows shard 1's breaker {breaker}")
+            frame = io.StringIO()
+            with contextlib.redirect_stdout(frame):
+                check(cli.main(["top", target, "--once"]) == 0, "path O5 top frame")
+            check("coverage: 3/4 shards answerable  [DEGRADED]" in frame.getvalue(),
+                  f"path O5 top frame: {frame.getvalue()[-600:]}")
+            out["o5"] = {"allow_requests": n5, "allow_ms_per_request": allow_s * 1e3 / n5,
+                         "breakers_open": sample["stats"]["cluster"]["breakers_open"],
+                         "shard1_breaker": breaker}
+        finally:
+            host.close()
+            dev.close()
+        drained = o_stop(routers.pop(), "path O router")
+        check(drained is not None and drained["event"] == "drained",
+              f"path O router: no drained line ({drained})")
+        out["router_drained_counters"] = {k: v for k, v in drained["counters"].items() if v}
+        stage("o5")
+    finally:
+        for p in routers + procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            if not p.stdout.closed:
+                p.stdout.close()
+
+    # -- O6: the paragraph corpus on the card ------------------------------------
+    launches = {"unique_mask_count": K.unique_mask_count.launches,
+                "bucket_histogram": K.bucket_histogram.launches}
+    out["max_memory_allocated_o1_o5"] = torch.cuda.max_memory_allocated() if on_card else None
+    src = tmp / "O_paragraphs"
+    out["o6_source"] = o_paragraph_dir(np, synthetic, src, seed=47)
+    t0 = time.perf_counter()
+    m = ParagraphManifest(src, num_docs=O_PARAGRAPH_DOCS, salt_cycles=True)
+    out["o6_source"].update(manifest_ms=(time.perf_counter() - t0) * 1e3,
+                            source_paragraphs=m.source_paragraphs, docs=len(m),
+                            manifest_bytes=m.total_bytes)
+    check(m.source_files == O_PARAGRAPH_FILES and len(m) == O_PARAGRAPH_DOCS,
+          f"path O6 manifest: {m.source_files} files, {len(m)} docs")
+    t0 = time.perf_counter()
+    oracle_index(m, str(tmp / "O6_oracle"))
+    out["o6_source"]["oracle_ms"] = (time.perf_counter() - t0) * 1e3
+    md5_oracle = formatter.letters_md5(tmp / "O6_oracle")
+    for name, cfg in (("default", IndexConfig(num_mappers=4, num_reducers=26, device=device)),
+                      ("stream_all_device", IndexConfig(num_mappers=4, num_reducers=26,
+                                                        device_tokenize=True,
+                                                        stream_chunk_docs=2500,
+                                                        device=device))):
+        s, leg = drive_path(torch, K, formatter,
+                            lambda cfg=cfg, name=name: build_index(
+                                m, cfg, output_dir=str(tmp / f"O6_{name}")),
+                            tmp / f"O6_{name}", f"path O6 {name}")
+        check(s["md5"] == md5_oracle, f"path O6 {name}: md5 {s['md5']} != oracle {md5_oracle}")
+        check("device_tokenize_fallback" not in s, f"path O6 {name}: fell back")
+        print_path(f"path_o6_{name}", s, leg, oracle_md5=md5_oracle, card=repr(card))
+        out[f"o6_{name}"] = {"total_ms": s["total_ms"], "unique_terms": s["unique_terms"],
+                             "max_memory_allocated": s["max_memory_allocated"],
+                             "unique_rows_curve": s.get("unique_rows_curve")}
+        launches = {k: launches[k] + leg[k] for k in launches}
+    # the vocabulary curve: distinct cleaned words after each 2,500
+    # documents (the streaming plan's windows), by the reference's rule
+    keep = set(range(97, 123))
+    drop = bytes(b for b in range(256) if b not in keep)
+    seen: set = set()
+    curve = []
+    for lo in range(0, len(m), 2500):
+        for i in range(lo, min(lo + 2500, len(m))):
+            for tok in m.read_doc(i).lower().split():
+                w = tok.translate(None, drop)[:MAX_WORD_LETTERS]
+                if w:
+                    seen.add(w)
+        curve.append(len(seen))
+    check(curve[-1] == out["o6_default"]["unique_terms"] == out["o6_stream_all_device"][
+        "unique_terms"], f"path O6: vocabulary curve {curve} against the builds' unique terms")
+    out["o6_vocab_curve"] = curve
+    stage("o6")
+
+    out["launches"] = launches
+    out["stage_s"] = stage_s
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"phase path_o: card={card} {json.dumps(out)}", flush=True)
+    return launches
+
+
+def cluster_only_run(torch, K, cli, formatter, synthetic, manifest_mod, build_index,
+                     IndexConfig, oracle_index, card: str, kind: str) -> int:
+    """``--cluster-only``: the default build with ``--artifact`` on Path
+    B's corpus (Path H's v2.1 artifact) and Path O alone, for iterating
+    on the cluster; the run with no arguments drives every path."""
+    with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+            num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+        stats_h, launches_h = drive_path(
+            torch, K, formatter, cli_run(cli, "path H", list_b, tmp / "H_out", ["--artifact"]),
+            tmp / "H_out", "path H")
+        print_path("path_h", stats_h, launches_h, card=repr(card))
+        path_o(torch, K, cli, manifest_mod, synthetic, build_index, IndexConfig, oracle_index,
+               formatter, list_b, tmp, card)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, kind: str
                    ) -> int:
     """``--serve-only``: the default build with ``--artifact`` on Path B's
@@ -3063,7 +3640,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
-            IndexConfig, build_index, cli, faults, native)
+            IndexConfig, build_index, cli, faults, native, oracle_index)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
             manifest as manifest_mod, scheduler, synthetic)
         from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
@@ -3112,8 +3689,11 @@ def main() -> int:
         if sys.argv[1:] == ["--segments-only"]:
             return segments_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card,
                                      kind)
+        if sys.argv[1:] == ["--cluster-only"]:
+            return cluster_only_run(torch, K, cli, formatter, synthetic, manifest_mod,
+                                    build_index, IndexConfig, oracle_index, card, kind)
         check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} "
-              "(only --mesh-only, --serve-only or --segments-only)")
+              "(only --mesh-only, --serve-only, --segments-only or --cluster-only)")
 
         launches_by_path = {}
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
@@ -3398,6 +3978,11 @@ def main() -> int:
                                            card)
             check(not any(launches_by_path["N"].values()),
                   f"path N launched a kernel of csrc/: {launches_by_path['N']}")
+
+            # -- Path O: the doc-sharded cluster on Path B's corpus ---------------
+            launches_by_path["O"] = path_o(torch, K, cli, manifest_mod, synthetic, build_index,
+                                           IndexConfig, oracle_index, formatter, list_b, tmp,
+                                           card)
 
             # Paths D, E and F's device programs alone, while their files exist
             eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)

@@ -34,6 +34,12 @@ beside it as the reference), for its single-device build plans:
   native C++, K scan workers pulling byte windows from a steal queue and
   M letter reducers over one merge (the reference's fork-join regime),
   with an out-of-core spill tier; no card
+- the live index (``segments/``: immutable segments, tombstones, a
+  WAL, compaction and replicas) and the doc-sharded cluster
+  (``cluster/``: ``shard`` partitions a corpus into shard directories
+  with global BM25 stats, ``router`` scatters the daemon's protocol over
+  shard daemons and gathers exact answers), host code as in the JAX
+  package
 
 It imports torch and numpy, never jax and nothing of the JAX package.
 """

@@ -53,8 +53,20 @@ exit codes:
 
 each with ``--fault-spec SPEC``.  ``query``/``serve`` on such a
 directory open the host multi-segment engine unless ``--engine device``
-is named (exit 2, as the JAX CLI).  The cluster subcommands (``shard``,
-``router``) exit 2: they are not ported yet (ROADMAP A15c).
+is named (exit 2, as the JAX CLI).
+
+The doc-sharded cluster (``cluster/``), on the host as in the JAX
+package, with its CLI's arguments, JSON lines and exit codes:
+
+    ... shard LIST --shards D --out CL [--mode round-robin|size-balanced]
+        [--verify | --verify-only]          (CL/shard-0 .. CL/shard-D-1)
+    ... serve CL/shard-S --listen HOST:PORT   (a shard daemon)
+    ... router --shards h:1|h:2,h:3 --listen HOST:PORT [--hedge-ms MS]
+        [--fault-spec SPEC]
+    ... top ROUTER:PORT                     (fleet rows per replica)
+
+``query``/``serve`` on a shard directory open the host shard engine
+unless ``--engine device`` is named (exit 2, as the JAX CLI).
 """
 
 from __future__ import annotations
@@ -336,10 +348,6 @@ def _query_main(argv: list[str]) -> int:
             explain_cm.__exit__(None, None, None)
         engine.close()
     return 0
-
-
-#: JAX CLI subcommands of the cluster layer, not ported yet (ROADMAP A15c)
-CLUSTER_SUBCOMMANDS = ("shard", "router")
 
 
 def _device_arg(p: argparse.ArgumentParser, what: str) -> None:
@@ -664,7 +672,7 @@ def _top_num(v) -> str:
 
 def _top_render(target: str, sample: dict) -> str:
     """One plain-text dashboard frame over a poll's sample (the JAX
-    ``top`` frame without its router fleet rows, ROADMAP A15b)."""
+    ``top`` frame; a router's sample adds one fleet row per replica)."""
     h = sample.get("healthz") or {}
     st = sample.get("stats") or {}
     slo = sample.get("slo") or {}
@@ -719,10 +727,44 @@ def _top_render(target: str, sample: dict) -> str:
             pt = (entry.get("windows") or {}).get(label) or {}
             lines.append(f"  {label:<8}{_top_num(pt.get('ratio')):>12}"
                          f"{_top_num(pt.get('burn')):>10}{_top_num(pt.get('total')):>10}")
+    cluster = st.get("cluster") or {}
+    if cluster.get("shards"):
+        lines.extend(_top_fleet_rows(cluster))
     lines.append("")
     nonzero = "  ".join(f"{k}={v}" for k, v in counters.items() if v)
     lines.append("counters: " + (nonzero or "-"))
     return "\n".join(lines) + "\n"
+
+
+def _top_fleet_rows(cluster: dict) -> list[str]:
+    """A router's fleet: one row per replica, all from the same single
+    stats poll, then the coverage line (a shard counts as answerable
+    while any replica is ready with a breaker that is not open)."""
+    lines = ["", f"{'shard':<8}{'replica':<22}{'state':<10}"
+                 f"{'breaker':<11}{'p95 ms':>10}  reasons"]
+    answerable = 0
+    for sh in cluster["shards"]:
+        p95 = sh.get("p95_ms")
+        reps = sh.get("replicas") or []
+        if any(r.get("ready") and r.get("breaker", "closed") != "open"
+               for r in reps):
+            answerable += 1
+        for rep in reps:
+            state = "ready" if rep.get("ready") else "DOWN"
+            if rep.get("primary"):
+                state += "*"
+            why = ",".join(rep.get("reasons") or []) or "-"
+            lines.append(f"{sh.get('shard', '?'):<8}{rep.get('addr', '?'):<22}"
+                         f"{state:<10}{rep.get('breaker', 'closed'):<11}"
+                         f"{_top_num(p95):>10}  {why}")
+    nshards = len(cluster["shards"])
+    cov_line = f"coverage: {answerable}/{nshards} shards answerable"
+    if answerable < nshards:
+        cov_line += "  [DEGRADED]"
+    cov_line += (f"  partial_default={cluster.get('partial_default') or 'fail'}"
+                 f"  breakers_open={cluster.get('breakers_open', 0)}")
+    lines.append(cov_line)
+    return lines
 
 
 def _top_main(argv: list[str]) -> int:
@@ -932,19 +974,175 @@ def _replicate_main(argv: list[str]) -> int:
     return 0
 
 
+def _shard_main(argv: list[str]) -> int:
+    """``shard LIST --shards D --out DIR`` — partition a corpus into D
+    buildable doc-shards with global-BM25 sidecars
+    (cluster/partition.py)."""
+    p = argparse.ArgumentParser(
+        prog="mri-torch shard",
+        description="partition a corpus manifest into D doc-shards, "
+                    "build each with the host backend's --artifact path, "
+                    "and stamp global BM25 stats into per-shard "
+                    "sidecars so a router over the shards answers "
+                    "byte-identically to a monolithic build")
+    p.add_argument("file_list", help="source corpus manifest (count "
+                                     "header then one path per line)")
+    p.add_argument("--shards", type=int, required=True, metavar="D",
+                   help="number of doc-shards (1 <= D <= corpus size)")
+    p.add_argument("--out", required=True, metavar="DIR",
+                   help="cluster directory; shard s builds into "
+                        "DIR/shard-s")
+    p.add_argument("--mode", choices=("round-robin", "size-balanced"),
+                   default="round-robin",
+                   help="doc assignment: round-robin by manifest "
+                        "position (default) or greedy size-balanced "
+                        "over file bytes")
+    p.add_argument("--mappers", type=int, default=1,
+                   help="per-shard build mapper count")
+    p.add_argument("--reducers", type=int, default=2,
+                   help="per-shard build reducer count")
+    p.add_argument("--verify", action="store_true",
+                   help="after building (or against an existing DIR), "
+                        "byte-verify every per-shard manifest and gid "
+                        "map against the recomputed assignment")
+    p.add_argument("--verify-only", action="store_true",
+                   help="skip the build; just verify DIR")
+    args = p.parse_args(argv)
+
+    from .cluster import partition as part_mod
+    try:
+        if not args.verify_only:
+            cluster = part_mod.partition(
+                args.file_list, args.shards, args.out,
+                mode=args.mode, mappers=args.mappers,
+                reducers=args.reducers,
+                progress=lambda msg: print(
+                    json.dumps({"event": "progress", "detail": msg}),
+                    flush=True))
+            print(json.dumps({"event": "partitioned", **cluster},
+                             sort_keys=True), flush=True)
+        if args.verify or args.verify_only:
+            summary = part_mod.verify(args.file_list, args.out)
+            print(json.dumps({"event": "verified", **summary},
+                             sort_keys=True), flush=True)
+    except part_mod.PartitionError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _router_main(argv: list[str]) -> int:
+    """``router --shards SPEC --listen HOST:PORT`` — the scatter-gather
+    front end over shard daemons (cluster/router.py).  Blocks until
+    drained by SIGTERM/SIGINT, as ``serve`` does."""
+    import signal
+    import threading
+
+    p = argparse.ArgumentParser(
+        prog="mri-torch router",
+        description="scatter-gather router over doc-shard serve "
+                    "daemons: same JSON-lines protocol as 'serve', "
+                    "data ops fan out to every shard and gather "
+                    "through a D-way merge; hedged requests and "
+                    "replica failover ride shard health")
+    p.add_argument("--shards", required=True, metavar="SPEC",
+                   help="shard endpoints: shards joined by ',', "
+                        "replicas of one shard joined by '|' — "
+                        "'h:1|h:2,h:3' is two shards, the first with "
+                        "two replicas")
+    p.add_argument("--listen", default="127.0.0.1:0", metavar="HOST:PORT",
+                   help="bind address (port 0 = ephemeral; the chosen "
+                        "port is printed in the 'listening' JSON line)")
+    p.add_argument("--hedge-ms", type=float, default=None,
+                   help="hedge delay: -1 adaptive shard p95 (default, "
+                        "from MRI_CLUSTER_HEDGE_MS), 0 off, >0 fixed ms")
+    p.add_argument("--fault-spec", default=None,
+                   help="arm the deterministic fault injector "
+                        "(cluster kinds: shard-dead/shard-slow/"
+                        "router-conn-reset/shard-blackout/"
+                        "overload-storm) — test/bench only")
+    args = p.parse_args(argv)
+
+    from .obs import logging as obs_logging
+    try:
+        obs_logging.configure()
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    if args.fault_spec is not None:
+        try:
+            faults.install(args.fault_spec)
+        except faults.FaultSpecError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    from .cluster import router as router_mod
+    try:
+        shard_addrs = router_mod.parse_shard_arg(args.shards)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    host, _, port_s = args.listen.rpartition(":")
+    try:
+        port = int(port_s)
+        if not host or not (0 <= port <= 65535):
+            raise ValueError
+    except ValueError:
+        print(f"error: --listen must be HOST:PORT, got {args.listen!r}", file=sys.stderr)
+        return 2
+
+    try:
+        router = router_mod.RouterDaemon(shard_addrs, host, port,
+                                         hedge_ms=args.hedge_ms)
+    except ValueError as e:
+        # construction-time knob reads (a bad $MRI_CLUSTER_HEDGE_MS):
+        # the one-line exit-2 contract
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        router.start()
+    except OSError as e:
+        print(f"error: cannot listen on {args.listen}: {e}", file=sys.stderr)
+        router.drain()
+        return 2
+
+    stop = threading.Event()
+
+    def _on_stop_signal(signum, frame):
+        if stop.is_set():
+            # second signal: the documented forced exit, code 1
+            os._exit(1)
+        stop.set()
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _on_stop_signal)
+        signal.signal(signal.SIGINT, _on_stop_signal)
+
+    bound_host, bound_port = router.address
+    print(json.dumps({"event": "listening", "host": bound_host,
+                      "port": bound_port, "pid": os.getpid(),
+                      "shards": len(shard_addrs),
+                      "replicas": [len(r) for r in shard_addrs]}),
+          flush=True)
+    while not stop.is_set():
+        stop.wait(0.2)
+    rc = router.drain()
+    print(json.dumps({"event": "drained",
+                      "counters": router.final_stats["counters"]},
+                     sort_keys=True), flush=True)
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     sub = {"query": _query_main, "serve": _serve_main, "metrics": _metrics_main,
            "flightdump": _flightdump_main, "top": _top_main,
-           "recover": _recover_main, "replicate": _replicate_main}
+           "recover": _recover_main, "replicate": _replicate_main,
+           "shard": _shard_main, "router": _router_main}
     if argv and argv[0] in sub:
         return sub[argv[0]](argv[1:])
     if argv and argv[0] in ("append", "delete", "compact"):
         return _segments_main(argv[0], argv[1:])
-    if argv and argv[0] in CLUSTER_SUBCOMMANDS:
-        print(f"error: {argv[0]!r} needs the cluster layer, which is not ported "
-              "yet (ROADMAP A15c)", file=sys.stderr)
-        return 2
     # --verify DIR is a standalone mode (no reference positionals)
     if "--verify" in argv:
         i = argv.index("--verify")

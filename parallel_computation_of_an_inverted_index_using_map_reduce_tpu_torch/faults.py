@@ -40,14 +40,12 @@ Three layers live here:
                                      a shard-merge worker dies
 
     the serve daemon's kinds (``handler-crash``, ``client-disconnect``,
-    ``slow-client``, ``reload-corrupt``, ``dispatcher-hang``), and the
-    kinds whose hooks belong to layers this package does not have yet,
-    parsed alike and never fired here: the segment, WAL and cluster
-    kinds (``append-torn-manifest``, ``compact-crash``,
-    ``tombstone-corrupt``, ``wal-torn-record``, ``fetch-partial``,
-    ``lease-steal``, ``shard-dead``, ``shard-slow``,
-    ``router-conn-reset``, ``shard-blackout``, ``overload-storm``).
-    Their hook methods are here, so those layers only add call sites.
+    ``slow-client``, ``reload-corrupt``, ``dispatcher-hang``,
+    ``overload-storm``), the live index's (``append-torn-manifest``,
+    ``compact-crash``, ``tombstone-corrupt``, ``wal-torn-record``,
+    ``fetch-partial``, ``lease-steal``) and the cluster router's
+    (``shard-dead``, ``shard-slow``, ``router-conn-reset``,
+    ``shard-blackout``).
 
     ``doc`` / ``every`` match the 0-based manifest index; ``window``
     and ``save`` are 1-based ordinals (``win_i`` in the stream loop and

@@ -33,6 +33,7 @@ import numpy as np
 from . import artifact as artifact_mod
 from . import planner as planner_mod
 from .cache import LRUCache
+from ..cluster import SIDECAR_NAME as CLUSTER_SIDECAR_NAME
 from ..obs import attribution as obs_attrib
 from ..obs import metrics as obs_metrics
 from ..obs.timing import OpTimer
@@ -64,8 +65,6 @@ CROSSOVER_ENV = "MRI_SERVE_CROSSOVER"
 #: is big enough that the card could plausibly win.
 PROBE_BATCH_MIN = 8192
 
-#: Beside a cluster shard's artifact (the JAX package's ``cluster/``).
-CLUSTER_SIDECAR_NAME = "cluster_shard.json"
 
 
 def _normalize(term) -> bytes:
@@ -1379,16 +1378,6 @@ class AutoEngine:
         self.close()
 
 
-def _sidecar_refusal(path) -> str | None:
-    """Why ``path`` is a directory this package cannot serve yet, or None."""
-    p = Path(path)
-    side = (p if p.is_dir() else p.parent) / CLUSTER_SIDECAR_NAME
-    if side.exists():
-        return (f"{path} is a cluster shard ({CLUSTER_SIDECAR_NAME} present): "
-                "the shard engine is not ported yet (ROADMAP A15c)")
-    return None
-
-
 def create_engine(path, engine: str | None = None, *, cache_terms: int = 4096,
                   shards: int | None = None, device=None):
     """Open ``path`` with the selected engine (:data:`ENGINE_CHOICES`,
@@ -1404,12 +1393,19 @@ def create_engine(path, engine: str | None = None, *, cache_terms: int = 4096,
     ``$MRI_SERVE_ENGINE``), as the JAX package routes ``auto`` and
     ``host``; a ``device`` the caller named raises ``ArtifactError`` with
     the JAX message (the reference has no device multi-segment engine).
-    A cluster shard raises ``ArtifactError``."""
+    A cluster shard (a ``cluster_shard.json`` beside the artifact) opens
+    the host :class:`~..cluster.shard.ShardEngine` by the same rule."""
     named = engine or envknobs.get(ENGINE_ENV)
     which = resolve_engine(engine)
-    why = _sidecar_refusal(path)
-    if why is not None:
-        raise artifact_mod.ArtifactError(why)
+    from ..cluster import shard as cluster_shard
+    if cluster_shard.has_sidecar(path):
+        if named == "device":
+            raise artifact_mod.ArtifactError(
+                f"{path} is a cluster shard ({CLUSTER_SIDECAR_NAME} "
+                "present): the device engine serves plain artifacts "
+                "only (use host or auto, which route to the shard "
+                "engine)")
+        return cluster_shard.ShardEngine(path, cache_terms=cache_terms)
     if artifact_mod.is_segment_managed(path):
         if named == "device":
             raise artifact_mod.ArtifactError(

@@ -136,6 +136,36 @@ _KNOBS: dict[str, _Knob] = {
     "MRI_SEGMENT_LEASE_TTL_S": _Knob(float, 0.0, minimum=0),
     # replica catch-up poll period in ms ('serve --replica-of')
     "MRI_REPLICA_POLL_MS": _Knob(int, 500, minimum=1),
+    # -- the cluster router (cluster/) --
+    # hedging delay in ms: a shard RPC unanswered this long is re-sent to
+    # another replica of the same shard. -1 adapts per shard (rolling p95
+    # of recent RPC latency, 1 ms floor), 0 disables hedging, positive
+    # values are a fixed delay
+    "MRI_CLUSTER_HEDGE_MS": _Knob(float, -1.0, minimum=-1.0),
+    # health-probe period in ms: each replica's 'healthz' is polled on its
+    # pipelined connection and the readiness reasons (draining/stalled/
+    # overloaded/replica_lagging) steer replica selection away before
+    # requests fail
+    "MRI_CLUSTER_HEALTH_MS": _Knob(int, 500, minimum=1),
+    # admission cap: client requests in flight (scattered but not yet
+    # gathered) beyond this are shed with 'overloaded', mirroring the
+    # daemon's bounded queue
+    "MRI_CLUSTER_INFLIGHT": _Knob(int, 1024, minimum=1),
+    # ceiling in ms on one shard RPC (including failover retries) when the
+    # client request carries no deadline_ms of its own
+    "MRI_CLUSTER_RPC_TIMEOUT_MS": _Knob(float, 30000.0, minimum=1.0),
+    # default partial-result policy for requests carrying no
+    # partial_policy field: 'fail' (any unanswerable shard fails the whole
+    # request) or 'allow[:min_coverage=F]' (answer from the shards that
+    # did answer, flagged with partial+coverage metadata, provided at
+    # least fraction F of the corpus answered; F defaults to 0)
+    "MRI_CLUSTER_PARTIAL": _Knob(str, "fail"),
+    # retry/hedge token budget per shard, as a ratio of live
+    # (first-attempt) traffic: each original shard leg deposits this many
+    # tokens and every retry or hedge spends one, so brownout
+    # amplification is capped near (1 + ratio)x instead of compounding;
+    # 0 disables retries and hedges (first attempt only)
+    "MRI_CLUSTER_RETRY_BUDGET": _Knob(float, 0.1, minimum=0.0),
     # -- observability of the daemon --
     # per-request tracing: auto trace ids and the trace ring
     "MRI_OBS_ENABLE": _Knob(int, 1, choices=(0, 1)),

@@ -5,9 +5,11 @@ the CPU (small batches on the host, one probe at the first batch of
 8192, ``MRI_SERVE_CROSSOVER`` 0 and N, compound and ranked queries on
 the host, answers equal to the host engine's), a device engine that
 fails to build raising instead of being replaced by the host, and
-``create_engine``'s engines and refusals (cluster shards and
-segment-managed directories name ROADMAP A15)."""
+``create_engine``'s engines and routes (a cluster shard opens the host
+shard engine and a segment-managed directory the multi-segment engine,
+unless ``device`` is named)."""
 
+import json
 import random
 
 import numpy as np
@@ -20,8 +22,12 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.models.inverted_index import (
     DeviceUnavailable,
 )
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.cluster.shard import (
+    ShardEngine,
+)
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
     ArtifactError,
+    artifact as artifact_mod,
     AutoEngine,
     DeviceEngine,
     Engine,
@@ -207,17 +213,59 @@ def test_create_engine_kinds(built, monkeypatch):
             create_engine(outs["3"])
 
 
+def _write_one_shard_sidecar(shard, art_dir):
+    """The sidecar of shard 0 of a one-shard cluster over ``art_dir``'s
+    artifact (identity gid map, the artifact's own stats), as
+    ``cluster.partition`` writes it."""
+    art = artifact_mod.load_artifact(art_dir)
+    try:
+        _, ndocs, avgdl = artifact_mod.bm25_corpus(art)
+        df = art.df
+        sidecar = {"shard": 0, "shards": 1, "mode": "round-robin",
+                   "total_docs": int(art.max_doc_id), "ndocs": ndocs, "avgdl": avgdl,
+                   "gids": list(range(1, int(art.max_doc_id) + 1)),
+                   "global_df": {art.term(i).decode("ascii"): int(df[i])
+                                 for i in range(art.vocab)}}
+    finally:
+        art.close()
+    (shard / "cluster_shard.json").write_text(json.dumps(sidecar))
+
+
 @pytest.mark.parametrize("which", ["host", "device", "auto"])
-def test_create_engine_refuses_sidecar_dirs(built, tmp_path, which):
-    outs, _ = built
+def test_create_engine_routes_sidecar_dirs(built, tmp_path, which):
+    """A cluster shard opens the host ``ShardEngine`` under ``host``,
+    ``auto`` or no engine named; a named ``device`` raises the JAX
+    message; a malformed sidecar raises ``ArtifactError`` as the JAX
+    ``load_sidecar`` does."""
+    outs, naive = built
     shard = tmp_path / "shard"
     shard.mkdir()
     (shard / "index.mri").write_bytes((outs["3"] / "index.mri").read_bytes())
+    _write_one_shard_sidecar(shard, outs["3"])
+    if which == "device":
+        for target in (shard, shard / "index.mri"):
+            with pytest.raises(ArtifactError, match="cluster shard .cluster_shard.json "
+                                                    "present.: the device engine serves "
+                                                    "plain artifacts only"):
+                create_engine(target, which, device="cpu")
+    else:
+        terms = _words(naive, 6, 3)
+        with Engine(outs["3"]) as mono:
+            b = mono.encode_batch(terms)
+            want = (mono.df(b).tolist(), mono.top_k_scored(b, 7), mono.top_k("c", 4))
+        for target, named in ((shard, which), (shard / "index.mri", which), (shard, None)):
+            with create_engine(target, named, device="cpu") as e:
+                assert type(e) is ShardEngine and e.describe()["engine"] == "shard"
+                assert e.describe()["cluster"]["local_docs"] == e.artifact.max_doc_id
+                b = e.encode_batch(terms)
+                assert (e.df(b).tolist(), e.top_k_scored(b, 7), e.top_k("c", 4)) == want
     (shard / "cluster_shard.json").write_text("{}")
-    with pytest.raises(ArtifactError, match="cluster shard.*A15c"):
-        create_engine(shard, which, device="cpu")
-    with pytest.raises(ArtifactError, match="cluster shard.*A15c"):
-        create_engine(shard / "index.mri", which, device="cpu")
+    if which == "device":
+        with pytest.raises(ArtifactError, match="the device engine serves plain artifacts"):
+            create_engine(shard, which, device="cpu")
+    else:
+        with pytest.raises(ArtifactError, match="malformed shard sidecar"):
+            create_engine(shard, which, device="cpu")
     # a live directory (generation 1 seeded from the artifact by a
     # delete): host and auto open the multi-segment engine, a named
     # device refuses with the JAX message

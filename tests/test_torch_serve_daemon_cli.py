@@ -5,8 +5,8 @@ SIGHUP, dumps the flight recorder on SIGQUIT and drains to exit 0 with
 the ``drained`` line on SIGTERM; ``metrics``, ``flightdump`` and ``top
 --once --json`` run against it in this process.  A missing artifact, a
 bad knob and a ``--replica-of`` that is no HOST:PORT each exit 2 with
-one line; the cluster subcommands exit 2 naming ROADMAP A15c and the
-segment subcommands answer as the JAX CLI's; ``metrics``/``top`` on a
+one line; the cluster subcommands' argument errors and the segment
+subcommands answer as the JAX CLI's; ``metrics``/``top`` on a
 directory need the card unless ``--device cpu``; ``query --explain``
 prints the JAX CLI's report."""
 
@@ -24,7 +24,11 @@ import torch
 from conftest import REPO_ROOT
 
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu import cli as jcli
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.obs import logging as jlogging
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import cli as tcli
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.obs import (
+    logging as tlogging,
+)
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
     manifest as tman,
     synthetic as tsyn,
@@ -142,9 +146,6 @@ def test_serve_cli_refusals_exit_2(out, tmp_path, case):
 
 
 def test_static_clients_and_segment_subcommands(out, capsys, tmp_path):
-    for sub in ("shard", "router"):
-        assert tcli.main([sub, str(out)]) == 2
-        assert "ROADMAP A15c" in capsys.readouterr().err
     # the segment subcommands over a copy of the plain artifact directory:
     # the JAX CLI's exit codes and stdout
     copies = []
@@ -180,6 +181,22 @@ def test_static_clients_and_segment_subcommands(out, capsys, tmp_path):
     snap = json.loads(capsys.readouterr().out)
     assert snap["engine"]["engine"] == "device" and "mri_engine_artifact_bytes" in \
         snap["metrics_text"]
+    # the cluster subcommands' argument errors: exit 2 with the JAX CLI's
+    # one line (a missing corpus manifest, a bad shard endpoint); last,
+    # because the router attaches each package's stderr log handler
+    try:
+        for argv, want in ((["shard", str(tmp_path / "nope.list"), "--shards", "2",
+                             "--out", str(tmp_path / "cl")], "cannot read corpus manifest"),
+                           (["router", "--shards", "h:0"], "bad endpoint 'h:0'")):
+            errs = []
+            for main in (jcli.main, tcli.main):
+                assert main(argv) == 2
+                errs.append(capsys.readouterr().err)
+            assert errs[0] == errs[1] and errs[1].count("\n") == 1 and want in errs[1]
+        assert not (tmp_path / "cl").exists()
+    finally:
+        jlogging.reset()
+        tlogging.reset()
 
 
 @pytest.mark.parametrize("args", [["cat", "dog"], ["--op", "and", "cat", "dog"],
