@@ -71,7 +71,8 @@ Phases, each failing loudly (exit 1, no result line):
    float64 BM25, rel 1e-4) and against the same engine on the CPU (BM25
    rel 1e-5; at batch 8192 on the first 256 lanes); each BM25 query
    runs twice on the card, bit-equal.  Then the median of five means of
-   20 calls per op and batch (CUDA events and host clock), the column
+   20 calls per op and batch on v2.1 (one mean of 3 on v1 and v2;
+   CUDA events and host clock), the column
    bytes, the peak device memory and one torch.profiler trace of a
    batch-8192 postings call and a BM25 call.  No kernel of ``csrc/``.
 10. Path I — the host query engine and the crossover router on Path H's
@@ -171,8 +172,8 @@ Phases, each failing loudly (exit 1, no result line):
    the host's CPU model.
 15. Path N — the live index (``segments/``) on Path B's corpus, in the
    phase ``path_n`` line: N1 the default card build with ``--artifact``
-   over files 1-16,000 as the seed, then ``append --add`` of
-   16,001-18,000 and 18,001-20,000 as two segments on the host; df and
+   over files 1-18,000 as the seed, then ``append --add`` of
+   18,001-19,000 and 19,001-20,000 as two segments on the host; df and
    postings at batches 1 and 1,024 of Zipf words, AND/OR of 2-3 words
    and letter top-10 of the multi-segment engine equal the card's
    ``DeviceEngine`` over Path H's artifact (BM25 is not compared: the
@@ -183,10 +184,10 @@ Phases, each failing loudly (exit 1, no result line):
    the manifest unchanged, ``compact --force`` at
    ``MRI_SEGMENT_COMPACT_TRIGGER=2`` folds the two appended segments,
    ``--verify`` exits 0, N2's answers again; N4 ``serve`` in a child over
-   four appends of 1,000 files (the multi-segment engine): eight read
+   four appends of 500 files (the multi-segment engine): eight read
    clients of Path L's mix, each request carrying the last acknowledged
    generation as ``min_generation``, while a mutation client appends
-   1,000 files, deletes 200 ids at ``MRI_SEGMENT_TOMBSTONE_FLUSH=8`` and
+   500 files, deletes 200 ids at ``MRI_SEGMENT_TOMBSTONE_FLUSH=8`` and
    compacts; every distinct read then equals a host ``Engine`` exactly
    and the card's ``DeviceEngine`` (BM25 rel 1e-4, ties in any order)
    over a from-scratch ``--backend cpu`` build of the live files; five
@@ -206,7 +207,7 @@ Phases, each failing loudly (exit 1, no result line):
    command), ``--verify-only`` (0, then 2 naming shard 2 after a flipped
    ``docs.list`` byte), the monolith on Path M4's argv; O2 five ``serve``
    children (shard 0 on two replicas, the shard engine) and a ``router``
-   child, Path L's traffic through the router equal to the host
+   child, half of Path L's traffic (16 x 125) through the router equal to the host
    ``Engine`` over the monolith exactly and to the card's
    ``DeviceEngine`` over it (BM25 rel 1e-4, ties in any order), and the
    same traffic against one ``serve --engine host`` child over the
@@ -222,7 +223,39 @@ Phases, each failing loudly (exit 1, no result line):
    (5.8 MB), salted to 20,000 documents, built on the card by the
    default plan and the streaming all-device plan, each md5 equal to
    ``oracle_index``, and its vocabulary curve.
-17. Kernels: each CUDA kernel against its plain PyTorch version on the
+17. Path P — the multi-process mesh on Path B's corpus, in child
+   processes joined by ``parallel/distributed.initialize`` at a free
+   local port (one group runs P1-P3 in turn, another P4, whose process
+   starts up beside the first group and joins when it ends), every child
+   killed past 600 s: P1 the all-device
+   plan with ``emit_ownership="letter"`` at 4 shards (``build``'s
+   ``InvertedIndexModel``), P2 the pipelined plan with letter ownership
+   at 4 shards, P3 ``DistDeviceStreamEngine`` over Path F's windows
+   (2,500 documents; the accumulators regrow), each in 2 processes of a
+   gloo group (the backend rule: two processes share the one card) with
+   2 local shards each on ``cuda:0``; P4 P1's build in a one-process
+   NCCL group (4 local shards).  Process 0 holds owners [0, 1] and
+   process 1 owners [2, 3]; P1, P2 and P4's shared letter files, and
+   P3's owner blocks written as letter files, each give Path C's md5.
+   Per process: wall ms, peak device memory, device-busy ms (its own
+   torch.profiler trace), its start-up and the bytes it sent through
+   ``all_to_all_single``; the card's busy share (the processes'
+   device-busy ms over the leg's wall).
+18. Path Q — the sanitized native builds (``MRI_NATIVE_SANITIZE`` asan
+   and ubsan, built by ``g++`` in the background from the start, beside
+   the kernels' build) on this machine's host: per variant a child
+   process (asan: ``libasan`` preloaded, ``detect_leaks=0``,
+   ``protect_shadow_gap=0``; no card visible) loads its library, runs
+   Path M1's ``1 1 --host-threads 1 --backend cpu`` build on Path A's
+   corpus (md5 equal to Path A's) and the host ``Engine`` over Path I's
+   query mix on Path H's v2.1 artifact (df, lookup and postings at
+   batches 1-8192, AND/OR of 2, 3 and 5 words, BM25 top-10 per planner,
+   top_k of three letters), every answer equal to the production
+   library's in this process.  Any sanitizer report fails; each
+   variant's build and run seconds are printed.  The children run
+   beside item 20's device programs (they use no card; item 20's
+   host-clock numbers share the host with them).
+19. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
    plain version and (histogram only) ``torch.bincount``, beside the
@@ -233,7 +266,7 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
-18. Engine: the warm device time of each engine program a path runs, at
+20. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
    sort_prov_chunks (Path C's two int32 windows), index_bytes_device
@@ -249,13 +282,17 @@ every card the machine has (4 shards, shard i on card i % cards);
 ``--serve-only`` runs the build, the default build with ``--artifact``
 on Path B's corpus and Path L alone; ``--segments-only`` the build, the
 same ``--artifact`` build and Path N alone; ``--cluster-only`` the build,
-the same ``--artifact`` build and Path O alone.
+the same ``--artifact`` build and Path O alone; ``--multiprocess-only``
+the build, Path C and Path P alone; ``--sanitize-only`` the build, Path
+A's oracle, the same ``--artifact`` build and Path Q alone.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
 or ``build_index`` in this process (Path L: ``ServeDaemon`` and the
 ``serve`` CLI's child; Path O: the ``serve`` and ``router`` CLIs'
-children), with the kernels' launch counts set
+children; Path P: ``InvertedIndexModel`` and ``DistDeviceStreamEngine``
+in each process of a group; Path Q: the CLI and the host ``Engine`` in
+sanitized children), with the kernels' launch counts set
 to 0 just before and read just after each; a kernel's ``launches`` in
 the ``kernels`` line is their sum, ``launches_by_path`` the parts.  The
 last lines are the card,
@@ -997,20 +1034,23 @@ def serve_format(torch, TA, DeviceEngine, path: Path, fmt: int, device: str, car
 
         # -- times: per op and batch, the device engine alone -------------
         times = {}
+        # v2.1, the default format, at full depth; v1 and v2 at 3 calls
+        depth = {} if fmt == 3 else {"iters": 3, "repeats": 1}
         for n, b in batches.items():
             for op in ("df", "postings"):
-                t = timed(torch, lambda op=op, b=b: getattr(eng, op)(b), device)
+                t = timed(torch, lambda op=op, b=b: getattr(eng, op)(b), device, **depth)
                 t["lookups_per_s"] = n / (t["host_ms"] / 1e3)
                 times[f"{op}@{n}"] = t
         for arity in (2, 3, 5):
             b = eng.encode_batch(queries[arity][0])
-            times[f"and@{arity}"] = timed(torch, lambda b=b: eng.query_and(b), device)
-            times[f"or@{arity}"] = timed(torch, lambda b=b: eng.query_or(b), device)
-        times["top_k@10"] = timed(torch, lambda: eng.top_k("m", 10), device)
+            times[f"and@{arity}"] = timed(torch, lambda b=b: eng.query_and(b), device, **depth)
+            times[f"or@{arity}"] = timed(torch, lambda b=b: eng.query_or(b), device, **depth)
+        times["top_k@10"] = timed(torch, lambda: eng.top_k("m", 10), device, **depth)
         b3 = eng.encode_batch(queries[3][0])
         for planner in PLANNERS:
             os.environ["MRI_SERVE_PLANNER"] = planner
-            times[f"bm25_{planner}@3"] = timed(torch, lambda: eng.top_k_scored(b3, 10), device)
+            times[f"bm25_{planner}@3"] = timed(torch, lambda: eng.top_k_scored(b3, 10), device,
+                                               **depth)
         os.environ["MRI_SERVE_PLANNER"] = "exhaustive"
         if trace is not None and device == "cuda":
             profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -2701,8 +2741,8 @@ def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, c
            device: str = "cuda") -> dict:
     """Path N — the live index (``segments/``) on Path B's corpus.
 
-    N1: the default card build with ``--artifact`` over the first 80% of
-    the files, then ``append --add`` of the next two 10% as two segments:
+    N1: the default card build with ``--artifact`` over the first 90% of
+    the files, then ``append --add`` of the next two 5% as two segments:
     df and postings at batches 1 and 1,024, AND/OR and letter top-10 of
     the multi-segment engine equal the card's ``DeviceEngine`` over Path
     H's artifact of all the files (the same ids).  N2: ``delete --docs``
@@ -2712,10 +2752,10 @@ def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, c
     --fault-spec compact-crash`` child exits 2 and the generation serves
     unchanged; ``compact --force`` (the two cheapest segments), then
     ``--verify`` and N2's answers again.  N4: a directory of four appends
-    of 5% of the files served by the ``serve`` CLI in a child (its
+    of 2.5% of the files served by the ``serve`` CLI in a child (its
     default engine: the multi-segment engine); eight read clients send
     Path L's mix carrying the last acknowledged generation as
-    ``min_generation`` while a mutation client appends 5% more, deletes
+    ``min_generation`` while a mutation client appends 2.5% more, deletes
     1% at ``MRI_SEGMENT_TOMBSTONE_FLUSH`` = 8 and compacts; then every
     distinct read equals a host ``Engine`` (exactly) and the card's
     ``DeviceEngine`` (BM25 rel 1e-4) over a from-scratch ``--backend
@@ -2744,7 +2784,9 @@ def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, c
     K.reset_launch_counts()
     paths = list(manifest_mod.read_manifest(list_b).paths)
     n = len(paths)
-    n_seed, n_app, n_small = n * 4 // 5, n // 10, n // 20
+    # the appended segments' sizes set both compactions' cost (N3, N4)
+    n_app, n_small = n // 20, n // 40
+    n_seed = n - 2 * n_app
     out: dict = {"card": card, "files": n}
     ms: dict = {}
     stage_s: dict = {}
@@ -3007,7 +3049,7 @@ def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, c
 # -- Path O: the doc-sharded cluster (cluster/) ---------------------------------
 
 O_SHARDS = 4            # O1's round-robin shards of Path B's 20,000 files
-O_CONNS, O_PER_CONN = L_CONNS, L_PER_CONN  # O2: Path L's traffic through the router
+O_CONNS, O_PER_CONN = L_CONNS, L_PER_CONN // 2  # O2: half of Path L's traffic
 O3_CONNS, O3_PER_CONN = 8, 125  # O3's connections (Path L's mix) while shard 0's primary dies
 O_KILL_AFTER = 300      # O3: requests the router has admitted before the SIGKILL
 O_HEDGE_SPEC = "shard-slow:shard=0:replica=0:ms=40:times=3"
@@ -3111,7 +3153,7 @@ def path_o(torch, K, cli, manifest_mod, synthetic, build_index, IndexConfig, ora
     shard 2 after one byte of its ``docs.list`` is flipped; the monolith
     is Path M4's argv (``8 4 --artifact --backend cpu``).  O2: five
     ``serve`` children (shard 0 on two replicas; no engine named: the
-    shard engine) and a ``router`` child; Path L's traffic through the
+    shard engine) and a ``router`` child; half of Path L's traffic through the
     router, every answer equal to the host ``Engine`` over the monolith
     exactly (BM25 floats included) and to the card's ``DeviceEngine``
     over it (BM25 rel 1e-4, ties in any order); the same traffic against
@@ -3535,6 +3577,515 @@ def path_o(torch, K, cli, manifest_mod, synthetic, build_index, IndexConfig, ora
     return launches
 
 
+# -- Path P: the multi-process mesh ------------------------------------------
+
+P_CHILD_TIMEOUT_S = 600
+P_STREAM_CHUNK_DOCS = 2500  # Path F's windows
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stop_all(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def p_child(argv: list[str]) -> int:
+    """One process of a Path P group: join it, then run each leg in turn
+    (all processes start a leg together, after a barrier) under
+    torch.profiler (device activity only); each leg's trace and result
+    JSON go under ``<root>/<leg>/``."""
+    pid, world, coord, legs, list_b, root, gate = argv
+    t_entry = time.time()
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
+        IndexConfig, InvertedIndexModel, read_manifest)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
+        distributed)
+
+    t_imported = time.time()
+    manifest = read_manifest(list_b)
+    torch.cuda.init()
+    t_ready = time.time()
+    while gate and not Path(gate).exists():  # a later group starts up early, then waits
+        time.sleep(0.05)
+    t_gate = time.time()
+    distributed.initialize(coord, int(world), int(pid))
+    info = distributed.runtime_info()
+    setup = {"imports_s": t_imported - t_entry, "manifest_and_cuda_s": t_ready - t_imported,
+             "gate_wait_s": t_gate - t_ready, "initialize_s": time.time() - t_gate}
+    for leg in legs.split(","):
+        out_dir = Path(root) / leg
+        torch.cuda.reset_peak_memory_stats()
+        profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        profiler.start()
+        dist.barrier()
+        t_start = time.time()
+        if leg == "P3":
+            report = p3_stream(np, manifest, out_dir / "out")
+        else:
+            cfg = dict(num_mappers=4, num_reducers=26, device_shards=4,
+                       emit_ownership="letter", output_dir=str(out_dir / "out"),
+                       device_tokenize=leg in ("P1", "P4"))
+            report = InvertedIndexModel(IndexConfig(**cfg)).run(manifest)
+        torch.cuda.synchronize()
+        t_end = time.time()
+        profiler.stop()
+        profiler.export_chrome_trace(str(out_dir / f"trace{pid}.json"))
+        keep = ("phases_ms", "total_ms", "letter_owners", "lines_written", "unique_pairs",
+                "dist_sent_bytes", "dist_fetched_bytes", "dist_valid_pairs",
+                "exchange_retries", "stream_windows", "merge_retries",
+                "accumulator_capacity_per_owner", "owners", "upload_windows")
+        (out_dir / f"result{pid}.json").write_text(json.dumps({
+            "info": info, "setup": setup, "t_start": t_start, "t_end": t_end,
+            "wall_ms": (t_end - t_start) * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "report": {k: report[k] for k in keep if k in report}}))
+    return 0
+
+
+def p3_stream(np, manifest, out_dir: Path) -> dict:
+    """P3 in one process: ``DistDeviceStreamEngine`` over Path F's
+    windows (the model's window packing), this process's owner blocks
+    saved as ``owner<o>.npz``."""
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
+        manifest as manifest_mod, scheduler)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.models import (
+        inverted_index as model)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        device_tokenizer as DT)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
+        dist_device_streaming as DDS, mesh as M)
+
+    n, width, pad = 4, 48, 1 << 16  # the model's defaults
+    mesh = M.make_mesh(n, "cuda")
+    eng = DDS.DistDeviceStreamEngine(width=width, mesh=mesh)
+    for contents, ids in manifest_mod.iter_document_chunks(manifest, P_STREAM_CHUNK_DOCS):
+        parts = [(contents[lo:hi], ids[lo:hi])
+                 for lo, hi in scheduler.plan_contiguous_ranges([len(c) for c in contents], n)]
+        shard_len = round_up(max(max((sum(len(c) for c in cs) for cs, _ in parts),
+                                     default=1), 1), pad)
+        docs_cap = max(max(len(c) for c, _ in parts), 1)
+        bufs, ends_l, ids_l = [], [], []
+        tok_count = max_len = 0
+        for contents_s, ids_s in parts:
+            buf, ends, idv = model._pack_window(contents_s, ids_s, shard_len, docs_cap)
+            cnt, ml = DT.host_token_stats(buf, ends)
+            tok_count, max_len = max(tok_count, cnt), max(max_len, ml)
+            bufs.append(buf)
+            ends_l.append(ends)
+            ids_l.append(idv)
+        check(max_len <= width, f"P3: a {max_len}-letter word in Path B's corpus")
+        eng.feed(bufs, ends_l, ids_l, tok_count=tok_count, max_len=max_len)
+    stats: dict = {}
+    owners = eng.finalize(sort_cols=-(-max(eng.max_word_len, 1) // 4),
+                          max_doc_id=len(manifest), stats=stats)
+    for o, ow in owners.items():
+        np.savez(out_dir / f"owner{o}.npz", words=DT.decode_word_groups(ow["unique_groups"], width),
+                 df=ow["df"], postings=ow["postings"])
+    return {"owners": sorted(owners), "stream_windows": eng.windows_fed,
+            "merge_retries": eng.merge_retries, "accumulator_capacity_per_owner": eng.capacity,
+            "unique_pairs": sum(ow["num_pairs"] for ow in owners.values()), **stats}
+
+
+def p3_letters(np, formatter, blocks_dir: Path, out_dir: Path, max_doc_id: int) -> None:
+    """The union of P3's owner blocks written as letter files (the merged
+    emit of the mesh device plans), so that its md5 holds the union
+    against Path B's pairs and df."""
+    vocab, df, post = [], [], []
+    for f in sorted(blocks_dir.glob("owner*.npz")):
+        blk = np.load(f)
+        vocab.append(blk["words"])
+        df.append(blk["df"].astype(np.int64))
+        post.append(blk["postings"].astype(np.int32))
+    width = max(v.dtype.itemsize for v in vocab)
+    vocab = np.concatenate([v.astype(f"S{width}") for v in vocab])
+    df64 = np.concatenate(df)
+    offsets = np.cumsum(df64) - df64  # blocks concatenated in owner order
+    letters = vocab.view(np.uint8).reshape(len(vocab), width)[:, 0].astype(np.int64) - ord("a")
+    formatter.emit_index(out_dir, vocab=vocab, letter_of_term=letters,
+                         order=np.lexsort((vocab, -df64, letters)), df=df64, offsets=offsets,
+                         postings=np.concatenate(post), max_doc_id=max_doc_id,
+                         backend="native")
+
+
+def p_start(legs: tuple, world: int, list_b: Path, root: Path, gate: Path | None = None
+            ) -> dict:
+    """Start one Path P group: ``world`` children (``p_child``) that join
+    at a free port and run ``legs`` in turn; with ``gate`` they start up
+    and wait for that file before joining."""
+    for leg in legs:
+        (root / leg / "out").mkdir(parents=True)
+    coord = f"127.0.0.1:{free_port()}"
+    group = {"legs": legs, "world": world, "t_popen": time.time(), "procs": [], "logs": []}
+    for pid in range(world):
+        group["logs"].append(root / f"{'_'.join(legs)}_proc{pid}.log")
+        with open(group["logs"][-1], "wb") as f:
+            group["procs"].append(subprocess.Popen(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                 "import chip_smoke; sys.exit(chip_smoke.p_child(sys.argv[2:]))", str(ROOT),
+                 str(pid), str(world), coord, ",".join(legs), str(list_b), str(root),
+                 str(gate or "")],
+                cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT))
+    return group
+
+
+def p_finish(torch, np, formatter, group: dict, root: Path, md5_c: str, card: str) -> dict:
+    """Wait for a group's children (each must exit 0 within
+    P_CHILD_TIMEOUT_S of its start), then check and print each leg
+    (:func:`p_check_leg`)."""
+    legs, world = group["legs"], group["world"]
+    for pid, p in enumerate(group["procs"]):
+        left = P_CHILD_TIMEOUT_S - (time.time() - group["t_popen"])
+        wait_child(p, group["logs"][pid], f"path P {legs} process {pid}", timeout=max(left, 1))
+    for pid, p in enumerate(group["procs"]):
+        check(p.returncode == 0, f"path P {legs} process {pid} exit {p.returncode}: "
+              f"{group['logs'][pid].read_text(errors='replace')[-3000:]}")
+    return {leg: p_check_leg(torch, np, formatter, leg, world, root / leg, md5_c, card,
+                             group["t_popen"])
+            for leg in legs}
+
+
+def p_check_leg(torch, np, formatter, leg: str, world: int, leg_dir: Path, md5_c: str,
+                card: str, t_popen: float) -> dict:
+    """A Path P leg's checks (each process's runtime info and owners, the
+    backend by the rule, the md5 against Path C's, bytes sent) and its
+    line: per process its wall, peak device memory, device-busy ms and
+    bytes sent; the card's busy share, the processes' device-busy ms
+    summed over the leg's wall (without MPS the card runs one process's
+    context at a time)."""
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
+        distributed)
+
+    results = [json.loads((leg_dir / f"result{pid}.json").read_text()) for pid in range(world)]
+    for pid, r in enumerate(results):
+        r["device_busy_ms"] = device_busy(leg_dir / f"trace{pid}.json")["ms"]
+        check(r["info"]["process_count"] == world and r["info"]["process_index"] == pid,
+              f"path {leg} process {pid}: runtime_info {r['info']}")
+    want_backend = distributed.choose_backend(world, torch.cuda.device_count())
+    check({r["info"]["backend"] for r in results} == {want_backend},
+          f"path {leg}: backends {[r['info']['backend'] for r in results]}, "
+          f"want {want_backend}")
+    if leg == "P3":
+        owners = [r["report"]["owners"] for r in results]
+        check(owners == [[0, 1], [2, 3]], f"path P3: owners by process {owners}")
+        check(all(r["report"]["accumulator_capacity_per_owner"] > 1 << 15 for r in results),
+              "path P3: no accumulator regrow")
+        p3_letters(np, formatter, leg_dir / "out", leg_dir / "letters", 20_000)
+        md5 = formatter.letters_md5(leg_dir / "letters")
+    else:
+        md5 = formatter.letters_md5(leg_dir / "out")
+        check(all(r["report"]["letter_owners"] == 4 for r in results),
+              f"path {leg}: letter_owners {[r['report'].get('letter_owners') for r in results]}")
+    check(md5 == md5_c, f"path {leg} md5 {md5} != path C {md5_c}")
+    if world > 1:
+        check(all(r["report"].get("dist_sent_bytes", 0) > 0 for r in results),
+              f"path {leg}: a process sent nothing through all_to_all_single")
+    wall_ms = (max(r["t_end"] for r in results) - min(r["t_start"] for r in results)) * 1e3
+    busy = [r["device_busy_ms"] for r in results]
+    share = sum(busy) / wall_ms if None not in busy else "not measured"
+    procs_line = [{"process": pid, "wall_ms": round(r["wall_ms"], 3),
+                   "max_memory_allocated": r["max_memory_allocated"],
+                   "device_busy_ms": r["device_busy_ms"],
+                   "all_to_all_single_bytes_sent": r["report"].get("dist_sent_bytes", 0),
+                   # the process's start: interpreter to the leg's barrier
+                   # (P4's includes its wait for the first group)
+                   "setup": {k: round(v, 3) for k, v in r["setup"].items()},
+                   "start_s": round(r["t_start"] - t_popen, 3),
+                   "report": r["report"]} for pid, r in enumerate(results)]
+    print(f"phase path_{leg.lower()}: card={card} backend={want_backend} world={world} "
+          f"md5={md5} leg_wall_ms={wall_ms:.3f} card_busy_share={share} "
+          f"processes={json.dumps(procs_line)}", flush=True)
+    return {"md5": md5, "wall_ms": wall_ms, "processes": procs_line}
+
+
+def path_p(torch, K, formatter, list_b: Path, tmp: Path, md5_c: str, card: str) -> dict:
+    """Path P — the multi-process mesh on Path B's corpus: P1 the
+    all-device plan with letter ownership, P2 the pipelined plan with
+    letter ownership, P3 ``DistDeviceStreamEngine`` over Path F's windows,
+    in turn in one group of two processes (gloo: they share the card)
+    with 2 local shards each; P4 P1's build in a one-process group (NCCL,
+    4 local shards).  No kernel of ``csrc/`` is launched in this
+    process."""
+    import numpy as np
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    root = tmp / "P"
+    gloo = p_start(("P1", "P2", "P3"), 2, list_b, root)
+    # P4's process starts up beside the first group and joins when it ends
+    nccl = p_start(("P4",), 1, list_b, root, gate=root / "go_P4")
+    try:
+        legs = p_finish(torch, np, formatter, gloo, root, md5_c, card)
+        (root / "go_P4").touch()
+        legs.update(p_finish(torch, np, formatter, nccl, root, md5_c, card))
+    finally:  # a failed group leaves no process behind
+        stop_all(gloo["procs"] + nccl["procs"])
+    launches = {"unique_mask_count": K.unique_mask_count.launches,
+                "bucket_histogram": K.bucket_histogram.launches}
+    print(f"phase path_p_done: card={card} seconds={time.perf_counter() - t0:.1f} "
+          f"legs={list(legs)} launches_in_this_process={launches}", flush=True)
+    return launches
+
+
+# -- Path Q: the sanitized native builds on the host -------------------------
+
+Q_VARIANTS = ("asan", "ubsan")
+Q_REPORTS = ("ERROR: AddressSanitizer", "runtime error:", "SUMMARY: AddressSanitizer",
+             "SUMMARY: UndefinedBehaviorSanitizer", "LeakSanitizer")
+Q_CHILD_TIMEOUT_S = 600
+
+
+def q_env(variant: str) -> dict:
+    """The environment of a sanitized child: the variant, and for asan
+    libasan preloaded, no leak check and no shadow-gap protection (CUDA's
+    libraries map memory there); no card (the host backend never needs
+    one)."""
+    extra = {"MRI_NATIVE_SANITIZE": variant, "CUDA_VISIBLE_DEVICES": ""}
+    if variant == "asan":
+        libasan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
+                                 text=True, timeout=60, check=True).stdout.strip()
+        extra.update(LD_PRELOAD=libasan, ASAN_OPTIONS="detect_leaks=0:protect_shadow_gap=0")
+    return {**os.environ, **extra}
+
+
+def start_sanitized_builds() -> dict:
+    """Both sanitized libraries built in the background (``g++``, one
+    process each, while the kernels build): ``{variant: process}``, each
+    printing its library's name and build seconds."""
+    return {variant: subprocess.Popen(
+        [sys.executable, "-c", "import sys, time; sys.path.insert(0, sys.argv[1]); "
+         "from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch "
+         "import native; t = time.perf_counter(); so = native._compile(sys.argv[2]); "
+         "print(so.name, time.perf_counter() - t)", str(ROOT), variant],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for variant in Q_VARIANTS}
+
+
+def q_mix(np, artifact: Path, seed: int = 1066) -> dict:
+    """Path I's query mix on ``artifact``: Zipf batches of 1, 32, 1024
+    and 8192 words, five queries each of 2, 3 and 5 present words."""
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+        Engine)
+
+    rng = np.random.default_rng(seed)
+    with env(MRI_SERVE_NATIVE="0"), Engine(artifact) as eng:
+        art = eng.artifact
+        ranked = [art.term(int(i)) for i in np.argsort(-art.df.astype(np.int64), kind="stable")]
+        batches = {n: zipf_terms(np, rng, ranked, n) for n in SERVE_BATCHES}
+        queries = {}
+        for arity in (2, 3, 5):
+            qs = []
+            while len(qs) < 5:
+                q = [w for w in dict.fromkeys(zipf_terms(np, rng, ranked, arity * 3))
+                     if int(eng.df(eng.encode_batch([w]))[0]) > 0]
+                if len(q) >= arity:
+                    qs.append(q[:arity])
+            queries[arity] = qs
+    return {"batches": batches, "queries": queries}
+
+
+def q_answers(artifact: Path, mix: dict) -> dict:
+    """md5 of each answer of the host ``Engine`` (native kernels
+    required) to ``mix``: df, lookup and postings per batch, AND/OR per
+    query, top_k of three letters, BM25 top-10 per planner."""
+    import hashlib
+
+    import numpy as np
+
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
+        Engine)
+
+    def md5(*arrays) -> str:
+        h = hashlib.md5()
+        for a in arrays:
+            h.update(b"None" if a is None else np.ascontiguousarray(a).tobytes() + b"|")
+        return h.hexdigest()
+
+    out = {}
+    with env(MRI_SERVE_NATIVE="1"), Engine(artifact) as host:
+        for n, words in mix["batches"].items():
+            b = host.encode_batch(words)
+            idx, found = host.lookup(b)
+            out[f"df@{n}"] = md5(host.df(b))
+            out[f"lookup@{n}"] = md5(idx[found], found)
+            out[f"postings@{n}"] = md5(*host.postings(b))
+        for arity, qs in mix["queries"].items():
+            for j, q in enumerate(qs):
+                b = host.encode_batch(q)
+                out[f"and@{arity}.{j}"] = md5(host.query_and(b))
+                out[f"or@{arity}.{j}"] = md5(host.query_or(b))
+                for planner in PLANNERS:
+                    with env(MRI_SERVE_PLANNER=planner):
+                        out[f"bm25_{planner}@{arity}.{j}"] = repr(
+                            bm25_bits(host.top_k_scored(b, 10)))
+        for letter in ("a", "m", "z"):
+            out[f"top_k@{letter}"] = repr(host.top_k(letter, 10))
+        nat = host.describe()["native"]
+        check(nat["active"] and nat["fallbacks"] == 0 and nat["ops"] > 0,
+              f"path Q: native block {nat}")
+    return out
+
+
+def q_child(argv: list[str]) -> int:
+    """One Path Q variant in this (sanitized) process: load the variant's
+    library, Path M1's host build on Path A's corpus, the host engine
+    over the query mix; one JSON line."""
+    variant, list_a, out_dir, artifact, mix_path = argv
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
+        cli, native)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.text import (
+        formatter)
+
+    t = time.perf_counter()
+    check(native.load() is not None, f"path Q {variant}: {native.load_error()}")
+    so = native._compile(variant)
+    check(native._SO_NAME_RE[variant].match(so.name) is not None,
+          f"path Q {variant}: loaded {so.name}")
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rc, stats = run_cli(cli, ["1", "1", list_a, "--host-threads", "1", "--backend", "cpu",
+                              "--stats", "--output-dir", out_dir])
+    check(rc == 0 and stats is not None and "cpu_fallback" not in stats,
+          f"path Q {variant} M1: exit {rc}, {stats and stats.get('cpu_fallback')}")
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    mix = json.loads(Path(mix_path).read_text())
+    mix["batches"] = {int(n): w for n, w in mix["batches"].items()}
+    answers = q_answers(Path(artifact), mix)
+    print(json.dumps({"library": so.name, "load_s": load_s, "m1_s": build_s,
+                      "m1_total_ms": stats["total_ms"], "engine_s": time.perf_counter() - t,
+                      "md5": formatter.letters_md5(out_dir), "answers": answers}), flush=True)
+    return 0
+
+
+def path_q(K, list_a: Path, md5_a: str, artifact: Path, tmp: Path, card: str,
+           builds: dict, during=None) -> tuple:
+    """Path Q — the sanitized native builds on this machine's host: per
+    variant (asan, ubsan) a child loads the build started by
+    :func:`start_sanitized_builds`, runs Path M1's ``--backend cpu`` build
+    on Path A's corpus (md5 equal to Path A's) and the host ``Engine``
+    over Path I's query mix on ``artifact`` (every answer equal to this
+    process's production library's); any sanitizer report fails.  The
+    children use no card, so ``during()`` (if given) runs on the card in
+    this process meanwhile.  Returns this process's launches for Q (none:
+    the children are other processes) and what ``during()`` returned."""
+    import numpy as np
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    build_s = {}
+    for variant, proc in builds.items():
+        try:
+            text = proc.communicate(timeout=Q_CHILD_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            stop_all([proc])
+            raise SmokeFailure(f"path Q {variant} build hung past {Q_CHILD_TIMEOUT_S} s")
+        check(proc.returncode == 0, f"path Q {variant} build: exit {proc.returncode}: "
+              f"{text[-3000:]}")
+        build_s[variant] = float(text.split()[-1])
+    mix = q_mix(np, artifact)
+    (tmp / "Q_mix.json").write_text(json.dumps(mix))
+    want = q_answers(artifact, mix)
+    procs = {}
+    for variant in Q_VARIANTS:
+        (tmp / f"Q_{variant}_out").mkdir()
+        log = tmp / f"Q_{variant}.log"
+        with open(log, "wb") as f:
+            procs[variant] = (subprocess.Popen(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                 "import chip_smoke; sys.exit(chip_smoke.q_child(sys.argv[2:]))", str(ROOT),
+                 variant, str(list_a), str(tmp / f"Q_{variant}_out"), str(artifact),
+                 str(tmp / "Q_mix.json")],
+                cwd=str(ROOT), env=q_env(variant), stdout=f, stderr=subprocess.STDOUT), log,
+                time.perf_counter())
+    launches = {"unique_mask_count": K.unique_mask_count.launches,
+                "bucket_histogram": K.bucket_histogram.launches}
+    check(not any(launches.values()), f"path Q launched a kernel of csrc/: {launches}")
+    out = {}
+    try:
+        during_out = during() if during is not None else None
+        for variant, (proc, log, t1) in procs.items():
+            wait_child(proc, log, f"path Q {variant}", timeout=Q_CHILD_TIMEOUT_S)
+            run_s = time.perf_counter() - t1
+            text = log.read_text(errors="replace")
+            reports = [r for r in Q_REPORTS if r in text]
+            check(proc.returncode == 0 and not reports,
+                  f"path Q {variant}: exit {proc.returncode}, reports {reports}: {text[-4000:]}")
+            got = json.loads(text.strip().splitlines()[-1])
+            check(got["md5"] == md5_a, f"path Q {variant} M1 md5 {got['md5']} != path A {md5_a}")
+            diff = sorted(k for k in want if got["answers"].get(k) != want[k])
+            check(not diff and len(got["answers"]) == len(want),
+                  f"path Q {variant}: answers differ from the production build's: {diff[:8]}")
+            out[variant] = {"library": got["library"], "build_s": round(build_s[variant], 3),
+                            "run_s": round(run_s, 3), "load_s": round(got["load_s"], 3),
+                            "m1_s": round(got["m1_s"], 3), "m1_total_ms": got["m1_total_ms"],
+                            "engine_s": round(got["engine_s"], 3), "answers": len(want)}
+    finally:
+        stop_all(proc for proc, _, _ in procs.values())
+    print(f"phase path_q: card={card} host={host_cpu()} md5={md5_a} "
+          f"variants={json.dumps(out)} seconds={time.perf_counter() - t0:.1f} "
+          f"beside={'the engine programs' if during is not None else 'nothing'}", flush=True)
+    return launches, during_out
+
+
+def multiprocess_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str,
+                          kind: str) -> int:
+    """``--multiprocess-only``: Path C (the default build on Path B's
+    corpus, whose md5 Path P must give) and Path P alone."""
+    with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+            num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+        stats_c, launches_c = drive_path(
+            torch, K, formatter, cli_run(cli, "path C", list_b, tmp / "C_out", []),
+            tmp / "C_out", "path C")
+        check_pipelined(stats_c, "path C")
+        print_path("path_c", stats_c, launches_c, card=repr(card))
+        path_p(torch, K, formatter, list_b, tmp, stats_c["md5"], card)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def sanitize_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str,
+                      kind: str, sanitized: dict) -> int:
+    """``--sanitize-only``: Path A's corpus and its oracle md5, the
+    default build with ``--artifact`` on Path B's corpus (Path H's v2.1
+    artifact) and Path Q alone."""
+    with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        list_a = write_corpus_dir(synthetic, manifest_mod, tmp / "A", synthetic.zipf_corpus(
+            num_docs=355, vocab_size=33_000, tokens_per_doc=2900, seed=7))
+        rc, _ = run_cli(cli, ["4", "26", str(list_a), "--backend", "oracle",
+                              "--output-dir", str(tmp / "A_oracle")])
+        check(rc == 0, f"path A oracle: exit {rc}")
+        list_b = write_corpus_dir(synthetic, manifest_mod, tmp / "B", synthetic.zipf_corpus(
+            num_docs=20_000, vocab_size=100_000, tokens_per_doc=1000, seed=11))
+        stats_h, launches_h = drive_path(
+            torch, K, formatter, cli_run(cli, "path H", list_b, tmp / "H_out", ["--artifact"]),
+            tmp / "H_out", "path H")
+        print_path("path_h", stats_h, launches_h, card=repr(card))
+        path_q(K, list_a, formatter.letters_md5(tmp / "A_oracle"), tmp / "H_out" / "index.mri",
+               tmp, card, sanitized)
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def cluster_only_run(torch, K, cli, formatter, synthetic, manifest_mod, build_index,
                      IndexConfig, oracle_index, card: str, kind: str) -> int:
     """``--cluster-only``: the default build with ``--artifact`` on Path
@@ -3629,6 +4180,10 @@ def mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, 
     return 0
 
 
+MODES = ("--mesh-only", "--serve-only", "--segments-only", "--cluster-only",
+         "--multiprocess-only", "--sanitize-only")
+
+
 def main() -> int:
     import threading
 
@@ -3652,6 +4207,7 @@ def main() -> int:
         return 1
 
     t_start = time.perf_counter()
+    sanitized: dict = {}  # Path Q's background builds, stopped on every exit
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3663,7 +4219,13 @@ def main() -> int:
             print(f"phase cards: {json.dumps(cards)}", flush=True)
         print(f"phase card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
               f"| {kind} | cards {torch.cuda.device_count()}", flush=True)
-        # g++ for the host scan runs beside nvcc's kernel builds
+        mode = sys.argv[1:]
+        check(mode in ([], *([m] for m in MODES)),
+              f"unknown arguments {mode} (only one of {', '.join(MODES)})")
+        # g++ for the host scan and Path Q's sanitized builds run beside
+        # nvcc's kernel builds
+        if mode in ([], ["--sanitize-only"]):
+            sanitized.update(start_sanitized_builds())
         native_build = {}
 
         def build_native():
@@ -3682,18 +4244,22 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "error" in line.lower():
                     print(f"  ptxas {stem}: {line.strip()}")
-        if sys.argv[1:] == ["--mesh-only"]:
+        if mode == ["--mesh-only"]:
             return mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
-        if sys.argv[1:] == ["--serve-only"]:
+        if mode == ["--serve-only"]:
             return serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
-        if sys.argv[1:] == ["--segments-only"]:
+        if mode == ["--segments-only"]:
             return segments_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card,
                                      kind)
-        if sys.argv[1:] == ["--cluster-only"]:
+        if mode == ["--cluster-only"]:
             return cluster_only_run(torch, K, cli, formatter, synthetic, manifest_mod,
                                     build_index, IndexConfig, oracle_index, card, kind)
-        check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} "
-              "(only --mesh-only, --serve-only, --segments-only or --cluster-only)")
+        if mode == ["--multiprocess-only"]:
+            return multiprocess_only_run(torch, K, cli, formatter, synthetic, manifest_mod,
+                                         card, kind)
+        if mode == ["--sanitize-only"]:
+            return sanitize_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card,
+                                     kind, sanitized)
 
         launches_by_path = {}
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
@@ -3984,10 +4550,20 @@ def main() -> int:
                                            IndexConfig, oracle_index, formatter, list_b, tmp,
                                            card)
 
-            # Paths D, E and F's device programs alone, while their files exist
-            eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)
-            eng_plans.update(engine_device_stream(torch, manifest_b, stats_f, 2500,
+            # -- Path P: the multi-process mesh on Path B's corpus ----------------
+            launches_by_path["P"] = path_p(torch, K, formatter, list_b, tmp, stats_c["md5"],
+                                           card)
+
+            # -- Path Q: the sanitized native builds on the host, beside Paths
+            # D, E and F's device programs alone (while their files exist)
+            def device_programs():
+                plans = engine_device_plans(torch, manifest_b, stats_d, 5000)
+                plans.update(engine_device_stream(torch, manifest_b, stats_f, 2500,
                                                   cfg_f.pad_multiple))
+                return plans
+
+            launches_by_path["Q"], eng_plans = path_q(K, list_a, md5_oracle, h_paths[3], tmp,
+                                                      card, sanitized, during=device_programs)
 
         # -- kernels against their plain versions, at this run's shapes ----
         # (padded n, valid n, vocab, docs): Path A's numpy leg keeps every
@@ -4024,6 +4600,8 @@ def main() -> int:
     except (SmokeFailure, OSError, RuntimeError, ValueError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_all(sanitized.values())
 
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in launches_by_path.items()}

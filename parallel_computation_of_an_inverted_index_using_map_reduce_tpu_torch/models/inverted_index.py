@@ -362,6 +362,8 @@ class InvertedIndexModel:
         stride = max_doc_id + 2
         num_shards = self._num_shards()
         mesh = make_mesh(num_shards, cfg.device) if num_shards > 1 else None
+        if mesh is not None and cfg.emit_ownership != "letter":
+            dist_engine.require_all_local(mesh, "merged")
         if cfg.pipeline_chunk_docs:
             n = len(manifest)
             windows = tuple((s, min(s + cfg.pipeline_chunk_docs, n))
@@ -504,8 +506,8 @@ class InvertedIndexModel:
         reducer ownership (contiguous letter ranges including the R > 26
         collapse, main.c:129-150) via corpus/scheduler.plan_letter_ranges
         — then every owner emits only its own letter files from its own
-        pairs; nothing merges the global postings.  This single
-        controller runs every owner's emit in turn.
+        pairs; nothing merges the global postings.  Each process emits
+        its own owners in turn (every owner, with no process group).
         """
         n = mesh.size
         ranges, owner_of_letter = owner_of_letter_table(n)
@@ -1022,6 +1024,7 @@ class InvertedIndexModel:
         cfg = self.config
         num_shards = self._num_shards()
         mesh = make_mesh(num_shards, cfg.device)
+        dist_engine.require_all_local(mesh, "merged")
         max_doc_id = len(manifest)
         stride = max_doc_id + 2
         threads = cfg.resolved_host_threads()
@@ -1090,11 +1093,14 @@ class InvertedIndexModel:
         their terms (parallel/dist_device_tokenizer.py).  The host
         decodes per-owner vocab blocks and merges at vocab scale, or,
         with ``emit_ownership="letter"``, each owner writes its own
-        letter files."""
+        letter files: in a process group, each process its own owners'."""
         cfg = self.config
         width = cfg.device_tokenize_width
         n = self._num_shards()
         mesh = make_mesh(n, cfg.device)
+        letter_mode = cfg.emit_ownership == "letter"
+        if not letter_mode:
+            dist_engine.require_all_local(mesh, "merged")
         max_doc_id = len(manifest)
         with timer.phase("load"):
             shards = list(iter_document_ranges(
@@ -1131,7 +1137,6 @@ class InvertedIndexModel:
             sort_cols = -(-max(host_max_len, 1) // 4)  # ceil div
             timer.count("sort_cols", sort_cols)
 
-        letter_mode = cfg.emit_ownership == "letter"
         owner_of_letter = ranges = None
         if letter_mode:
             ranges, owner_of_letter = owner_of_letter_table(n)
@@ -1240,6 +1245,7 @@ class InvertedIndexModel:
         width = cfg.device_tokenize_width
         n = self._num_shards()
         mesh = make_mesh(n, cfg.device)
+        dist_engine.require_all_local(mesh, "merged")
         max_doc_id = len(manifest)
         timer.count("device_tokenize_width", width)
         timer.count("device_shards", n)

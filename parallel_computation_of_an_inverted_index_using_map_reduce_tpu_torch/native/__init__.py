@@ -10,11 +10,15 @@ use and loaded with ctypes.  Without a compiler the callers fall back
 to the numpy tokenizer, the Python emit and the numpy query paths (same
 bytes, slower).
 
-The library is built into ``native/_build/`` as
-``libmri_torch_scan_<hash>.so`` — its own stem and directory, so it can
-never shadow, or be pruned by, another package's build of a similar
-source — and loaded with ctypes' default ``RTLD_LOCAL``.  Nothing is
-compiled or loaded at import.
+The library is built into ``native/_build/`` (or, where that cannot
+be written, ``<tmp>/mri_tpu_torch_native_<uid>``) as
+``libmri_torch_scan_<hash>.so`` — its own stem and directories, so it
+can never shadow, or be pruned by, another package's build of a similar
+source — and loaded with ctypes' default ``RTLD_LOCAL``.
+``MRI_NATIVE_SANITIZE=asan|ubsan`` selects a sanitized build under its
+own stem (``libmri_torch_scan_asan_<hash>.so``); the asan one needs
+``LD_PRELOAD`` of ``libasan.so`` in the process.  Nothing is compiled or
+loaded at import.
 """
 
 from __future__ import annotations
@@ -22,12 +26,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import envknobs
 
 _SRC = Path(__file__).resolve().parent / "tokenizer.cc"
 _BUILD_DIR = _SRC.parent / "_build"
@@ -39,8 +47,25 @@ _STEM = "libmri_torch_scan"
 # default where the target has FMA, as on aarch64 hosts)
 _CXX_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
+#: MRI_NATIVE_SANITIZE's variants, on top of _CXX_FLAGS (the JAX
+#: loader's flags).  The asan build loads only with libasan preloaded
+#: (LD_PRELOAD); the ubsan one links its runtime itself.
+_SANITIZE_FLAGS = {
+    "": [],
+    "asan": ["-fsanitize=address", "-fno-omit-frame-pointer", "-g"],
+    "ubsan": ["-fsanitize=undefined", "-fno-sanitize-recover=undefined", "-g"],
+}
+
+#: the exact names of each variant's builds: a prefix glob of the
+#: production stem would also match (and prune) the sanitized ones
+_SO_NAME_RE = {
+    v: re.compile(rf"{_STEM}_{v + '_' if v else ''}[0-9a-f]{{12}}\.so\Z")
+    for v in _SANITIZE_FLAGS
+}
+
 _lib = None
 _lib_error: str | None = None
+_lib_variant = ""
 _load_lock = threading.Lock()
 
 
@@ -111,39 +136,64 @@ class _HostStreamStats(ctypes.Structure):
     ]
 
 
-def _prune_stale(keep: str) -> None:
-    """Drop this library's builds of other source hashes — every source
-    edit otherwise leaves a dead artifact.  Temp files are left alone:
-    one may be a concurrent build's, about to be renamed.
-    Best-effort: a process may still hold an old .so open."""
-    for p in _BUILD_DIR.glob(f"{_STEM}_*.so"):
-        if p.name != keep:
-            try:
-                p.unlink()
-            except OSError:
-                pass
+def _build_dirs():
+    """Where a build goes: the package's own ``_build``, else this
+    package's directory under the temp root (never the JAX package's)."""
+    yield _BUILD_DIR
+    yield Path(tempfile.gettempdir()) / f"mri_tpu_torch_native_{os.getuid()}"
 
 
-def _compile() -> Path:
-    tag = hashlib.md5(_SRC.read_bytes() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:12]
-    name = f"{_STEM}_{tag}.so"
-    so = _BUILD_DIR / name
-    if so.exists():
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a temp name per process, then an atomic rename: concurrent builds
-    # (pytest-xdist workers) never load a half-written library
-    tmp = _BUILD_DIR / f"{name}.{os.getpid()}.tmp"
+def _prune_stale(keep: str, variant: str = "", build_dir: Path | None = None) -> None:
+    """Drop this library's builds of ``variant`` other than ``keep`` —
+    every source edit otherwise leaves a dead artifact.  Other variants'
+    builds and temp files are left alone (a temp file may be a
+    concurrent build's, about to be renamed).  Best-effort: a process
+    may still hold an old .so open."""
+    name_re = _SO_NAME_RE[variant]
     try:
-        subprocess.run(["g++", *_CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                       check=True, capture_output=True, timeout=300)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"native build failed: {e.stderr.decode(errors='replace')}") from e
-    except (OSError, subprocess.SubprocessError) as e:
-        raise RuntimeError(f"native build failed: {e}") from e
-    os.replace(tmp, so)
-    _prune_stale(name)
-    return so
+        stale = [p for p in (build_dir or _BUILD_DIR).glob(f"{_STEM}_*.so")
+                 if p.name != keep and name_re.match(p.name)]
+    except OSError:
+        return
+    for p in stale:
+        try:
+            p.unlink()
+        except OSError:
+            pass
+
+
+def _compile(variant: str = "") -> Path:
+    flags = _CXX_FLAGS + _SANITIZE_FLAGS[variant]
+    tag = hashlib.md5(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    name = f"{_STEM}_{variant + '_' if variant else ''}{tag}.so"
+    unwritable = []
+    for d in _build_dirs():
+        so = d / name
+        if so.exists():
+            return so
+        try:
+            d.mkdir(parents=True, exist_ok=True)
+        except OSError as e:
+            unwritable.append(f"{d}: {e}")
+            continue
+        if not os.access(d, os.W_OK):
+            unwritable.append(f"{d}: not writable")
+            continue
+        # a temp name per process, then an atomic rename: concurrent
+        # builds (pytest-xdist workers) never load a half-written library
+        tmp = d / f"{name}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["g++", *flags, "-o", str(tmp), str(_SRC)],
+                           check=True, capture_output=True, timeout=300)
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(
+                f"native build failed: {e.stderr.decode(errors='replace')}") from e
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(f"native build failed: {e}") from e
+        os.replace(tmp, so)
+        _prune_stale(name, variant, d)
+        return so
+    raise RuntimeError(f"native build failed: no writable build directory ({unwritable})")
 
 
 def _bind(lib) -> None:
@@ -246,13 +296,20 @@ def load_error() -> str | None:
 
 def load():
     """The compiled library, or None (the reason cached in
-    :func:`load_error` and printed once on stderr)."""
-    global _lib, _lib_error
+    :func:`load_error` and printed once on stderr).
+
+    ``MRI_NATIVE_SANITIZE`` is read on every call: a changed variant
+    drops the cached handle, so a process loads the build it names.  A
+    bad value raises ``ValueError`` naming the variable."""
+    global _lib, _lib_error, _lib_variant
+    variant = envknobs.get("MRI_NATIVE_SANITIZE")
     with _load_lock:
+        if variant != _lib_variant:
+            _lib, _lib_error, _lib_variant = None, None, variant
         if _lib is not None or _lib_error is not None:
             return _lib
         try:
-            lib = ctypes.CDLL(str(_compile()))
+            lib = ctypes.CDLL(str(_compile(variant)))
             _bind(lib)
             _lib = lib
         except (OSError, RuntimeError, AttributeError) as e:

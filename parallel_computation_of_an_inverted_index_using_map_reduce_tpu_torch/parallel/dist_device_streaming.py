@@ -24,8 +24,11 @@ window) and an overflowing merge retries against the preserved previous
 accumulator at a doubled capacity.  Exactness is the family's: the
 caller rejects an over-width window before feeding it (WidthOverflow),
 and every window's device statistics are checked against the host
-classifier at finalize.  The counterpart of the JAX package's
-``parallel/dist_device_streaming.py``.
+classifier at finalize.  Inside a process group each process holds its
+own positions' accumulators: every feed and regrow decision is taken
+from values reduced over every process, so all of them take it
+together, and :meth:`finalize` fetches this process's owners.  The
+counterpart of the JAX package's ``parallel/dist_device_streaming.py``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..ops.device_tokenizer import INT32_MAX, live_groups_for, num_groups_for, t
 from ..utils.rounding import round_up
 from .dist_device_tokenizer import _mix32, exchange_rows, fetch_owner_blocks
 from .dist_engine import default_capacity
-from .mesh import Mesh, gather_host, shard_parts
+from .mesh import Mesh, agree_max, gather_host, shard_parts
 
 
 class DistDeviceStreamEngine:
@@ -80,7 +83,7 @@ class DistDeviceStreamEngine:
         n = self._n
         lg = self._live_groups
         send_rows, owners, lens, toks = [], [], [], []
-        for s in range(n):
+        for s in range(len(self._mesh.devices)):
             groups, doc_col, max_len, num_tokens = tokenize_groups(
                 data[s], ends[s], ids[s], width=self._width, tok_cap=tok_cap,
                 num_docs=num_docs, sort_cols=sort_cols)
@@ -114,9 +117,11 @@ class DistDeviceStreamEngine:
         """Tokenize, exchange and fold one sharded byte window.
 
         ``tok_count`` / ``max_len``: the max per-shard token count and
-        max cleaned length over the window's shards (host-exact); the
-        caller has already rejected ``max_len > width``.  Each shard's
-        arrays are copied fresh before upload."""
+        max cleaned length over the window's shards (host-exact; the max
+        over the processes is taken); the caller has already rejected
+        ``max_len > width``.  Only this process's positions of the
+        per-shard lists are read, each copied fresh before upload."""
+        tok_count, max_len = agree_max([tok_count, max_len], self._mesh)
         if tok_count == 0:
             return
         self.max_word_len = max(self.max_word_len, max_len)
@@ -130,7 +135,7 @@ class DistDeviceStreamEngine:
         data = shard_parts(shard_bufs, self._mesh, keep)
         ends = shard_parts(shard_ends, self._mesh, keep)
         ids = shard_parts(shard_ids, self._mesh, keep)
-        num_docs = shard_ends[0].shape[0]
+        num_docs = shard_ends[self._mesh.first].shape[0]
         if self._acc is None:
             self._acc = [tuple(torch.full((self._cap,), INT32_MAX, dtype=torch.int32, device=d)
                                for _ in range(2 * self._num_groups + 1))
@@ -159,9 +164,9 @@ class DistDeviceStreamEngine:
         self.windows_fed += 1
 
     def finalize(self, *, sort_cols: int | None, max_doc_id: int, stats: dict | None = None):
-        """Per-owner index blocks (``{owner: dict}``, the one-shot mesh
-        engine's contract).  Checks every window's device statistics
-        against the host classifier first."""
+        """This process's owners' index blocks (``{owner: dict}``, the
+        one-shot mesh engine's contract).  Checks every window's device
+        statistics against the host classifier first."""
         if self._acc is None:
             raise ValueError("no windows fed")
         for dev_max_len, tok_cap, dev_tokens, host_max_len in self._window_checks:
@@ -181,8 +186,11 @@ class DistDeviceStreamEngine:
         owners = fetch_owner_blocks(
             blocks, counts=counts, local_len=self._cap, width=self._width,
             sort_cols=sort_cols, max_doc_id=max_doc_id, max_words=int(mx[0]),
-            max_pairs=int(mx[1]), max_long=int(mx[2]), stats=stats)
+            max_pairs=int(mx[1]), max_long=int(mx[2]), stats=stats,
+            positions=self._mesh.local_positions)
         if stats is not None:
             stats["merge_retries"] = self.merge_retries
             stats["accumulator_capacity_per_owner"] = self._cap
+            if self._mesh.backend is not None:
+                stats["dist_sent_bytes"] = self._mesh.sent_bytes[0]
         return owners

@@ -20,7 +20,10 @@ Per shard:
 
 with a fixed exchange capacity and one retry at the safe capacity when
 a bucket overflows.  The host then fetches each owner's valid prefix
-with the single-device tail's transfer trimming.  The counterpart of
+with the single-device tail's transfer trimming.  Inside a process
+group each process feeds and fetches only its own positions
+(:func:`_local_mesh_positions`), and the retry and slice sizes come
+from every owner's counts, alike in every process.  The counterpart of
 the JAX package's ``parallel/dist_device_tokenizer.py``: the same hash,
 capacities and fetch sizes.
 """
@@ -63,10 +66,15 @@ def _mix32(cols) -> torch.Tensor:
     return h ^ (h >> 13)
 
 
+def _local_mesh_positions(mesh: Mesh) -> dict:
+    """Mesh position -> device for this process's positions."""
+    return dict(zip(mesh.local_positions, mesh.devices))
+
+
 def exchange_rows(send_rows, owner, *, mesh: Mesh, capacity: int):
-    """Bucket each shard's word rows by ``owner`` (``num_shards`` =
-    padding) and run the exchange.  ``send_rows[s]`` is shard ``s``'s
-    list of equal-length int32 columns.  Returns the per-shard received
+    """Bucket each local shard's word rows by ``owner`` (``num_shards``
+    = padding) and run the exchange.  ``send_rows[s]`` is local shard
+    ``s``'s list of equal-length int32 columns.  Returns the per-shard received
     columns (each ``n * capacity`` long) and the per-shard overflow
     flags (tensors)."""
     n = mesh.size
@@ -112,16 +120,17 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
     """Sharded raw bytes -> per-owner index blocks, over the mesh.
 
     ``shard_bufs``: n equal-length uint8 buffers (space-padded contiguous
-    doc ranges); ``shard_ends`` / ``shard_ids``: per-shard int32 arrays
+    doc ranges; only this process's positions are read, the others may
+    be None); ``shard_ends`` / ``shard_ids``: per-shard int32 arrays
     of one length (ends padded with the buffer length — padding spaces
     make no tokens).  ``tok_cap``: per-shard token capacity (the max of
     the exact per-shard counts, rounded up).  Returns ``(owners,
     (max_word_len, exchange_retries))`` where ``owners`` maps owner ->
     dict(num_words, num_pairs, df, postings, unique_groups), valid
-    prefixes cut.
+    prefixes cut, for exactly this process's owners (mesh positions).
     """
     n = mesh.size
-    num_docs = shard_ends[0].shape[0]
+    num_docs = shard_ends[mesh.first].shape[0]
     keep: list = []
     data = shard_parts(shard_bufs, mesh, keep)
     ends = shard_parts(shard_ends, mesh, keep)
@@ -134,7 +143,7 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
         per_shard = [_shard_rows(data[s], ends[s], ids[s], width=width, tok_cap=tok_cap,
                                  num_docs=num_docs, sort_cols=sort_cols, num_shards=n,
                                  owner_of_letter=None if owner_dev is None else owner_dev[s])
-                     for s in range(n)]
+                     for s in range(len(mesh.devices))]
         recv, overflows = exchange_rows([p[0] for p in per_shard], [p[1] for p in per_shard],
                                         mesh=mesh, capacity=capacity)
         live = live_groups_for(sort_cols, width)
@@ -172,23 +181,27 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
     owners = fetch_owner_blocks(
         blocks, counts=g[:, 3:], local_len=n * capacity, width=width, sort_cols=sort_cols,
         max_doc_id=max_doc_id, max_words=int(mx[0]), max_pairs=int(mx[1]),
-        max_long=int(mx[2]), stats=stats)
+        max_long=int(mx[2]), stats=stats, positions=mesh.local_positions)
     if stats is not None:
         stats["exchange_retries"] = retries
         stats["exchange_capacity"] = capacity
+        if mesh.backend is not None:
+            stats["dist_sent_bytes"] = mesh.sent_bytes[0]
     return owners, (max_len, retries)
 
 
 def fetch_owner_blocks(blocks, *, counts: np.ndarray, local_len: int, width: int,
                        sort_cols: int | None, max_doc_id: int | None, max_words: int,
-                       max_pairs: int, max_long: int, stats: dict | None = None) -> dict:
-    """Fetch each owner's index block — the shared tail of the mesh
-    device engines (one-shot and streaming).
+                       max_pairs: int, max_long: int, stats: dict | None = None,
+                       positions=None) -> dict:
+    """Fetch each local owner's index block — the shared tail of the
+    mesh device engines (one-shot and streaming).
 
-    ``blocks[o]`` holds owner o's ``df``, ``postings`` and
-    ``unique_groups`` tensors; ``counts[o]`` its (words, pairs, long
-    words); ``max_*`` the maxima over owners, which size one prefix
-    slice for every owner.  Transfer trimming is the single-device
+    ``blocks[i]`` holds the ``df``, ``postings`` and ``unique_groups``
+    tensors of owner ``positions[i]`` (default: ``i``); ``counts[o]``
+    owner o's (words, pairs, long words), for every owner of the mesh;
+    ``max_*`` the maxima over every owner, which size one prefix slice
+    for every owner in every process.  Transfer trimming is the single-device
     tail's (``device_tokenizer.fetch_pack``): postings pack 3 doc ids
     per int32 when they fit 10 bits (16 bits under 2^16, int32 above),
     and tail groups travel sparsely.
@@ -209,7 +222,7 @@ def fetch_owner_blocks(blocks, *, counts: np.ndarray, local_len: int, width: int
                         for name, v in packed.items()})
     owners = {}
     fetched = 0
-    for o, ps in enumerate(pending):
+    for o, ps in zip(range(len(blocks)) if positions is None else positions, pending):
         host = {name: [host_view(p.wait()) for p in lst] for name, lst in ps.items()}
         fetched += sum(a.nbytes for arrays in host.values() for a in arrays)
         num_words, num_pairs, num_long = (int(v) for v in counts[o])

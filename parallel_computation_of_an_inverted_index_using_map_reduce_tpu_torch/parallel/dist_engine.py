@@ -19,7 +19,12 @@ reducers (main.c:116, 332-341, 135-137):
 
 The exchange has a fixed per-bucket capacity; an overflow flag (the
 one value read before the fetch) triggers one retry at the capacity
-that provably suffices.  This is the counterpart of the JAX package's
+that provably suffices.  Inside a process group (``mesh.py``) each
+process holds its own positions: the flag is reduced over every
+process before it is read, so all of them retry or go on together, and
+each fetches only its own owners.  The plans that assemble the global
+postings refuse a mesh whose positions are not all local, with the JAX
+package's message.  This is the counterpart of the JAX package's
 ``parallel/dist_engine.py``: the same capacities, bucket rule, retry
 condition and fetch sizes, so its ``dist_fetched_bytes`` and
 ``dist_valid_pairs`` agree with the JAX build's.
@@ -39,6 +44,16 @@ from ..utils.rounding import round_up
 from .mesh import Mesh, all_to_all, gather_host, psum, replicate
 
 _LOW32 = 0xFFFFFFFF
+
+
+def require_all_local(mesh: Mesh, what: str) -> None:
+    """Refuse a global postings assembly (``what``: "global" or
+    "merged") on a mesh whose positions are not all this process's."""
+    if not mesh.all_local:
+        raise RuntimeError(
+            f"{what} postings assembly needs every shard addressable; in a "
+            "multi-host run use emit_ownership='letter' so each host emits "
+            "only its own owners' letters")
 
 
 def default_capacity(local_size: int, num_shards: int, factor: float = 2.0) -> int:
@@ -153,8 +168,10 @@ def dist_index(keys, letter_of_term: torch.Tensor, *, vocab_size: int, max_doc_i
     ``df``, ``order``, ``offsets`` and ``num_unique`` as tensors on
     shard 0's device, ``postings`` assembled on the host.  If the hash
     partition overflows the default capacity, the exchange runs once
-    more at the capacity that provably suffices.
+    more at the capacity that provably suffices.  Every position must be
+    this process's (:func:`require_all_local`).
     """
+    require_all_local(mesh, "global")
     n = mesh.size
     local = keys[0].shape[0]
     capacity = default_capacity(local, n, capacity_factor)
@@ -195,10 +212,12 @@ def _exchange_and_fetch_rows(windows, *, stride: int, mesh: Mesh, capacity_facto
     letter-keyed) exchange with the overflow retry, then each owner's
     valid prefix — one slice per owner at the max count rounded to a
     reuse granule, so fetched bytes track unique pairs, not the
-    overprovisioned capacity.  Returns ``{owner: keys}``."""
+    overprovisioned capacity.  Returns ``{owner: keys}`` for this
+    process's owners, keyed by mesh position; the counts, the retry and
+    the slice length come from every owner's, alike in every process."""
     n = mesh.size
     keys_local = [torch.cat([w[s] for w in windows]) if len(windows) > 1 else windows[0][s]
-                  for s in range(n)]
+                  for s in range(len(mesh.devices))]
     local_total = keys_local[0].shape[0]
     capacity = default_capacity(local_total, n, capacity_factor)
     keep: list = []
@@ -217,13 +236,15 @@ def _exchange_and_fetch_rows(windows, *, stride: int, mesh: Mesh, capacity_facto
     pending = [PendingFetch(o[:nfetch]) for o in owned]
     rows = {}
     fetched = 0
-    for owner, p in enumerate(pending):
+    for owner, p in zip(mesh.local_positions, pending):
         row = p.wait()
         rows[owner] = row[: counts[owner]]
         fetched += row.nbytes
     if stats is not None:
-        stats["dist_fetched_bytes"] = fetched + 4 * len(counts)
-        stats["dist_valid_pairs"] = int(sum(counts))
+        stats["dist_fetched_bytes"] = fetched + 4 * len(rows)
+        stats["dist_valid_pairs"] = int(sum(counts[o] for o in rows))
+        if mesh.backend is not None:
+            stats["dist_sent_bytes"] = mesh.sent_bytes[0]
     return rows
 
 
@@ -234,9 +255,9 @@ def dist_letter_windows(windows, owner_of_prov: np.ndarray, *, stride: int, mesh
     upload windows by letter owner (the reference's reducer letter
     ranges, main.c:129-130, via corpus/scheduler.plan_letter_ranges);
     returns ``{owner: keys}`` (prov-grouped ascending, docs ascending
-    inside each term).  The letter partition is skewed by construction
-    (SURVEY.md §2.3); the overflow retry at the safe capacity absorbs
-    it."""
+    inside each term) for this process's owners.  The letter partition
+    is skewed by construction (SURVEY.md §2.3); the overflow retry at
+    the safe capacity absorbs it."""
     return _exchange_and_fetch_rows(
         windows, stride=stride, mesh=mesh, capacity_factor=capacity_factor,
         owner_of_prov=owner_of_prov, stats=stats)
@@ -291,8 +312,10 @@ def dist_sort_prov_windows(windows, *, stride: int, mesh: Mesh, offsets_prov: np
     ``offsets_prov`` (prov-space offsets from the combiner's df) drives
     the O(N) :func:`merge_owner_runs`; only each owner's valid prefix
     is fetched.  ``stats`` receives ``dist_fetched_bytes`` and
-    ``dist_valid_pairs``.
+    ``dist_valid_pairs``.  Every position must be this process's
+    (:func:`require_all_local`).
     """
+    require_all_local(mesh, "merged")
     rows = _exchange_and_fetch_rows(
         windows, stride=stride, mesh=mesh, capacity_factor=capacity_factor,
         owner_of_prov=None, stats=stats)

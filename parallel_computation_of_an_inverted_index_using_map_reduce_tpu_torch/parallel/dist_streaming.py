@@ -26,8 +26,11 @@ like the reference reducer's dedup (main.c:176-184).
 A per-owner bound cannot be derived on the host without assuming hash
 uniformity, so each feed reads the max per-owner count (one value per
 window) and an overflowing merge is retried against the preserved
-previous accumulator at a doubled capacity.  The counterpart of the JAX
-package's ``parallel/dist_streaming.py``.
+previous accumulator at a doubled capacity.  Inside a process group
+each process holds its own positions' accumulators; the form switch,
+the window's padded size and every regrow are decided from values
+reduced over every process, so all of them take each branch together.
+The counterpart of the JAX package's ``parallel/dist_streaming.py``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from ..ops.segment import bucket_edges
 from ..ops.streaming import _merge_unique, _merge_unique_pairs, _regrow, _unpack_acc
 from ..utils.rounding import round_up
 from .dist_engine import bucket_sends, default_capacity, send_buffer
-from .mesh import Mesh, all_to_all, gather_host, shard
+from .mesh import Mesh, agree_max, all_to_all, gather_host, shard
 
 
 def _pair_sends(term: torch.Tensor, doc: torch.Tensor, *, num_shards: int, capacity: int):
@@ -131,13 +134,16 @@ class DistStreamingIndexEngine:
 
     def feed(self, prov_term_ids: np.ndarray, doc_ids: np.ndarray,
              vocab_size_so_far: int) -> None:
-        """Shuffle and fold one window of (provisional term, doc) pairs."""
+        """Shuffle and fold one window of (provisional term, doc) pairs
+        (the window of the whole mesh: this process uploads its
+        positions' slices)."""
         n_pairs = int(prov_term_ids.shape[0])
-        if n_pairs == 0:
+        most_pairs, vocab_size_so_far = agree_max([n_pairs, vocab_size_so_far], self._mesh)
+        if most_pairs == 0:
             return
         if self.mode == "packed" and not K.can_pack(vocab_size_so_far, self._max_doc_id):
             self._switch_to_pairs()
-        padded = round_up(round_up(n_pairs, max(self._window_pad, self._n)), self._n)
+        padded = round_up(round_up(most_pairs, max(self._window_pad, self._n)), self._n)
         window_local = padded // self._n
         exchange_cap = default_capacity(window_local, self._n)
         keep: list = []
@@ -189,9 +195,10 @@ class DistStreamingIndexEngine:
                                    for half in self._acc_pair)
 
     def finalize(self, stats: dict | None = None):
-        """``(mode, {owner: rows})``, valid prefix only — the capacity
-        tail never crosses to the host.  Packed: rows are sorted packed
-        keys.  Pairs: rows are ``(terms, docs)`` sorted by (term, doc)."""
+        """``(mode, {owner: rows})`` for this process's owners, valid
+        prefix only — the capacity tail never crosses to the host.
+        Packed: rows are sorted packed keys.  Pairs: rows are ``(terms,
+        docs)`` sorted by (term, doc)."""
         mode = self.mode
         if self._acc is None and self._acc_pair is None:
             return mode, {}
@@ -204,17 +211,19 @@ class DistStreamingIndexEngine:
             pending = start(self._acc)
             rows_k = [p.wait() for p in pending]
             fetched = sum(r.nbytes for r in rows_k)
-            rows = {o: r[r < K.INT32_MAX] for o, r in enumerate(rows_k)}
+            rows = {o: r[r < K.INT32_MAX] for o, r in zip(self._mesh.local_positions, rows_k)}
         else:
             pending_t, pending_d = start(self._acc_pair[0]), start(self._acc_pair[1])
             rows_t = [p.wait() for p in pending_t]
             rows_d = [p.wait() for p in pending_d]
             fetched = sum(r.nbytes for r in rows_t) + sum(r.nbytes for r in rows_d)
             rows = {}
-            for o, (t, d) in enumerate(zip(rows_t, rows_d)):
+            for o, t, d in zip(self._mesh.local_positions, rows_t, rows_d):
                 valid = t < K.INT32_MAX
                 rows[o] = (t[valid], d[valid])
         if stats is not None:
             stats["dist_fetched_bytes"] = fetched
+            if self._mesh.backend is not None:
+                stats["dist_sent_bytes"] = self._mesh.sent_bytes[0]
         self._acc = self._acc_pair = None
         return mode, rows

@@ -310,7 +310,7 @@ class DeviceEngine:
                 f"device={str(self._device)!r} names one card, but shards={shards} "
                 f"spreads over every card: pass device={self._device.type!r}")
         else:
-            self._mesh = mesh_mod.make_mesh(shards, self._device.type)
+            self._mesh = mesh_mod.local_mesh(shards, self._device.type)
         self._device = self._mesh.devices[0]  # the unsharded ops' device
         self._decode_budget = int(decode_budget if decode_budget is not None
                                   else envknobs.get(DECODE_BUDGET_ENV))

@@ -64,6 +64,10 @@ _KNOBS: dict[str, _Knob] = {
     "MRI_READ_DEADLINE_S": _Knob(float, 1.0, minimum=0, exclusive=True),
     # crash hook: SIGKILL the process after N complete letter files
     "MRI_EMIT_KILL_AFTER_LETTERS": _Knob(int, None),
+    # -- the native library's build --
+    # sanitized build variant of native/tokenizer.cc, under its own
+    # library name ("": the production build)
+    "MRI_NATIVE_SANITIZE": _Knob(str, "", choices=("", "asan", "ubsan")),
     # -- query serving --
     # engine when 'query' gets no --engine flag: host, device or auto
     # (validated by serve.engine.resolve_engine; unset: device)

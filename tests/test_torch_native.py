@@ -45,8 +45,15 @@ from conftest import REPO_ROOT, read_letter_files
 
 INT32_MAX = 2**31 - 1
 
-pytestmark = pytest.mark.skipif(
-    not (tnative.available() and jnative.available()), reason="no C++ toolchain")
+
+@pytest.fixture(autouse=True)
+def _toolchain(request):
+    """Skip without a C++ toolchain — decided per test, and for a
+    ``native_san`` test from the port's library alone: a sanitizer run
+    builds no JAX library."""
+    libs = (tnative,) if request.node.get_closest_marker("native_san") else (tnative, jnative)
+    if not all(lib.available() for lib in libs):
+        pytest.skip("no C++ toolchain")
 
 
 def _word(i: int) -> bytes:
@@ -89,6 +96,7 @@ def test_tokenize_native_matches_jax(name, dedup, threads):
     assert (got.pairs_deduped, got.raw_tokens) == (want.pairs_deduped, want.raw_tokens)
 
 
+@pytest.mark.native_san
 @pytest.mark.parametrize("name", sorted(CORPORA))
 def test_native_scan_keeps_the_numpy_tokenizers_contract(name):
     """Without the combiner the native scan is token for token the numpy
@@ -289,6 +297,38 @@ def test_native_emit_matches_python_emit_and_jax(name, dtype, tmp_path):
     assert len(set(outs.values())) == 1
     assert sorted(p.name for p in (tmp_path / "native").iterdir()) == [
         f"{chr(97 + i)}.txt" for i in range(26)]
+
+
+@pytest.mark.native_san
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+@pytest.mark.parametrize("name", sorted(CORPORA))
+def test_native_emit_matches_python_emit(name, dtype, tmp_path):
+    """The port's native emit against its Python emit alone."""
+    docs = CORPORA[name]()
+    corpus, arrays = _emit_arrays(docs, dtype)
+    common = dict(vocab=corpus.vocab, letter_of_term=corpus.letter_of_term,
+                  max_doc_id=len(docs), **arrays)
+    for backend in ("native", "python"):
+        tfmt.emit_index(tmp_path / backend, backend=backend, **common)
+    assert read_letter_files(tmp_path / "native") == read_letter_files(tmp_path / "python")
+
+
+@pytest.mark.native_san
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("chunk", [1, 7, None])
+def test_pipelined_cpu_builds_match_the_oracle(chunk, threads, tmp_path):
+    """The pipelined plan on the CPU device — the native scan's key
+    stream in uint16 windows, the native emit — equals the oracle."""
+    docs = CORPORA["zipf"]() + CORPORA["edges"]() + CORPORA["long_words"]()
+    paths = tsyn.write_corpus(tmp_path / "docs", docs)
+    tman.write_manifest(tmp_path / "list.txt", paths)
+    m = tpkg.read_manifest(tmp_path / "list.txt")
+    tpkg.oracle_index(m, str(tmp_path / "oracle"))
+    r = tpkg.build_index(m, tpkg.IndexConfig(device="cpu", pipeline_chunk_docs=chunk,
+                                             host_threads=threads, emit_backend="native"),
+                         output_dir=str(tmp_path / "out"))
+    assert "tokenize_feed" in r["phases_ms"]
+    assert read_letter_files(tmp_path / "out") == read_letter_files(tmp_path / "oracle")
 
 
 def test_native_emit_returns_the_bytes_written(tmp_path):

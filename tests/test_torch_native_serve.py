@@ -19,7 +19,12 @@ import pytest
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu.serve import (
     engine as jengine,
 )
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import cli as tcli
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import native
+from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus import (
+    manifest as tman,
+    synthetic as tsyn,
+)
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.serve import (
     Engine,
     artifact as TA,
@@ -113,6 +118,7 @@ def _same(a, b):
             assert x == y
 
 
+@pytest.mark.native_san
 def test_library_flags_and_load():
     assert "-ffp-contract=off" in native._CXX_FLAGS
     assert native.load() is not None, native.load_error()
@@ -306,3 +312,65 @@ def test_native_bm25_bit_equal_numpy(varied, fmt, planner, monkeypatch):
     assert engines["1"].describe()["native"]["fallbacks"] == 0
     for eng in engines.values():
         eng.close()
+
+
+# -- the port's kernels on the port's own build (no JAX code) ---------------
+
+
+@pytest.fixture(scope="module")
+def port_built(tmp_path_factory):
+    """``_corpus()`` built by the port's host backend with ``--artifact``
+    at v2 and v2.1."""
+    root = tmp_path_factory.mktemp("port_native")
+    blobs, members = _corpus()
+    tman.write_manifest(root / "list.txt", tsyn.write_corpus(root / "docs", blobs))
+    mp = pytest.MonkeyPatch()
+    try:
+        for fmt in ("2", "3"):
+            mp.setenv("MRI_SERVE_FORMAT", fmt)
+            assert tcli.main(["1", "1", str(root / "list.txt"), "--backend", "cpu",
+                              "--artifact", "--output-dir", str(root / f"v{fmt}")]) == 0
+    finally:
+        mp.undo()
+    return {fmt: root / f"v{fmt}" for fmt in ("2", "3")}, members
+
+
+@pytest.mark.native_san
+@pytest.mark.parametrize("fmt", ["2", "3"])
+def test_native_kernels_on_a_port_build(port_built, fmt, monkeypatch):
+    """Decode, AND and BM25 of the native kernels against the artifact's
+    Python decode, a set oracle and the numpy engine (float bits), on an
+    artifact the port built."""
+    outs, members = port_built
+    engines = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("MRI_SERVE_NATIVE", mode)
+        engines[mode] = Engine(artifact_path(outs[fmt]))
+    eng = engines["1"]
+    h, art = eng._native_handle(), eng.artifact
+    rng = np.random.default_rng(int(fmt))
+    for word, docs in members.items():
+        i = _lex(eng, word)
+        ids, tf = h.decode_postings(i, int(art.df[i]))
+        assert ids.tolist() == docs and np.array_equal(tf, art.decode_tf(i))
+        b0, b1 = int(art.term_block_off[i]), int(art.term_block_off[i + 1])
+        sel = np.arange(b0, b1, dtype=np.int64)
+        assert np.array_equal(h.decode_blocks(sel)[0], art.decode_blocks(sel)[0])
+        cand = np.unique(rng.integers(0, NDOCS + 40, size=200).astype(np.int32))
+        out, dec, skp = h.query_and(cand, i)
+        assert np.array_equal(out, np.intersect1d(cand, np.asarray(docs)))
+        assert dec + skp == b1 - b0
+    names = sorted(members)
+    for planner in MODES:
+        monkeypatch.setenv("MRI_SERVE_PLANNER", planner)
+        for _ in range(10):
+            q = [names[int(j)] for j in rng.integers(len(names), size=int(rng.integers(1, 4)))]
+            for k in KS:
+                got = [(d, np.float64(s).tobytes()) for d, s in
+                       eng.top_k_scored(eng.encode_batch(q), k)]
+                want = [(d, np.float64(s).tobytes()) for d, s in
+                        engines["0"].top_k_scored(engines["0"].encode_batch(q), k)]
+                assert got == want, (planner, q, k)
+    assert eng.describe()["native"]["ops"] > 0 and eng.describe()["native"]["fallbacks"] == 0
+    for e in engines.values():
+        e.close()

@@ -72,6 +72,21 @@ def test_steal_order_shuffle_never_changes_output(seed, tmp_path):
     assert read_letter_files(tmp_path / "port") == read_letter_files(tmp_path / "jax") == want
 
 
+@pytest.mark.native_san
+@pytest.mark.parametrize("mappers,reducers", [(1, 1), (2, 3), (4, 26)])
+def test_port_host_matrix_matches_oracle(tmp_path, golden, mappers, reducers, monkeypatch):
+    """The port's half of the (K, M) matrix alone: scan workers on the
+    steal queue, the native merge and the letter reducers."""
+    tm, _, want = golden
+    monkeypatch.setenv("MRI_CPU_WINDOW_BYTES", "512")
+    r = tpkg.build_index(tm, tpkg.IndexConfig(backend="cpu", num_mappers=mappers,
+                                              num_reducers=reducers, io_prefetch=2),
+                         output_dir=str(tmp_path / "port"))
+    assert "cpu_fallback" not in r
+    assert read_letter_files(tmp_path / "port") == want
+
+
+@pytest.mark.native_san
 def test_host_threads_flag_drives_workers(tmp_path):
     tm, _, _ = corpus_pair(tmp_path, num_docs=11, seed=1)
     r = tpkg.build_index(tm, tpkg.IndexConfig(backend="cpu", num_mappers=1, host_threads=3),
@@ -121,6 +136,33 @@ def test_host_merge_matches_single_stream_and_jax(order, tmp_path):
         assert mstats[key] == stats[key] == outs["jax"][1][key]
 
 
+@pytest.mark.native_san
+@pytest.mark.parametrize("order", ["plan", "reversed"])
+def test_host_merge_matches_single_stream(order, tmp_path):
+    """The port's half of the merge test alone: three streams, one of
+    them fed out of plan order, merged and emitted over five letter
+    ranges, equal one stream's finalize."""
+    tm, _, _ = corpus_pair(tmp_path, num_docs=31, vocab_size=400, tokens_per_doc=50, seed=4)
+    contents, ids = tman.load_documents(tm)
+    with native.HostIndexStream() as single:
+        single.feed(contents, ids)
+        stats = single.finalize_emit(tmp_path / "single")
+    idx = list(range(len(ids)))[::-1 if order == "reversed" else 1]
+    streams = _split_feed(native, contents, ids, idx, 3)
+    try:
+        with native.HostIndexMerge(streams) as merge:
+            total = sum(merge.emit_range(lo, hi, tmp_path / "port")
+                        for lo, hi in plan_letter_ranges(5))
+            assert merge.audit() == (0, -1)
+            assert merge.stats()["unique_pairs"] == stats["unique_pairs"]
+    finally:
+        for s in streams:
+            s.close()
+    assert total == stats["bytes_written"]
+    assert read_letter_files(tmp_path / "port") == read_letter_files(tmp_path / "single")
+
+
+@pytest.mark.native_san
 def test_handles_free_exactly_once():
     """close, the context manager and __del__ each free a handle once."""
     s = native.HostIndexStream()
@@ -171,6 +213,7 @@ def test_multi_worker_degraded_run_reports_all_skips(tmp_path):
     assert read_letter_files(tmp_path / "port") == read_letter_files(tmp_path / "jax")
 
 
+@pytest.mark.native_san
 def test_reducers_over_26_in_memory_path_warns(tmp_path, caplog):
     """The in-memory letter reduce keeps the reference's degenerate
     M > 26 ranges, and says so."""

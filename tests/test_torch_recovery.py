@@ -66,6 +66,7 @@ def _jax():
 # -- worker death -------------------------------------------------------------
 
 
+@pytest.mark.native_san
 @pytest.mark.parametrize("mappers", [2, 4])
 @pytest.mark.parametrize("reducers", [1, 3, 26])
 @pytest.mark.parametrize("position", ["early", "middle", "last"])
@@ -136,6 +137,7 @@ def test_budget_exhausted_is_cli_exit_3_as_jax(corpus, tmp_path, monkeypatch, ca
     assert lines[0] == lines[1] and len(lines[0]) == 1
 
 
+@pytest.mark.native_san
 def test_lease_deadline_watchdog_never_hangs(corpus, tmp_path, monkeypatch):
     """A worker wedged in a slow read past MRI_WINDOW_DEADLINE_S is
     retired in absentia: the run ends quickly with the oracle's bytes."""
@@ -151,6 +153,7 @@ def test_lease_deadline_watchdog_never_hangs(corpus, tmp_path, monkeypatch):
 # -- reducer takeover --------------------------------------------------------
 
 
+@pytest.mark.native_san
 @pytest.mark.parametrize("reducers,dead", [(1, 0), (3, 0), (3, 1), (3, 2), (26, 0),
                                            (26, 12), (26, 25)])
 def test_reducer_death_range_reemitted(reducers, dead, corpus, tmp_path):
@@ -161,6 +164,7 @@ def test_reducer_death_range_reemitted(reducers, dead, corpus, tmp_path):
     assert read_letter_files(tmp_path / "out") == golden
 
 
+@pytest.mark.native_san
 def test_worker_and_reducer_death_same_run(corpus, tmp_path):
     tm, _, _, golden = corpus
     d = _build(tm, tmp_path / "out", 4, 3,
@@ -222,6 +226,7 @@ def test_check_spill_equals_jax():
         assert msgs[0] == msgs[1]
 
 
+@pytest.mark.native_san
 @pytest.mark.parametrize("spec", [None, "worker-death:window=2"])
 def test_audit_passes_on_clean_and_recovered_runs(spec, corpus, tmp_path):
     tm, _, _, golden = corpus

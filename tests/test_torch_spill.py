@@ -204,6 +204,7 @@ def _write_run(path, terms, df, postings, tf):
     return spill_mod.SpillFile(path)
 
 
+@pytest.mark.native_san
 def test_merge_shard_kway_disjoint_runs(tmp_path):
     r1 = _write_run(tmp_path / "r1.bin", [b"ab", b"cd"], [2, 1], [1, 3, 2], [1, 1, 4])
     r2 = _write_run(tmp_path / "r2.bin", [b"ab", b"bb"], [1, 1], [2, 5], [7, 1])
@@ -222,6 +223,7 @@ def test_merge_shard_kway_disjoint_runs(tmp_path):
         np.testing.assert_array_equal(merged[key], want[key])
 
 
+@pytest.mark.native_san
 def test_merge_shard_duplicate_pair_raises(tmp_path):
     r1 = _write_run(tmp_path / "r1.bin", [b"ab"], [1], [7], [1])
     r2 = _write_run(tmp_path / "r2.bin", [b"ab"], [1], [7], [2])
@@ -252,6 +254,23 @@ def test_spill_matrix_byte_identical(shards, budget, golden, tmp_path):
         assert ts["build_shards"] == js["build_shards"]
     else:
         assert sp["runs"] == js["spill"]["runs"] == 0
+    assert _no_spill_dirs(tmp_path / "port")
+
+
+@pytest.mark.native_san
+@pytest.mark.parametrize("mappers,reducers,shards", [(3, 4, 1), (3, 4, 8), (2, 64, 64)])
+def test_port_spill_builds_match_the_oracle(mappers, reducers, shards, golden, tmp_path,
+                                            monkeypatch):
+    """The port's spill route alone: several run flushes a worker, the
+    k-way shard merge, audited."""
+    tm, _, _, want = golden
+    for k, v in _env(TINY, shards).items():
+        monkeypatch.setenv(k, v)
+    ts = tpkg.build_index(tm, tpkg.IndexConfig(backend="cpu", num_mappers=mappers,
+                                               num_reducers=reducers, audit=True),
+                          output_dir=str(tmp_path / "port"))
+    assert read_letter_files(tmp_path / "port") == want
+    assert ts["spill"]["runs"] > 0 and ts["reduce_workers"] == reducers
     assert _no_spill_dirs(tmp_path / "port")
 
 
@@ -329,6 +348,7 @@ def _armed(spec, tm, out, **cfg):
                 os.environ[k] = v
 
 
+@pytest.mark.native_san
 def test_spill_corrupt_quarantines_and_reports(golden, tmp_path):
     tm = golden[0]
     r = _armed("spill-corrupt:spill=1", tm, tmp_path / "out")
@@ -338,6 +358,7 @@ def test_spill_corrupt_quarantines_and_reports(golden, tmp_path):
     assert _no_spill_dirs(tmp_path / "out")
 
 
+@pytest.mark.native_san
 def test_merge_crash_takeover_byte_identical(golden, tmp_path):
     tm, _, _, want = golden
     r = _armed("merge-crash", tm, tmp_path / "out")
