@@ -238,9 +238,10 @@ Phases, each failing loudly (exit 1, no result line):
    process 1 owners [2, 3]; P1, P2 and P4's shared letter files, and
    P3's owner blocks written as letter files, each give Path C's md5.
    Per process: wall ms, peak device memory, device-busy ms (its own
-   torch.profiler trace), its start-up and the bytes it sent through
-   ``all_to_all_single``; the card's busy share (the processes'
-   device-busy ms over the leg's wall).
+   torch.profiler trace), its start-up, the bytes it sent through
+   ``all_to_all_single`` and its kernel launches (its counts set to 0
+   just before the leg and read just after); the card's busy share (the
+   processes' device-busy ms over the leg's wall).
 18. Path Q — the sanitized native builds (``MRI_NATIVE_SANITIZE`` asan
    and ubsan, built by ``g++`` in the background from the start, beside
    the kernels' build) on this machine's host: per variant a child
@@ -252,9 +253,8 @@ Phases, each failing loudly (exit 1, no result line):
    batches 1-8192, AND/OR of 2, 3 and 5 words, BM25 top-10 per planner,
    top_k of three letters), every answer equal to the production
    library's in this process.  Any sanitizer report fails; each
-   variant's build and run seconds are printed.  The children run
-   beside item 20's device programs (they use no card; item 20's
-   host-clock numbers share the host with them).
+   variant's build and run seconds, and its kernel launches (counts set
+   to 0 in the child before its build), are printed.
 19. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, exact equality, at the shapes Paths A, B, E and F's overflow
    leg gave it in this run, ragged sizes, all-padding and dense runs; then CUDA-event times of the kernel, the
@@ -293,7 +293,7 @@ or ``build_index`` in this process (Path L: ``ServeDaemon`` and the
 children; Path P: ``InvertedIndexModel`` and ``DistDeviceStreamEngine``
 in each process of a group; Path Q: the CLI and the host ``Engine`` in
 sanitized children), with the kernels' launch counts set
-to 0 just before and read just after each; a kernel's ``launches`` in
+to 0 just before and read just after each (for P and Q in each child); a kernel's ``launches`` in
 the ``kernels`` line is their sum, ``launches_by_path`` the parts.  The
 last lines are the card,
 one ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device":
@@ -3598,11 +3598,28 @@ def stop_all(procs) -> None:
             proc.wait()
 
 
+def launch_counts(K) -> dict:
+    """This process's launches of each kernel of ``csrc/`` since the last
+    ``K.reset_launch_counts()``."""
+    return {"unique_mask_count": K.unique_mask_count.launches,
+            "bucket_histogram": K.bucket_histogram.launches}
+
+
+def add_launches(counts) -> dict:
+    """The sum of several :func:`launch_counts`."""
+    total = {"unique_mask_count": 0, "bucket_histogram": 0}
+    for c in counts:
+        for name in total:
+            total[name] += c[name]
+    return total
+
+
 def p_child(argv: list[str]) -> int:
     """One process of a Path P group: join it, then run each leg in turn
     (all processes start a leg together, after a barrier) under
     torch.profiler (device activity only); each leg's trace and result
-    JSON go under ``<root>/<leg>/``."""
+    JSON (with this process's kernel launches in the leg) go under
+    ``<root>/<leg>/``."""
     pid, world, coord, legs, list_b, root, gate = argv
     t_entry = time.time()
     import numpy as np
@@ -3611,6 +3628,8 @@ def p_child(argv: list[str]) -> int:
 
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
         IndexConfig, InvertedIndexModel, read_manifest)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        kernels as K)
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
         distributed)
 
@@ -3631,6 +3650,7 @@ def p_child(argv: list[str]) -> int:
         profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         profiler.start()
         dist.barrier()
+        K.reset_launch_counts()
         t_start = time.time()
         if leg == "P3":
             report = p3_stream(np, manifest, out_dir / "out")
@@ -3641,6 +3661,7 @@ def p_child(argv: list[str]) -> int:
             report = InvertedIndexModel(IndexConfig(**cfg)).run(manifest)
         torch.cuda.synchronize()
         t_end = time.time()
+        launches = launch_counts(K)
         profiler.stop()
         profiler.export_chrome_trace(str(out_dir / f"trace{pid}.json"))
         keep = ("phases_ms", "total_ms", "letter_owners", "lines_written", "unique_pairs",
@@ -3650,7 +3671,7 @@ def p_child(argv: list[str]) -> int:
         (out_dir / f"result{pid}.json").write_text(json.dumps({
             "info": info, "setup": setup, "t_start": t_start, "t_end": t_end,
             "wall_ms": (t_end - t_start) * 1e3,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
             "report": {k: report[k] for k in keep if k in report}}))
     return 0
 
@@ -3696,7 +3717,8 @@ def p3_stream(np, manifest, out_dir: Path) -> dict:
                  df=ow["df"], postings=ow["postings"])
     return {"owners": sorted(owners), "stream_windows": eng.windows_fed,
             "merge_retries": eng.merge_retries, "accumulator_capacity_per_owner": eng.capacity,
-            "unique_pairs": sum(ow["num_pairs"] for ow in owners.values()), **stats}
+            "unique_pairs": sum(ow["num_pairs"] for ow in owners.values()),
+            "dist_sent_bytes": mesh.sent_bytes, **stats}
 
 
 def p3_letters(np, formatter, blocks_dir: Path, out_dir: Path, max_doc_id: int) -> None:
@@ -3761,10 +3783,11 @@ def p_check_leg(torch, np, formatter, leg: str, world: int, leg_dir: Path, md5_c
                 card: str, t_popen: float) -> dict:
     """A Path P leg's checks (each process's runtime info and owners, the
     backend by the rule, the md5 against Path C's, bytes sent) and its
-    line: per process its wall, peak device memory, device-busy ms and
-    bytes sent; the card's busy share, the processes' device-busy ms
-    summed over the leg's wall (without MPS the card runs one process's
-    context at a time)."""
+    line: per process its wall, peak device memory, device-busy ms,
+    bytes sent and kernel launches; the card's busy share, the processes'
+    device-busy ms summed over the leg's wall (without MPS the card runs
+    one process's context at a time).  Returns the leg's md5, wall, lines
+    and its processes' launches summed."""
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
         distributed)
 
@@ -3799,6 +3822,7 @@ def p_check_leg(torch, np, formatter, leg: str, world: int, leg_dir: Path, md5_c
                    "max_memory_allocated": r["max_memory_allocated"],
                    "device_busy_ms": r["device_busy_ms"],
                    "all_to_all_single_bytes_sent": r["report"].get("dist_sent_bytes", 0),
+                   "launches": r["launches"],
                    # the process's start: interpreter to the leg's barrier
                    # (P4's includes its wait for the first group)
                    "setup": {k: round(v, 3) for k, v in r["setup"].items()},
@@ -3807,20 +3831,20 @@ def p_check_leg(torch, np, formatter, leg: str, world: int, leg_dir: Path, md5_c
     print(f"phase path_{leg.lower()}: card={card} backend={want_backend} world={world} "
           f"md5={md5} leg_wall_ms={wall_ms:.3f} card_busy_share={share} "
           f"processes={json.dumps(procs_line)}", flush=True)
-    return {"md5": md5, "wall_ms": wall_ms, "processes": procs_line}
+    return {"md5": md5, "wall_ms": wall_ms, "processes": procs_line,
+            "launches": add_launches(r["launches"] for r in results)}
 
 
-def path_p(torch, K, formatter, list_b: Path, tmp: Path, md5_c: str, card: str) -> dict:
+def path_p(torch, formatter, list_b: Path, tmp: Path, md5_c: str, card: str) -> dict:
     """Path P — the multi-process mesh on Path B's corpus: P1 the
     all-device plan with letter ownership, P2 the pipelined plan with
     letter ownership, P3 ``DistDeviceStreamEngine`` over Path F's windows,
     in turn in one group of two processes (gloo: they share the card)
     with 2 local shards each; P4 P1's build in a one-process group (NCCL,
-    4 local shards).  No kernel of ``csrc/`` is launched in this
-    process."""
+    4 local shards).  Returns the children's kernel launches in their
+    legs, summed (the path launches no kernel of ``csrc/``)."""
     import numpy as np
 
-    K.reset_launch_counts()
     t0 = time.perf_counter()
     root = tmp / "P"
     gloo = p_start(("P1", "P2", "P3"), 2, list_b, root)
@@ -3832,10 +3856,10 @@ def path_p(torch, K, formatter, list_b: Path, tmp: Path, md5_c: str, card: str) 
         legs.update(p_finish(torch, np, formatter, nccl, root, md5_c, card))
     finally:  # a failed group leaves no process behind
         stop_all(gloo["procs"] + nccl["procs"])
-    launches = {"unique_mask_count": K.unique_mask_count.launches,
-                "bucket_histogram": K.bucket_histogram.launches}
+    launches = add_launches(leg["launches"] for leg in legs.values())
     print(f"phase path_p_done: card={card} seconds={time.perf_counter() - t0:.1f} "
-          f"legs={list(legs)} launches_in_this_process={launches}", flush=True)
+          f"legs={list(legs)} launches={launches}", flush=True)
+    check(not any(launches.values()), f"path P launched a kernel of csrc/: {launches}")
     return launches
 
 
@@ -3941,10 +3965,13 @@ def q_answers(artifact: Path, mix: dict) -> dict:
 def q_child(argv: list[str]) -> int:
     """One Path Q variant in this (sanitized) process: load the variant's
     library, Path M1's host build on Path A's corpus, the host engine
-    over the query mix; one JSON line."""
+    over the query mix; one JSON line, with this process's kernel
+    launches in the two."""
     variant, list_a, out_dir, artifact, mix_path = argv
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch import (
         cli, native)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        kernels as K)
     from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.text import (
         formatter)
 
@@ -3954,6 +3981,7 @@ def q_child(argv: list[str]) -> int:
     check(native._SO_NAME_RE[variant].match(so.name) is not None,
           f"path Q {variant}: loaded {so.name}")
     load_s = time.perf_counter() - t
+    K.reset_launch_counts()
     t = time.perf_counter()
     rc, stats = run_cli(cli, ["1", "1", list_a, "--host-threads", "1", "--backend", "cpu",
                               "--stats", "--output-dir", out_dir])
@@ -3966,24 +3994,22 @@ def q_child(argv: list[str]) -> int:
     answers = q_answers(Path(artifact), mix)
     print(json.dumps({"library": so.name, "load_s": load_s, "m1_s": build_s,
                       "m1_total_ms": stats["total_ms"], "engine_s": time.perf_counter() - t,
-                      "md5": formatter.letters_md5(out_dir), "answers": answers}), flush=True)
+                      "md5": formatter.letters_md5(out_dir), "answers": answers,
+                      "launches": launch_counts(K)}), flush=True)
     return 0
 
 
-def path_q(K, list_a: Path, md5_a: str, artifact: Path, tmp: Path, card: str,
-           builds: dict, during=None) -> tuple:
+def path_q(list_a: Path, md5_a: str, artifact: Path, tmp: Path, card: str,
+           builds: dict) -> dict:
     """Path Q — the sanitized native builds on this machine's host: per
     variant (asan, ubsan) a child loads the build started by
     :func:`start_sanitized_builds`, runs Path M1's ``--backend cpu`` build
     on Path A's corpus (md5 equal to Path A's) and the host ``Engine``
     over Path I's query mix on ``artifact`` (every answer equal to this
-    process's production library's); any sanitizer report fails.  The
-    children use no card, so ``during()`` (if given) runs on the card in
-    this process meanwhile.  Returns this process's launches for Q (none:
-    the children are other processes) and what ``during()`` returned."""
+    process's production library's); any sanitizer report fails.  Returns
+    the children's kernel launches, summed (they see no card)."""
     import numpy as np
 
-    K.reset_launch_counts()
     t0 = time.perf_counter()
     build_s = {}
     for variant, proc in builds.items():
@@ -4010,12 +4036,8 @@ def path_q(K, list_a: Path, md5_a: str, artifact: Path, tmp: Path, card: str,
                  str(tmp / "Q_mix.json")],
                 cwd=str(ROOT), env=q_env(variant), stdout=f, stderr=subprocess.STDOUT), log,
                 time.perf_counter())
-    launches = {"unique_mask_count": K.unique_mask_count.launches,
-                "bucket_histogram": K.bucket_histogram.launches}
-    check(not any(launches.values()), f"path Q launched a kernel of csrc/: {launches}")
     out = {}
     try:
-        during_out = during() if during is not None else None
         for variant, (proc, log, t1) in procs.items():
             wait_child(proc, log, f"path Q {variant}", timeout=Q_CHILD_TIMEOUT_S)
             run_s = time.perf_counter() - t1
@@ -4031,13 +4053,15 @@ def path_q(K, list_a: Path, md5_a: str, artifact: Path, tmp: Path, card: str,
             out[variant] = {"library": got["library"], "build_s": round(build_s[variant], 3),
                             "run_s": round(run_s, 3), "load_s": round(got["load_s"], 3),
                             "m1_s": round(got["m1_s"], 3), "m1_total_ms": got["m1_total_ms"],
-                            "engine_s": round(got["engine_s"], 3), "answers": len(want)}
+                            "engine_s": round(got["engine_s"], 3), "answers": len(want),
+                            "launches": got["launches"]}
     finally:
         stop_all(proc for proc, _, _ in procs.values())
+    launches = add_launches(v["launches"] for v in out.values())
     print(f"phase path_q: card={card} host={host_cpu()} md5={md5_a} "
-          f"variants={json.dumps(out)} seconds={time.perf_counter() - t0:.1f} "
-          f"beside={'the engine programs' if during is not None else 'nothing'}", flush=True)
-    return launches, during_out
+          f"variants={json.dumps(out)} seconds={time.perf_counter() - t0:.1f}", flush=True)
+    check(not any(launches.values()), f"path Q launched a kernel of csrc/: {launches}")
+    return launches
 
 
 def multiprocess_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str,
@@ -4053,7 +4077,7 @@ def multiprocess_only_run(torch, K, cli, formatter, synthetic, manifest_mod, car
             tmp / "C_out", "path C")
         check_pipelined(stats_c, "path C")
         print_path("path_c", stats_c, launches_c, card=repr(card))
-        path_p(torch, K, formatter, list_b, tmp, stats_c["md5"], card)
+        path_p(torch, formatter, list_b, tmp, stats_c["md5"], card)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -4078,7 +4102,7 @@ def sanitize_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: s
             torch, K, formatter, cli_run(cli, "path H", list_b, tmp / "H_out", ["--artifact"]),
             tmp / "H_out", "path H")
         print_path("path_h", stats_h, launches_h, card=repr(card))
-        path_q(K, list_a, formatter.letters_md5(tmp / "A_oracle"), tmp / "H_out" / "index.mri",
+        path_q(list_a, formatter.letters_md5(tmp / "A_oracle"), tmp / "H_out" / "index.mri",
                tmp, card, sanitized)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4550,20 +4574,18 @@ def main() -> int:
                                            IndexConfig, oracle_index, formatter, list_b, tmp,
                                            card)
 
+            # Paths D, E and F's device programs alone, while their files exist
+            eng_plans = engine_device_plans(torch, manifest_b, stats_d, 5000)
+            eng_plans.update(engine_device_stream(torch, manifest_b, stats_f, 2500,
+                                                  cfg_f.pad_multiple))
+
             # -- Path P: the multi-process mesh on Path B's corpus ----------------
-            launches_by_path["P"] = path_p(torch, K, formatter, list_b, tmp, stats_c["md5"],
+            launches_by_path["P"] = path_p(torch, formatter, list_b, tmp, stats_c["md5"],
                                            card)
 
-            # -- Path Q: the sanitized native builds on the host, beside Paths
-            # D, E and F's device programs alone (while their files exist)
-            def device_programs():
-                plans = engine_device_plans(torch, manifest_b, stats_d, 5000)
-                plans.update(engine_device_stream(torch, manifest_b, stats_f, 2500,
-                                                  cfg_f.pad_multiple))
-                return plans
-
-            launches_by_path["Q"], eng_plans = path_q(K, list_a, md5_oracle, h_paths[3], tmp,
-                                                      card, sanitized, during=device_programs)
+            # -- Path Q: the sanitized native builds on the host ------------------
+            launches_by_path["Q"] = path_q(list_a, md5_oracle, h_paths[3], tmp, card,
+                                           sanitized)
 
         # -- kernels against their plain versions, at this run's shapes ----
         # (padded n, valid n, vocab, docs): Path A's numpy leg keeps every

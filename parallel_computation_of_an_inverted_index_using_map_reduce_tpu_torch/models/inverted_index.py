@@ -157,6 +157,7 @@ class InvertedIndexModel:
     def __init__(self, config: IndexConfig | None = None):
         self.config = config or IndexConfig()
         self.timer = PhaseTimer()
+        self._meshes: list = []  # the run's meshes (_make_mesh)
 
     def _new_timer(self) -> PhaseTimer:
         self.timer = timer = PhaseTimer()
@@ -179,6 +180,7 @@ class InvertedIndexModel:
             trace = chrometrace.TraceEvents()
             trace.name_thread(chrometrace.MAIN, "main")
         self._trace = trace
+        self._meshes = []
         timer = self._new_timer()
         out_dir = output_dir if output_dir is not None else cfg.output_dir
         if cfg.backend == "oracle":
@@ -193,6 +195,9 @@ class InvertedIndexModel:
         if trace is not None:
             trace.write(cfg.trace_out)
             stats["trace_out"] = cfg.trace_out
+        sent = [m.sent_bytes for m in self._meshes if m.backend is not None]
+        if sent:  # in a process group: what this process sent the others
+            stats["dist_sent_bytes"] = sum(sent)
         if cfg.audit:
             # the output manifest after the emit, so --verify can re-check
             # the directory later; its time is the audit's whole cost
@@ -312,6 +317,13 @@ class InvertedIndexModel:
                 report.clear()  # the one-shot plan rereads and records anew
         return self._run_one_shot(manifest, out_dir, timer, report, device)
 
+    def _make_mesh(self, num_shards: int):
+        """A plan's mesh on ``config.device``, kept for the run's
+        ``dist_sent_bytes``."""
+        mesh = make_mesh(num_shards, self.config.device)
+        self._meshes.append(mesh)
+        return mesh
+
     def _num_shards(self) -> int:
         """Logical shards of this run: ``device_shards``, else one per
         visible card of ``config.device`` (1 on the CPU)."""
@@ -361,7 +373,7 @@ class InvertedIndexModel:
         max_doc_id = len(manifest)
         stride = max_doc_id + 2
         num_shards = self._num_shards()
-        mesh = make_mesh(num_shards, cfg.device) if num_shards > 1 else None
+        mesh = self._make_mesh(num_shards) if num_shards > 1 else None
         if mesh is not None and cfg.emit_ownership != "letter":
             dist_engine.require_all_local(mesh, "merged")
         if cfg.pipeline_chunk_docs:
@@ -1023,7 +1035,7 @@ class InvertedIndexModel:
         so memory per shard is O(unique pairs / n)."""
         cfg = self.config
         num_shards = self._num_shards()
-        mesh = make_mesh(num_shards, cfg.device)
+        mesh = self._make_mesh(num_shards)
         dist_engine.require_all_local(mesh, "merged")
         max_doc_id = len(manifest)
         stride = max_doc_id + 2
@@ -1097,7 +1109,7 @@ class InvertedIndexModel:
         cfg = self.config
         width = cfg.device_tokenize_width
         n = self._num_shards()
-        mesh = make_mesh(n, cfg.device)
+        mesh = self._make_mesh(n)
         letter_mode = cfg.emit_ownership == "letter"
         if not letter_mode:
             dist_engine.require_all_local(mesh, "merged")
@@ -1244,7 +1256,7 @@ class InvertedIndexModel:
         cfg = self.config
         width = cfg.device_tokenize_width
         n = self._num_shards()
-        mesh = make_mesh(n, cfg.device)
+        mesh = self._make_mesh(n)
         dist_engine.require_all_local(mesh, "merged")
         max_doc_id = len(manifest)
         timer.count("device_tokenize_width", width)
@@ -2391,7 +2403,7 @@ class InvertedIndexModel:
         mesh = None
         if use_dist:
             padded = _round_up(padded, num_shards)
-            mesh = make_mesh(num_shards, cfg.device)
+            mesh = self._make_mesh(num_shards)
         timer.count("device_shards", num_shards if use_dist else 1)
         timer.count("engine", "u16_prededuped" if prededuped else "u16" if use_u16
                     else "dist" if use_dist else "packed" if packed else "pairs")

@@ -191,6 +191,4 @@ class DistDeviceStreamEngine:
         if stats is not None:
             stats["merge_retries"] = self.merge_retries
             stats["accumulator_capacity_per_owner"] = self._cap
-            if self._mesh.backend is not None:
-                stats["dist_sent_bytes"] = self._mesh.sent_bytes[0]
         return owners

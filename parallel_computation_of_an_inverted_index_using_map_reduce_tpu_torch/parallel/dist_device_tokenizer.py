@@ -185,8 +185,6 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
     if stats is not None:
         stats["exchange_retries"] = retries
         stats["exchange_capacity"] = capacity
-        if mesh.backend is not None:
-            stats["dist_sent_bytes"] = mesh.sent_bytes[0]
     return owners, (max_len, retries)
 
 

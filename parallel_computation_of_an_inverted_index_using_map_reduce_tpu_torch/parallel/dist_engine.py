@@ -243,8 +243,6 @@ def _exchange_and_fetch_rows(windows, *, stride: int, mesh: Mesh, capacity_facto
     if stats is not None:
         stats["dist_fetched_bytes"] = fetched + 4 * len(rows)
         stats["dist_valid_pairs"] = int(sum(counts[o] for o in rows))
-        if mesh.backend is not None:
-            stats["dist_sent_bytes"] = mesh.sent_bytes[0]
     return rows
 
 

@@ -223,7 +223,5 @@ class DistStreamingIndexEngine:
                 rows[o] = (t[valid], d[valid])
         if stats is not None:
             stats["dist_fetched_bytes"] = fetched
-            if self._mesh.backend is not None:
-                stats["dist_sent_bytes"] = self._mesh.sent_bytes[0]
         self._acc = self._acc_pair = None
         return mode, rows

@@ -12,7 +12,9 @@ The group's backend is decided once, at :func:`initialize`, by
 :func:`choose_backend` from the processes on this host and the cards
 it has: NCCL when each process has a card of its own, gloo when
 processes share a card (NCCL refuses two ranks on one device) or when
-there is no card.
+there is no card.  An NCCL group carries host tensors (a mesh on the
+CPU, a host-side agreement) through gloo beside it: each collective
+goes by its tensor's device (:func:`group_backend`).
 """
 
 from __future__ import annotations
@@ -44,6 +46,13 @@ def choose_backend(processes_on_host: int, cards: int) -> str:
     return "nccl" if cards >= processes_on_host >= 1 else "gloo"
 
 
+def group_backend(backend: str) -> str:
+    """The backend string a group of :func:`choose_backend`'s ``backend``
+    is created with: NCCL for card tensors and gloo for host tensors, or
+    gloo for both."""
+    return "cpu:gloo,cuda:nccl" if backend == "nccl" else "gloo"
+
+
 def _address(coordinator_address: str | None) -> tuple[str, int]:
     if coordinator_address is None:
         return os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"])
@@ -65,8 +74,8 @@ def initialize(coordinator_address: str | None = None,
     ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``
     environment is read.  The processes first publish their host names
     through the store, which gives each its rank on the host, and the
-    backend follows :func:`choose_backend`.  A group that fails to form
-    raises."""
+    backend follows :func:`choose_backend` (:func:`group_backend`).  A
+    group that fails to form raises."""
     import torch.distributed as dist
 
     global _topology
@@ -87,7 +96,8 @@ def initialize(coordinator_address: str | None = None,
         card = card_block(topo.local_rank, topo.local_count, cards)[0]
         torch.cuda.set_device(card)
         kwargs["device_id"] = torch.device("cuda", card)
-    dist.init_process_group(topo.backend, store=store, world_size=world, rank=rank, **kwargs)
+    dist.init_process_group(group_backend(topo.backend), store=store, world_size=world,
+                            rank=rank, **kwargs)
     _topology = topo
 
 

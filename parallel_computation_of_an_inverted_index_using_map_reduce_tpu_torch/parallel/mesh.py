@@ -44,7 +44,7 @@ from . import distributed
 SHARD_AXIS = "shards"
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
+@dataclasses.dataclass(eq=False)
 class Mesh:
     """A 1-D mesh of ``size`` positions: ``devices`` holds this
     process's positions' devices, in position order from ``first``.
@@ -56,11 +56,11 @@ class Mesh:
     size: int | None = None
     first: int = 0
     backend: str | None = None
-    sent_bytes: list = dataclasses.field(default_factory=lambda: [0])
+    sent_bytes: int = 0
 
     def __post_init__(self):
         if self.size is None:
-            object.__setattr__(self, "size", len(self.devices))
+            self.size = len(self.devices)
 
     @property
     def local_positions(self) -> range:
@@ -203,7 +203,7 @@ def all_to_all(sends: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
         recv = torch.empty(send.shape, dtype=torch.uint8, device=send.device,
                            pin_memory=send.device.type == "cpu" and torch.cuda.is_available())
         dist.all_to_all_single(recv, send, splits, splits)
-        mesh.sent_bytes[0] += send.numel()
+        mesh.sent_bytes += send.numel()
         at = 0
         for q in range(procs):
             if q != me:

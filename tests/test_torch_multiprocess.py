@@ -222,6 +222,7 @@ DEVTOK_LETTER_WORKER = PRELUDE + textwrap.dedent(f"""
         output_dir=out_dir)).run(m)
     print(f"proc {{pid}} letter_owners={{report['letter_owners']}} "
           f"lines={{report['lines_written']}}", flush=True)
+    print(f"proc {{pid}} dist_sent_bytes={{report['dist_sent_bytes']}}", flush=True)
 """)
 
 DEVSTREAM_WORKER = PRELUDE + textwrap.dedent(f"""
@@ -340,6 +341,47 @@ def test_no_group_mesh_is_unchanged():
     assert tdistributed.topology() is None
 
 
+@pytest.mark.parametrize("backend,want", [("nccl", "cpu:gloo,cuda:nccl"), ("gloo", "gloo")])
+def test_group_backend(backend, want):
+    assert tdistributed.group_backend(backend) == want
+
+
+def test_nccl_group_runs_a_host_mesh_through_gloo(monkeypatch):
+    """A group whose rule picks NCCL (one process, one card) is created
+    with gloo beside NCCL, so a mesh on the CPU in that group runs its
+    collectives.  The card is faked and only the group's host half is
+    created (this torch has no NCCL)."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda card: None)
+    monkeypatch.setattr(tdistributed, "_topology", None)
+    made = {}
+    real_init = dist.init_process_group
+
+    def init(backend, **kwargs):
+        made.update(backend=backend, device_id=kwargs.pop("device_id", None))
+        real_init(",".join(b for b in backend.split(",") if b.startswith("cpu:")), **kwargs)
+
+    monkeypatch.setattr(dist, "init_process_group", init)
+    tdistributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        assert made == {"backend": "cpu:gloo,cuda:nccl", "device_id": torch.device("cuda", 0)}
+        assert tdistributed.runtime_info()["backend"] == "nccl"
+        mesh = M.make_mesh(2, "cpu")
+        assert mesh.backend == "nccl" and mesh.all_local
+        rng = np.random.default_rng(23)
+        host = [rng.integers(-50, 50, (3, 5)) for _ in range(2)]
+        parts = [torch.from_numpy(h) for h in host]
+        np.testing.assert_array_equal(M.psum(parts, mesh).numpy(), host[0] + host[1])
+        np.testing.assert_array_equal(M.pmax(parts, mesh).numpy(), np.maximum(*host))
+        np.testing.assert_array_equal(M.gather_host(parts, mesh), np.stack(host))
+        assert M.agree_max([3, 9], mesh) == [3, 9]
+    finally:
+        dist.destroy_process_group()
+
+
 def test_global_assembly_refusal_is_the_jax_message(monkeypatch):
     _joined(monkeypatch, 0, 2, 0, 2, "gloo", 1)
     mesh = M.make_mesh(4, "cpu")
@@ -412,7 +454,8 @@ COLLECTIVES_WORKER = PRELUDE + textwrap.dedent(f"""
         except RuntimeError as e:
             refusals.append(str(e))
     print(json.dumps({{"owners": sorted(rows), "stats": stats, "refusals": refusals,
-                      "info": distributed.runtime_info()}}), flush=True)
+                      "sent_bytes": mesh.sent_bytes, "info": distributed.runtime_info()}}),
+          flush=True)
 """)
 
 
@@ -470,6 +513,7 @@ def _single_process():
                for src in sources for o in range(n))
     stats["most_in_a_bucket"] = most
     stats["capacity"] = tdist_engine.default_capacity(padded // n, n, 0.25)
+    stats["sent_bytes"] = mesh.sent_bytes
     return want, stats
 
 
@@ -497,8 +541,8 @@ def test_overflow_retry_finishes_in_both_processes(collectives):
             np.testing.assert_array_equal(proc[f"rows_{o}"], want[f"rows_{o}"])
     # the local counts of both processes add up to the one process's
     assert sum(r["stats"]["dist_valid_pairs"] for r in reports) == stats["dist_valid_pairs"]
-    assert all(r["stats"]["dist_sent_bytes"] > 0 for r in reports)
-    assert "dist_sent_bytes" not in stats  # no group: nothing crosses a process
+    assert all(r["sent_bytes"] > 0 for r in reports)
+    assert stats["sent_bytes"] == 0  # no group: nothing crosses a process
 
 
 def test_global_assemblies_refuse_in_two_processes(collectives):

@@ -52,6 +52,9 @@ def test_two_process_device_tokenize_letter_emit(tmp_path):
     for (jo, _), (to, _) in zip(jouts, touts):
         assert line.search(jo).groups() == line.search(to).groups()
     assert sum(int(line.search(to).group(3)) for to, _ in touts) > 0
+    # the run reports what each process sent the other
+    sent = re.compile(r"proc (\d) dist_sent_bytes=(\d+)")
+    assert [int(sent.search(to).group(2)) > 0 for to, _ in touts] == [True, True]
 
 
 def test_two_process_device_stream_accumulator(tmp_path):
