@@ -82,6 +82,8 @@ from .config import IndexConfig
 from .corpus.manifest import read_manifest
 from .faults import EXIT_DEGRADED
 from .models.inverted_index import DeviceUnavailable, build_index
+from .obs import chrometrace
+from .obs.timing import Step
 from .utils import envknobs
 from .utils.checkpoint import CheckpointCorrupt
 
@@ -199,7 +201,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-out", default=None, metavar="FILE",
                    help="write a Chrome trace_event JSON timeline of the "
                         "build here (load in chrome://tracing or "
-                        "ui.perfetto.dev)")
+                        "ui.perfetto.dev): the manifest, the build, its "
+                        "phases and steps, on the Unix clock")
     return p
 
 
@@ -1173,8 +1176,12 @@ def main(argv: list[str] | None = None) -> int:
         except faults.FaultSpecError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+    # one span collector per build (--trace-out): the manifest, the whole
+    # build, its phases and the plan's own spans, written after the build
+    trace = chrometrace.TraceEvents() if args.trace_out else None
     try:
-        manifest = read_manifest(args.file_list)
+        with Step("manifest", trace) as read:
+            manifest = read_manifest(args.file_list)
         config = IndexConfig(
             num_mappers=args.num_mappers,
             num_reducers=args.num_reducers,
@@ -1204,12 +1211,19 @@ def main(argv: list[str] | None = None) -> int:
             artifact=args.artifact,
             trace_out=args.trace_out,
         )
-        stats = build_index(manifest, config)
+        with Step("build", trace) as built:
+            stats = build_index(manifest, config, trace=trace)
+        if trace is not None:
+            trace.write(args.trace_out)
     except (AuditError, OSError, ValueError, DeviceUnavailable, CheckpointCorrupt) as e:
         # ValueError covers the knobs too: a bad MRI_READ_* value is a
         # one-line configuration error, not a reader-thread traceback
         print(f"error: {e}", file=sys.stderr)
         return 2
+    # the CLI's own times: build_ms - total_ms is the build's set-up and
+    # teardown outside every phase
+    stats["manifest_ms"] = round(read.ms, 3)
+    stats["build_ms"] = round(built.ms, 3)
     if args.stats:
         print(json.dumps(stats, sort_keys=True))
     skipped = stats["degradation"]["skipped_docs"]

@@ -65,6 +65,7 @@ phases with torch.profiler, ``trace_out`` writes a Chrome trace and
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import math
 import os
@@ -80,7 +81,7 @@ from ..corpus.manifest import (DegradationReport, Manifest, iter_document_chunks
 from ..corpus.scheduler import (owner_of_letter_table, plan_contiguous_ranges,
                                 plan_contiguous_windows, plan_fraction_windows,
                                 window_balance_stats)
-from ..obs import chrometrace
+from ..obs import chrometrace, timing
 from ..obs.timing import PhaseTimer
 from ..ops import device_tokenizer as DT
 from ..ops import engine
@@ -157,43 +158,45 @@ class InvertedIndexModel:
     def __init__(self, config: IndexConfig | None = None):
         self.config = config or IndexConfig()
         self.timer = PhaseTimer()
+        self._trace: chrometrace.TraceEvents | None = None  # the run's span collector
         self._meshes: list = []  # the run's meshes (_make_mesh)
 
     def _new_timer(self) -> PhaseTimer:
-        self.timer = timer = PhaseTimer()
+        self.timer = timer = PhaseTimer(self._trace)
+        timing.make_current(timer)
         timer.count("num_mappers", self.config.num_mappers)
         timer.count("num_reducers", self.config.num_reducers)
         return timer
 
-    def run(self, manifest: Manifest, output_dir: str | None = None) -> dict:
+    def run(self, manifest: Manifest, output_dir: str | None = None,
+            trace: chrometrace.TraceEvents | None = None) -> dict:
+        """Index ``manifest`` into ``output_dir`` (else ``config.output_dir``).
+
+        ``trace`` is a span collector the caller owns and writes (the
+        CLI's, which also holds its manifest and build spans); without
+        one, ``config.trace_out`` gives the run its own, written at its end."""
         cfg = self.config
         # one degradation report per run: every read records its retries
         # and skipped documents here, and the summary rides the stats
         # into the CLI (exit faults.EXIT_DEGRADED when documents were
         # skipped)
         report = faults.begin_run()
-        # Chrome trace export (--trace-out): written once, after the
-        # run; the host backend records per-stage spans into it, the
-        # device plans none (the JAX device plans' sparse trace)
-        trace = None
-        if cfg.trace_out:
+        # Chrome trace export (--trace-out): every phase is a span, and
+        # the plans record their own inside them
+        owned = trace is None and bool(cfg.trace_out)
+        if owned:
             trace = chrometrace.TraceEvents()
-            trace.name_thread(chrometrace.MAIN, "main")
         self._trace = trace
         self._meshes = []
-        timer = self._new_timer()
         out_dir = output_dir if output_dir is not None else cfg.output_dir
-        if cfg.backend == "oracle":
-            with timer.phase("oracle"):
-                stats = oracle_index(manifest, out_dir, report,
-                                     artifact_path=self._artifact_path(out_dir))
-            stats = {**stats, **timer.report()}
-        elif cfg.backend == "cpu":
-            stats = self._run_cpu(manifest, out_dir, timer, report)
-        else:
-            stats = self._run_device(manifest, out_dir, timer, report)
-        if trace is not None:
+        outer = timing.current()
+        try:
+            stats = self._run(manifest, out_dir, report)
+        finally:
+            timing.make_current(outer)
+        if owned:
             trace.write(cfg.trace_out)
+        if cfg.trace_out:
             stats["trace_out"] = cfg.trace_out
         sent = [m.sent_bytes for m in self._meshes if m.backend is not None]
         if sent:  # in a process group: what this process sent the others
@@ -211,6 +214,18 @@ class InvertedIndexModel:
         if report.degraded or report.worker_recoveries or report.reducer_takeovers:
             report.log_summary()
         return stats
+
+    def _run(self, manifest: Manifest, out_dir: str, report: DegradationReport) -> dict:
+        cfg = self.config
+        timer = self._new_timer()
+        if cfg.backend == "oracle":
+            with timer.phase("oracle"):
+                stats = oracle_index(manifest, out_dir, report,
+                                     artifact_path=self._artifact_path(out_dir))
+            return {**stats, **timer.report()}
+        if cfg.backend == "cpu":
+            return self._run_cpu(manifest, out_dir, timer, report)
+        return self._run_device(manifest, out_dir, timer, report)
 
     def _artifact_path(self, out_dir) -> str | None:
         """Where ``--artifact`` packs the serving index (None when off)."""
@@ -932,22 +947,35 @@ class InvertedIndexModel:
         ckpt_stretch = envknobs.get("MRI_TPU_CKPT_STRETCH")
         ckpt_consec_skips = 0
 
+        # per window: ms of its read, and of its pack and token scan
+        read_ms: list[float] = []
+        scan_ms: list[float] = []
+        windows = iter_document_chunks(manifest, cfg.stream_chunk_docs, report)
         with _profile_ctx(cfg.profile_dir, device), timer.phase("stream_feed"):
-            for win_i, (contents, ids) in enumerate(
-                    iter_document_chunks(manifest, cfg.stream_chunk_docs, report), start=1):
+            for win_i in itertools.count(1):
+                try:
+                    with timer.step("read") as read:
+                        contents, ids = next(windows)
+                except StopIteration:
+                    break
+                read_ms.append(round(read.ms, 3))
                 if win_i <= resume_from:
                     continue
                 total = sum(len(c) for c in contents)
                 # a fresh host array per window: no buffer the card may
                 # still read is ever refilled
-                buf, ends, idv = _pack_window(contents, ids,
-                                              _round_up(total, cfg.pad_multiple))
-                cnt, ml = DT.host_token_stats(buf, ends)
+                with timer.step("pack") as pack:
+                    buf, ends, idv = _pack_window(contents, ids,
+                                                  _round_up(total, cfg.pad_multiple))
+                with timer.step("scan") as scan:
+                    cnt, ml = DT.host_token_stats(buf, ends)
+                scan_ms.append(round(pack.ms + scan.ms, 3))
                 if ml > width:
                     raise DT.WidthOverflow(
                         f"cleaned token of {ml} letters exceeds "
                         f"device_tokenize_width={width}")
-                eng.feed(buf, ends, idv, tok_count=cnt, max_len=ml)
+                with timer.step("feed"):
+                    eng.feed(buf, ends, idv, tok_count=cnt, max_len=ml)
                 fed_tokens += cnt
                 # no checkpoint on the last window: the finalize deletes
                 # it moments later
@@ -998,6 +1026,8 @@ class InvertedIndexModel:
             timer.count("checkpoint_skipped_projection_s", ckpt_skipped_projection_s)
             timer.count("checkpoint_budget_s", ckpt_budget_s)
         timer.count("stream_windows", eng.windows_fed)
+        timer.count("window_read_ms", read_ms)
+        timer.count("window_scan_ms", scan_ms)
         timer.count("accumulator_capacity", eng.capacity)
         if eng.rows_curve:
             # resolved unique-row counts per merge (trails the windows by
@@ -1409,7 +1439,7 @@ class InvertedIndexModel:
         arenas = getattr(self, "_cpu_arenas", None)
         if arenas is not None and len(arenas) != self.config.io_prefetch + 1:
             arenas = None
-        trace = getattr(self, "_trace", None)
+        trace = self._trace
         if trace is not None:
             trace.name_thread(chrometrace.READER_BASE, "reader-0")
             trace.name_thread(chrometrace.SCAN_BASE, "scan-worker-0")
@@ -1572,7 +1602,7 @@ class InvertedIndexModel:
         # ``failed`` slot's stream is excluded from the merge.
         slots: list[dict] = []
         fail_lock = threading.Lock()
-        trace = getattr(self, "_trace", None)
+        trace = self._trace
 
         def make_slot(w: int, arenas=None) -> dict:
             rep = faults.DegradationReport()
@@ -2520,6 +2550,8 @@ class InvertedIndexModel:
 
 
 def build_index(manifest: Manifest, config: IndexConfig | None = None,
-                output_dir: str | None = None) -> dict:
-    """One-shot convenience: index a manifest and write the letter files."""
-    return InvertedIndexModel(config).run(manifest, output_dir)
+                output_dir: str | None = None,
+                trace: chrometrace.TraceEvents | None = None) -> dict:
+    """One-shot convenience: index a manifest and write the letter files
+    (``trace``: see :meth:`InvertedIndexModel.run`)."""
+    return InvertedIndexModel(config).run(manifest, output_dir, trace)

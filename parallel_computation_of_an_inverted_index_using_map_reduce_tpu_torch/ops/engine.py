@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import timing
 from . import keys as K
 from .kernels import unique_mask_count
 from .segment import compact, first_occurrence_mask, sorted_segment_counts
@@ -204,7 +205,9 @@ class PendingFetch:
     """A device->host copy in flight: on the card a ``non_blocking`` copy
     into pinned memory plus a CUDA event, so the host works meanwhile;
     :meth:`wait` blocks on the event and returns the numpy array (never
-    read the buffer before that — the bytes are not there yet)."""
+    read the buffer before that — the bytes are not there yet).  Inside a
+    build the block's time adds to ``card_wait_ms``
+    (``obs.timing.wait_on_card``)."""
 
     def __init__(self, t: torch.Tensor):
         self._event = None
@@ -220,7 +223,7 @@ class PendingFetch:
 
     def wait(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            timing.wait_on_card(self._event.synchronize)
         return self._host.numpy()
 
 

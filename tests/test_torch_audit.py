@@ -3,7 +3,8 @@ package's: ``--audit`` writes the JAX ``index.manifest.json`` byte for
 byte (with and without ``index.mri``), ``--verify DIR`` accepts an
 untouched directory and names every flipped file, on a segment-managed
 directory its segments and tombstones too; ``--trace-out`` writes the JAX
-device plans' sparse trace and nothing without the flag;
+device plans' sparse trace with the port's spans added, and nothing
+without the flag;
 ``--profile-dir`` writes a torch.profiler trace on the CPU; and the new
 config fields raise the JAX messages."""
 
@@ -178,6 +179,9 @@ def test_verify_refuses_a_segment_managed_dir(corpus, tmp_path, capsys):
 
 @pytest.mark.parametrize("plan", [[], ["--device-tokenize"], ["--backend", "oracle"]])
 def test_trace_out_writes_the_jax_sparse_trace(plan, corpus, tmp_path, capsys):
+    """The port's metadata events equal the JAX package's sparse trace,
+    and the port adds its spans: the CLI's manifest and build, and each
+    phase of ``--stats``."""
     st = _build(corpus, tmp_path / "port", capsys, "--trace-out", str(tmp_path / "p.json"),
                 *plan)
     jst = _build(corpus, tmp_path / "jax", capsys, "--trace-out", str(tmp_path / "j.json"),
@@ -185,9 +189,12 @@ def test_trace_out_writes_the_jax_sparse_trace(plan, corpus, tmp_path, capsys):
     assert st["trace_out"] == str(tmp_path / "p.json") and "trace_out" in jst
     doc = json.loads((tmp_path / "p.json").read_text())
     want = json.loads((tmp_path / "j.json").read_text())
-    assert doc["traceEvents"] == want["traceEvents"]
+    meta = [e for e in doc["traceEvents"] if e["ph"] == "M"]
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert meta == want["traceEvents"] and len(meta) + len(spans) == len(doc["traceEvents"])
+    assert {e["name"] for e in meta} == {"process_name", "thread_name"}
     assert doc["displayTimeUnit"] == want["displayTimeUnit"] == "ms"
-    assert {e["name"] for e in doc["traceEvents"]} == {"process_name", "thread_name"}
+    assert sorted(e["name"] for e in spans) == sorted(["manifest", "build", *st["phases_ms"]])
     assert list(tmp_path.glob("p.json.tmp*")) == []
 
 

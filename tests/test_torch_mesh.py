@@ -190,7 +190,7 @@ def test_stream_checkpoint_with_auto_shards_is_refused_only_when_it_resolves_to_
 def test_cli_passes_the_mesh_flags(monkeypatch, tmp_path):
     seen = {}
 
-    def fake_build(manifest, config):
+    def fake_build(manifest, config, trace=None):
         seen["config"] = config
         return {"degradation": {"skipped_docs": []}}
 
