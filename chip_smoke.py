@@ -266,6 +266,11 @@ Phases, each failing loudly (exit 1, no result line):
    ``bucket_histogram`` is checked on misaligned views, ``n % 4`` in
    {1, 2, 3} and 1 to 128 buckets, and timed at both of Path B's launches
    (26 letters, 2 hash buckets) and on one-hot ids (a contention probe).
+   ``merge_sorted_rows`` is checked and timed at the streaming plan's last
+   merge on the benchmark's corpus (an accumulator of 16,777,216 rows
+   holding 6,200,000, a window of 2,555,904 holding 880,000, 9 columns,
+   group 0 live); Path F must launch it once a window with no duplicate
+   row.
 20. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
@@ -284,7 +289,8 @@ on Path B's corpus and Path L alone; ``--segments-only`` the build, the
 same ``--artifact`` build and Path N alone; ``--cluster-only`` the build,
 the same ``--artifact`` build and Path O alone; ``--multiprocess-only``
 the build, Path C and Path P alone; ``--sanitize-only`` the build, Path
-A's oracle, the same ``--artifact`` build and Path Q alone.
+A's oracle, the same ``--artifact`` build and Path Q alone; ``--merge-only``
+the build and the merge kernel's check and timing alone.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
@@ -497,6 +503,76 @@ def phase_kernels(torch, K, shapes) -> list[dict]:
         "shapes": hist_shapes,
     })
     return results
+
+
+def merge_operand(torch, K, n_tokens: int, n_valid: int, cap: int, docs: tuple, codes,
+                  gen) -> tuple:
+    """Sorted-unique word rows of width 48 (9 columns, group 0 live) as
+    the streaming plan holds them: Zipf terms over ``codes`` (each term's
+    group-0 pair), uniform docs in ``docs``, deduped by the plain merge,
+    the first ``n_valid`` rows kept and INT32_MAX after, ``cap`` rows."""
+    hi, lo = codes
+    terms = zipf_ids(torch, n_tokens, hi.shape[0], gen).long()
+    doc = torch.randint(docs[0], docs[1] + 1, (n_tokens,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    zero = torch.zeros(n_tokens, dtype=torch.int32, device="cuda")
+    raw = (hi[terms], lo[terms], *([zero] * 6), doc)
+    empty = tuple(torch.empty(0, dtype=torch.int32, device="cuda") for _ in range(9))
+    rows, count = K.merge_sorted_rows_plain(empty, raw, cap=cap, live_groups=1)
+    check(int(count) >= n_valid, f"merge operand: {int(count)} unique rows < {n_valid}")
+    for c in rows:
+        c[n_valid:] = INT32_MAX
+    return rows
+
+
+def phase_merge(torch, K) -> dict:
+    """``merge_sorted_rows`` at the last merge of the streaming plan on
+    the benchmark's corpus (20,000 documents of 1,000 Zipf words over
+    100,000 words, windows of 2,500 documents): an accumulator of
+    16,777,216 rows holding 6,200,000 (seven windows) and a window of
+    2,555,904 rows holding 880,000 of other documents.  The kernel
+    against its plain version, exact, then both timed as the other
+    kernels are; the bound: the 3 key columns of the valid rows read and
+    the 9 columns of the output written, at 3.35 TB/s."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    vocab = 100_000
+    codes = (torch.randint(0, 1 << 30, (vocab,), device="cuda", generator=gen,
+                           dtype=torch.int32),
+             torch.randint(0, 1 << 30, (vocab,), device="cuda", generator=gen,
+                           dtype=torch.int32))
+    cap, a_cap, b_cap = 1 << 24, 1 << 24, 2_555_904
+    a_valid, b_valid = 6_200_000, 880_000
+    acc = merge_operand(torch, K, 20_000_000, a_valid, a_cap, (1, 17_500), codes, gen)
+    win = merge_operand(torch, K, 3_000_000, b_valid, b_cap, (17_501, 20_000), codes, gen)
+    a_n = torch.full((), a_valid, dtype=torch.int32, device="cuda")
+    b_n = torch.full((), b_valid, dtype=torch.int32, device="cuda")
+    K.reset_launch_counts()
+    rows, count = K.merge_sorted_rows(acc, win, a_n, b_n, cap=cap, live_groups=1)
+    want, want_count = K.merge_sorted_rows_plain(acc, win, cap=cap, live_groups=1)
+    torch.cuda.synchronize()
+    bad = abs(int(count) - int(want_count)) + sum(int((g != w).sum())
+                                                   for g, w in zip(rows, want))
+    check(K.merge_sorted_rows.launches == 1, "merge_sorted_rows did not launch")
+    check(bad == 0, f"merge_sorted_rows != plain at the last merge's shape: {bad} differences")
+    check(int(count) == a_valid + b_valid, f"merge count {int(count)}: windows of other "
+          f"documents must add all {b_valid} rows to {a_valid}")
+    del rows, want
+    ms, lo, hi = cuda_ms(torch, lambda: K.merge_sorted_rows(acc, win, a_n, b_n, cap=cap,
+                                                             live_groups=1))
+    plain_ms = cuda_ms(torch, lambda: K.merge_sorted_rows_plain(acc, win, cap=cap,
+                                                                live_groups=1),
+                       iters=5, warmup=1, repeats=3)[0]
+    nbytes = 3 * 4 * (a_valid + b_valid) + 9 * 4 * cap
+    b_ms, b_by = bound(nbytes, 8 * (a_valid + b_valid))
+    return {
+        "name": "merge_sorted_rows", "route": "cuda",
+        "source": f"{PKG}/csrc/merge_rows.cu", "replaces": None,
+        "shape": {"acc_cap": a_cap, "acc_valid": a_valid, "window_cap": b_cap,
+                  "window_valid": b_valid, "cap": cap, "columns": 9, "live_groups": 1},
+        "max_abs_err": bad, "parity": bad == 0, "ms": ms, "kernel_ms": ms, "ms_min": lo,
+        "ms_max": hi, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_bytes": nbytes, "library_ms": None,
+    }
 
 
 def random_keys(torch, n_valid: int, padded: int, vocab: int, max_doc: int, gen):
@@ -744,8 +820,7 @@ def drive_path(torch, K, formatter, run, out_dir: Path, label: str,
     if profiler is not None:
         profiler.stop()
     t3 = time.perf_counter()
-    launches = {"unique_mask_count": K.unique_mask_count.launches,
-                "bucket_histogram": K.bucket_histogram.launches}
+    launches = launch_counts(K)
     check(stats is not None, f"{label}: no stats")
     stats["md5"] = formatter.letters_md5(out_dir)
     stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -794,7 +869,8 @@ def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
         "checkpoint_ms_per_save", "checkpoint_skips", "overlap_tail_fraction", "device_pairs",
         "device_shards", "dist_fetched_bytes", "dist_valid_pairs", "emit_ownership",
         "letter_owners", "exchange_retries", "exchange_capacity", "merge_retries",
-        "accumulator_capacity_per_owner")
+        "accumulator_capacity_per_owner", "stream_merge_kernel_launches",
+        "stream_merge_dup_rows")
         if k in stats}
     print(f"phase {name}: {json.dumps(fields)} md5={stats['md5']} launches={launches} "
           + " ".join(f"{k}={v}" for k, v in extra.items())
@@ -1186,8 +1262,7 @@ def path_h(torch, K, cli, formatter, list_b: Path, tmp: Path, md5_b: str, card: 
                                 seed=17 + fmt, trace=tmp / f"H_v{fmt}_trace.json")
               for fmt in (3, 2, 1)}
     # the whole path's launches: the counts were set to 0 before its build
-    launches = {"unique_mask_count": K.unique_mask_count.launches,
-                "bucket_histogram": K.bucket_histogram.launches}
+    launches = launch_counts(K)
     print(f"phase path_h_done: card={card} seconds={time.perf_counter() - t0:.1f} "
           f"launches={launches}", flush=True)
     return served, launches, paths
@@ -1658,7 +1733,8 @@ def path_k(torch, K, cli, formatter, faults, list_a: Path, list_b: Path, tmp: Pa
         check(s_res.get("resumed_from") == str(ck1) and "resume" in s_res["phases_ms"]
               and not {"load", "tokenize"} & set(s_res["phases_ms"]),
               f"path K1 resume did not resume: phases {sorted(s_res['phases_ms'])}")
-        check(launches == {"unique_mask_count": 1, "bucket_histogram": 2},
+        check(launches == {"unique_mask_count": 1, "bucket_histogram": 2,
+                           "merge_sorted_rows": 0},
               f"path K1 resume launches {launches}, want Path B's 1 and 2")
         check((s_res["unique_pairs"], s_res["unique_terms"])
               == (stats_b["unique_pairs"], stats_b["unique_terms"]),
@@ -2356,8 +2432,7 @@ def m_leg(K, formatter, cli, label: str, argv: list[str], out_dir: Path, **env_e
     stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
     stats["peak_rss_bytes"], stats["peak_rss_scope"] = peak_rss_bytes()
     stats["md5"] = formatter.letters_md5(out_dir)
-    stats["launches"] = {"unique_mask_count": K.unique_mask_count.launches,
-                         "bucket_histogram": K.bucket_histogram.launches}
+    stats["launches"] = launch_counts(K)
     check(not any(stats["launches"].values()),
           f"{label} launched a kernel of csrc/: {stats['launches']}")
     return stats
@@ -2488,8 +2563,7 @@ def path_m(torch, K, cli, formatter, faults, synthetic, build_index, IndexConfig
         s["wall_ms"] = (time.perf_counter() - t1) * 1e3
         s["peak_rss_bytes"], s["peak_rss_scope"] = peak_rss_bytes()
         s["md5"] = formatter.letters_md5(tmp / f"M6_{name}")
-        s["launches"] = {"unique_mask_count": K.unique_mask_count.launches,
-                         "bucket_histogram": K.bucket_histogram.launches}
+        s["launches"] = launch_counts(K)
         check("cpu_fallback" not in s, f"path M6 {name}: fell back to the oracle")
         m6[name] = s
     check(m6["cpu"]["md5"] == m6["cuda"]["md5"] == md5_c,
@@ -2497,8 +2571,7 @@ def path_m(torch, K, cli, formatter, faults, synthetic, build_index, IndexConfig
           f"path C {md5_c}: want all equal")
     check(not any(m6["cpu"]["launches"].values()), "path M6 cpu launched a kernel of csrc/")
     legs["M6_cpu"], legs["M6_cuda"] = m6["cpu"], m6["cuda"]
-    launches = {k: sum(leg["launches"][k] for leg in legs.values())
-                for k in ("unique_mask_count", "bucket_histogram")}
+    launches = add_launches(leg["launches"] for leg in legs.values())
     print("phase path_m: " + json.dumps({
         "card": card, "host_cpu": host_cpu(), "path_c_md5": md5_c,
         "legs": {name: m_summary(leg) | ({"device_engine_ms": leg["device_engine_ms"]}
@@ -3038,8 +3111,7 @@ def path_n(torch, K, cli, manifest_mod, list_b: Path, h_path: Path, tmp: Path, c
     out["stages_s"] = stage_s
     # after the seed build: the engines' columns and the reference builds
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if on_card else None
-    launches = {"unique_mask_count": K.unique_mask_count.launches,
-                "bucket_histogram": K.bucket_histogram.launches}
+    launches = launch_counts(K)
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_path
     print(f"phase path_n: card={card} {json.dumps(out)}", flush=True)
@@ -3520,8 +3592,7 @@ def path_o(torch, K, cli, manifest_mod, synthetic, build_index, IndexConfig, ora
                 p.stdout.close()
 
     # -- O6: the paragraph corpus on the card ------------------------------------
-    launches = {"unique_mask_count": K.unique_mask_count.launches,
-                "bucket_histogram": K.bucket_histogram.launches}
+    launches = launch_counts(K)
     out["max_memory_allocated_o1_o5"] = torch.cuda.max_memory_allocated() if on_card else None
     src = tmp / "O_paragraphs"
     out["o6_source"] = o_paragraph_dir(np, synthetic, src, seed=47)
@@ -3602,12 +3673,13 @@ def launch_counts(K) -> dict:
     """This process's launches of each kernel of ``csrc/`` since the last
     ``K.reset_launch_counts()``."""
     return {"unique_mask_count": K.unique_mask_count.launches,
-            "bucket_histogram": K.bucket_histogram.launches}
+            "bucket_histogram": K.bucket_histogram.launches,
+            "merge_sorted_rows": K.merge_sorted_rows.launches}
 
 
 def add_launches(counts) -> dict:
     """The sum of several :func:`launch_counts`."""
-    total = {"unique_mask_count": 0, "bucket_histogram": 0}
+    total = {"unique_mask_count": 0, "bucket_histogram": 0, "merge_sorted_rows": 0}
     for c in counts:
         for name in total:
             total[name] += c[name]
@@ -4146,8 +4218,7 @@ def serve_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str,
         print_path("path_h", stats_h, launches_h, card=repr(card))
         K.reset_launch_counts()
         path_l(torch, cli, tmp / "H_out" / "index.mri", tmp, card)
-        launches = {"unique_mask_count": K.unique_mask_count.launches,
-                    "bucket_histogram": K.bucket_histogram.launches}
+        launches = launch_counts(K)
         check(not any(launches.values()), f"path L launched a kernel of csrc/: {launches}")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4205,7 +4276,7 @@ def mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, 
 
 
 MODES = ("--mesh-only", "--serve-only", "--segments-only", "--cluster-only",
-         "--multiprocess-only", "--sanitize-only")
+         "--multiprocess-only", "--sanitize-only", "--merge-only")
 
 
 def main() -> int:
@@ -4266,7 +4337,8 @@ def main() -> int:
               f"native scan {native_build['seconds']:.1f} s", flush=True)
         for stem, log in built["ptxas"].items():
             for line in log.splitlines():
-                if "registers" in line or "error" in line.lower():
+                if ("registers" in line or "error" in line.lower()
+                        or "Compiling entry" in line):
                     print(f"  ptxas {stem}: {line.strip()}")
         if mode == ["--mesh-only"]:
             return mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card, kind)
@@ -4284,6 +4356,13 @@ def main() -> int:
         if mode == ["--sanitize-only"]:
             return sanitize_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card,
                                      kind, sanitized)
+        if mode == ["--merge-only"]:
+            merge = phase_merge(torch, K)
+            print(f"phase merge: {json.dumps(merge)}", flush=True)
+            print(card)
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
 
         launches_by_path = {}
         with tempfile.TemporaryDirectory(prefix="mri_chip_smoke_") as tmp:
@@ -4331,8 +4410,8 @@ def main() -> int:
                 torch, K, formatter, cli_run(cli, "path B", list_b, tmp / "B_out", ["--skew"]),
                 tmp / "B_out", "path B", trace=tmp / "B_trace.json")
             check(stats_b.get("engine") == "packed", f"path B took engine {stats_b.get('engine')}")
-            for name, n in launches_b.items():
-                check(n > 0, f"path B launched no {name}")
+            for name in ("unique_mask_count", "bucket_histogram"):
+                check(launches_b[name] > 0, f"path B launched no {name}")
             rc, stats_b_cpu = run_cli(cli, ["4", "26", str(list_b), "--skew", "--device", "cpu",
                                             "--output-dir", str(tmp / "B_cpu"), "--stats"])
             check(rc == 0, f"path B --device cpu: exit {rc}")
@@ -4462,6 +4541,13 @@ def main() -> int:
                   f"{stats_f.get('device_tokenize_fallback')}; want 8 device stream windows")
             check(stats_f["md5"] == stats_b["md5"],
                   f"path F md5 {stats_f['md5']} != path B {stats_b['md5']}")
+            # every window merged by the kernel, and windows of distinct
+            # documents share no row
+            check(launches_f["merge_sorted_rows"] == stats_f["stream_merge_kernel_launches"] == 8
+                  and stats_f["stream_merge_dup_rows"] == 0,
+                  f"path F: merge kernel launches {launches_f['merge_sorted_rows']} / "
+                  f"{stats_f['stream_merge_kernel_launches']}, duplicate rows "
+                  f"{stats_f['stream_merge_dup_rows']}; want 8 / 8 and 0")
             print_path("path_f", stats_f, launches_f, path_b_md5=stats_b["md5"])
             launches_by_path["F"] = launches_f
 
@@ -4535,8 +4621,7 @@ def main() -> int:
             # -- Path I: the host engine and the router on Path H's files ------
             K.reset_launch_counts()
             path_i(torch, cli, h_paths, served, card)
-            launches_by_path["I"] = {"unique_mask_count": K.unique_mask_count.launches,
-                                     "bucket_histogram": K.bucket_histogram.launches}
+            launches_by_path["I"] = launch_counts(K)
             check(not any(launches_by_path["I"].values()),
                   f"path I launched a kernel of csrc/: {launches_by_path['I']}")
 
@@ -4553,8 +4638,7 @@ def main() -> int:
             # -- Path L: the resident serve daemon on Path H's v2.1 artifact ---
             K.reset_launch_counts()
             path_l(torch, cli, h_paths[3], tmp, card)
-            launches_by_path["L"] = {"unique_mask_count": K.unique_mask_count.launches,
-                                     "bucket_histogram": K.bucket_histogram.launches}
+            launches_by_path["L"] = launch_counts(K)
             check(not any(launches_by_path["L"].values()),
                   f"path L launched a kernel of csrc/: {launches_by_path['L']}")
 
@@ -4600,6 +4684,7 @@ def main() -> int:
                   stats_e["unique_terms"], 20_000),
             "F_overflow": (stats_fo["accumulator_capacity"], stats_fo["unique_pairs"],
                            stats_fo["unique_terms"], 355)})
+        kernels.append(phase_merge(torch, K))
         for k in kernels:
             print(f"phase kernels: {k['name']} exact={k['parity']} ms={k['ms']:.4f} "
                   f"(min {k['ms_min']:.4f} max {k['ms_max']:.4f}) "

@@ -84,7 +84,7 @@ from ..corpus.scheduler import (owner_of_letter_table, plan_contiguous_ranges,
 from ..obs import chrometrace, timing
 from ..obs.timing import PhaseTimer
 from ..ops import device_tokenizer as DT
-from ..ops import engine
+from ..ops import engine, kernels
 from ..ops import keys as K
 from ..ops.device_streaming import DeviceStreamEngine
 from ..ops.streaming import StreamingIndexEngine
@@ -913,6 +913,7 @@ class InvertedIndexModel:
         timer.count("documents", len(manifest))
         eng = DeviceStreamEngine(width=width, device=device)
         fed_tokens = 0
+        merges_before = kernels.merge_sorted_rows.launches
 
         ckpt_path = cfg.stream_checkpoint
         resume_from = 0
@@ -1026,6 +1027,12 @@ class InvertedIndexModel:
             timer.count("checkpoint_skipped_projection_s", ckpt_skipped_projection_s)
             timer.count("checkpoint_budget_s", ckpt_budget_s)
         timer.count("stream_windows", eng.windows_fed)
+        # the merge kernel's launches (0 on the CPU, which merges with its
+        # plain version), and the window rows the resolved merges found
+        # already in the accumulator
+        timer.count("stream_merge_kernel_launches",
+                    kernels.merge_sorted_rows.launches - merges_before)
+        timer.count("stream_merge_dup_rows", eng.merge_dup_rows)
         timer.count("window_read_ms", read_ms)
         timer.count("window_scan_ms", scan_ms)
         timer.count("accumulator_capacity", eng.capacity)

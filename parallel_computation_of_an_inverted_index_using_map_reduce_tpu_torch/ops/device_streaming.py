@@ -11,13 +11,16 @@ accumulator discipline of the integer-pair streaming engine
 (ops/streaming.py), lifted from packed ints to word rows:
 
     per window:  rows  <- tokenize_groups ► sort ► dedup
-                 acc   <- unique(sort(cat(acc, rows)))
+                 acc   <- merge(acc, rows)
 
-as torch calls with sizes fixed by the host and no wait on the card in
-the stream loop: the host bounds the unique rows by the tokens fed
-(``host_token_stats``, already computed per window for ``tok_cap``) and
-doubles the accumulator *before* a window that could overflow it.  The
-merge counts travel back through ``engine.PendingFetch`` and are read
+as torch calls and one hand-written merge kernel (``kernels.merge_sorted_rows``:
+both operands are sorted and unique, so the merge needs no sort), with
+sizes fixed by the host and no wait on the card in the stream loop: the
+host bounds the unique rows by the tokens fed (``host_token_stats``,
+already computed per window for ``tok_cap``) and doubles the capacity
+*before* a window that could overflow it; the merge writes straight
+into the larger capacity.  The merge reads its operands' valid counts on
+the card; they travel back through ``engine.PendingFetch`` and are read
 two merges late; the per-window device checks are read only at
 ``snapshot`` and ``finalize``.  Radix passes over word groups the stream
 has not reached yet are skipped (the host's running max cleaned length
@@ -37,7 +40,7 @@ import torch
 
 from .. import faults
 from ..utils.rounding import round_up
-from . import engine
+from . import engine, kernels
 from .device_tokenizer import (INT32_MAX, groups_sort_perm, live_groups_for, num_groups_for,
                                tokenize_groups)
 from .segment import _rank_slots, first_occurrence_mask, set_bit_positions
@@ -97,7 +100,10 @@ def window_rows(data, doc_ends, doc_id_values, *, width: int, tok_cap: int, num_
 def _merge_unique_rows(acc, window, *, cap: int, live_groups: int):
     """Fold a window's row tuple into the sorted-unique accumulator;
     also returns the accumulator's exact unique-row count (padding rows
-    never count).  Only the ``live_groups`` group pairs (the ones the
+    never count).  It takes the window's rows in any order (the mesh
+    engine's exchanged rows); the single-card engine, whose windows come
+    sorted and unique, merges with ``kernels.merge_sorted_rows``, whose
+    plain version this is.  Only the ``live_groups`` group pairs (the ones the
     stream has produced a nonzero char for so far) are sort passes; the
     later groups are zero in both operands except on padding rows, where
     every column is INT32_MAX, so a pass over them is the identity.  The
@@ -206,10 +212,12 @@ class DeviceStreamEngine:
         self._window_pad = window_pad
         self._cap = initial_capacity
         self._acc = None
+        self._acc_count = None     # the accumulator's valid rows, on the card
         self._unique_bound = 0     # host bound on the unique rows in acc
+        self._resolved_rows = 0    # the last resolved merge's count
         # in-flight merges, oldest first: (count fetch, tokens folded,
-        # pinned uploads); depth 2 keeps one merge queued while the
-        # previous one still runs
+        # pinned uploads, the window's counts fetch); depth 2 keeps one
+        # merge queued while the previous one still runs
         self._pending: list = []
         self._max_inflight = 2
         self._live_groups = 1      # running ceil(ceil(maxlen / 4) / 3)
@@ -223,6 +231,8 @@ class DeviceStreamEngine:
         # accumulator's growth curve (trails windows_fed by the
         # in-flight merges; snapshot drains them, finalize leaves them)
         self.rows_curve: list[int] = []
+        # window rows already in the accumulator, over the resolved merges
+        self.merge_dup_rows = 0
 
     @property
     def capacity(self) -> int:
@@ -237,7 +247,7 @@ class DeviceStreamEngine:
         tokens as unique."""
         if self._acc is None:
             return 0
-        drained_bound = self._unique_bound - sum(tc for _, tc, _ in self._pending)
+        drained_bound = self._unique_bound - sum(p[1] for p in self._pending)
         pad = min(round_up(max(drained_bound, 1), self._snapshot_granule), self._cap)
         return (2 * self._num_groups + 1) * pad * 4
 
@@ -245,14 +255,16 @@ class DeviceStreamEngine:
         self._unique_bound += extra
         while self._unique_bound > self._cap:
             # grow BEFORE a merge that could overflow: no data loss and
-            # no wait on the card
+            # no wait on the card; the next merge writes the new capacity
             self._cap *= 2
-            if self._acc is not None:
-                self._acc = _regrow_rows(self._acc, cap=self._cap)
 
     def _resolve_oldest(self) -> int:
-        fetch, _, _ = self._pending.pop(0)
+        fetch, _, _, checks = self._pending.pop(0)
         resolved = int(fetch.wait())
+        # the window's pairs were counted before its merge ran: no wait
+        pairs = int(checks.wait()[0])
+        self.merge_dup_rows += self._resolved_rows + pairs - resolved
+        self._resolved_rows = resolved
         self.rows_curve.append(resolved)
         return resolved
 
@@ -286,7 +298,8 @@ class DeviceStreamEngine:
             num_docs=ends.shape[0], sort_cols=sort_cols, num_groups=self._num_groups,
             out_cap=out_cap)
         del d_buf, d_ends, d_ids
-        self._window_checks.append((engine.PendingFetch(counts), tok_cap, max_len))
+        checks = engine.PendingFetch(counts)
+        self._window_checks.append((checks, tok_cap, max_len))
         if stage_hook is not None:
             stage_hook("window_rows", counts)
         # tighten the host bound with the count of the merge two back:
@@ -295,16 +308,19 @@ class DeviceStreamEngine:
         # plus every token folded by the unresolved merges.
         while len(self._pending) >= self._max_inflight:
             resolved = self._resolve_oldest()
-            self._unique_bound = resolved + sum(tc for _, tc, _ in self._pending)
+            self._unique_bound = resolved + sum(p[1] for p in self._pending)
         self._ensure_capacity(tok_count)
         if self._acc is None:
-            self._acc = tuple(
-                torch.full((self._cap,), INT32_MAX, dtype=torch.int32, device=self._device)
-                for _ in range(2 * self._num_groups + 1))
-        self._acc, count = _merge_unique_rows(self._acc, rows, cap=self._cap,
-                                              live_groups=self._live_groups)
+            # an empty accumulator: the first merge writes the capacity
+            self._acc = tuple(torch.empty(0, dtype=torch.int32, device=self._device)
+                              for _ in range(2 * self._num_groups + 1))
+            self._acc_count = torch.zeros((), dtype=torch.int32, device=self._device)
+        self._acc, count = kernels.merge_sorted_rows(
+            self._acc, rows, self._acc_count, counts[0], cap=self._cap,
+            live_groups=self._live_groups)
+        self._acc_count = count
         del rows
-        self._pending.append((engine.PendingFetch(count), tok_count, staged))
+        self._pending.append((engine.PendingFetch(count), tok_count, staged, checks))
         self.windows_fed += 1
         # fault hook (faults.py stream-crash:window=K): raise after this
         # window's merge is queued on the card but before any later
@@ -400,7 +416,9 @@ class DeviceStreamEngine:
             host[:count] = c
             cols.append(engine.upload(host, self._device, staged))
         self._acc = tuple(cols)
+        self._acc_count = torch.full((), count, dtype=torch.int32, device=self._device)
         self._unique_bound = count
+        self._resolved_rows = count
         self._live_groups = int(state["live_groups"])
         self.max_word_len = int(state["max_word_len"])
         self.windows_fed = int(state["windows_fed"])
@@ -420,6 +438,6 @@ class DeviceStreamEngine:
             raise ValueError("no windows fed")
         self._verify_window_checks()
         out = finalize_rows_body(self._acc, num_groups=self._num_groups)
-        self._acc = None
+        self._acc = self._acc_count = None
         self._pending = []
         return out

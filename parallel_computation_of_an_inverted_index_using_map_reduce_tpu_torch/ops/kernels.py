@@ -1,4 +1,4 @@
-"""The engine's two hand-written CUDA kernels, their plain versions and
+"""The engine's three hand-written CUDA kernels, their plain versions and
 their build.
 
 - :func:`unique_mask_count` (``csrc/unique_mask_count.cu``) — the reduce
@@ -6,6 +6,9 @@ their build.
   first-occurrence mask, validity mask and the unique count.
 - :func:`bucket_histogram` (``csrc/bucket_histogram.cu``) — per-partition
   pair counts for the ``--skew`` statistics (utils/stats.py).
+- :func:`merge_sorted_rows` (``csrc/merge_rows.cu``) — the streaming
+  all-device engine's fold of a sorted-unique window of word rows into
+  its sorted-unique accumulator, a merge path with no sort.
 
 Each wrapper runs the kernel for a CUDA tensor and the plain PyTorch
 version (``*_plain``) for a CPU tensor; any other device raises.  There
@@ -40,9 +43,12 @@ MAX_BUCKETS = 128
 
 # (source stem, C symbol, argtypes)
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _SPECS = {
     "unique_mask_count": ("mri_unique_mask_count", [_VP, _LL, _I, _VP, _VP, _I, _VP]),
     "bucket_histogram": ("mri_bucket_histogram", [_VP, _LL, _I, _VP, _I, _VP]),
+    "merge_rows": ("mri_merge_sorted_rows", [_PP, _LL, _PP, _LL, _I, _I, _VP, _VP, _PP, _LL,
+                                             _VP, _VP, _LL, _I, _VP]),
 }
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -210,6 +216,87 @@ def bucket_histogram(values: torch.Tensor, num_buckets: int) -> torch.Tensor:
 bucket_histogram.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# merge_sorted_rows
+# ---------------------------------------------------------------------------
+
+# the kernel's smallest tile (csrc/merge_rows.cu: 256 threads, one
+# diagonal each), which bounds its tile count and so its scratch
+_MERGE_MIN_TILE = 256
+_MERGE_MAX_COLS = 64
+
+
+def merge_sorted_rows_plain(acc, window, *, cap: int, live_groups: int) -> tuple:
+    """Plain version: the sort-based fold of ``ops/device_streaming.py``
+    (concatenate, radix-sort, dedup, compact into ``cap`` rows), which
+    takes rows in any order."""
+    from .device_streaming import _merge_unique_rows
+
+    return _merge_unique_rows(acc, window, cap=cap, live_groups=live_groups)
+
+
+def _check_columns(cols, name: str) -> int:
+    rows = cols[0].shape[0]
+    for c in cols:
+        if c.dtype != torch.int32 or c.dim() != 1 or c.shape[0] != rows or not c.is_contiguous():
+            raise ValueError(f"merge_sorted_rows: {name} needs contiguous 1-D int32 columns "
+                             f"of one length, got {c.dtype} {tuple(c.shape)}")
+    return rows
+
+
+def merge_sorted_rows(acc, window, acc_count: torch.Tensor, win_count: torch.Tensor, *,
+                      cap: int, live_groups: int) -> tuple:
+    """Merge a window's sorted-unique word rows into the sorted-unique
+    accumulator: ``(rows, count)``, ``rows`` a tuple of ``cap``-long
+    int32 columns (the merged rows first, a row the two share once, then
+    INT32_MAX) and ``count`` their int32 0-d count on the card.
+
+    ``acc`` and ``window`` are tuples of ``2 * groups + 1`` columns
+    (group pairs, then the doc), each sorted lexicographically over the
+    first ``live_groups`` pairs and the doc with its valid rows first;
+    the later pairs are 0 on valid rows.  ``acc_count`` and ``win_count``
+    are their valid rows, int32 scalars read on the card only, so the
+    host never waits.  ``cap`` may exceed the accumulator's length.
+    """
+    if len(acc) != len(window) or not 3 <= len(acc) <= _MERGE_MAX_COLS or len(acc) % 2 == 0:
+        raise ValueError(f"merge_sorted_rows: need two tuples of one odd column count in "
+                         f"[3, {_MERGE_MAX_COLS}], got {len(acc)} and {len(window)}")
+    if not 1 <= live_groups <= len(acc) // 2:
+        raise ValueError(f"merge_sorted_rows: live_groups {live_groups} not in "
+                         f"[1, {len(acc) // 2}]")
+    if cap < 0:
+        raise ValueError(f"merge_sorted_rows: cap {cap} is negative")
+    for t in (*acc, *window, acc_count, win_count):
+        _check_device(t, "merge_sorted_rows")
+        if t.device != acc[0].device:
+            raise ValueError(f"merge_sorted_rows: tensors on {t.device} and {acc[0].device}")
+    a_cap, b_cap = _check_columns(acc, "acc"), _check_columns(window, "window")
+    for t in (acc_count, win_count):
+        if t.dtype != torch.int32 or t.numel() != 1:
+            raise ValueError(f"merge_sorted_rows: counts must be int32 scalars, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    dev = acc[0].device
+    if dev.type == "cpu":
+        return merge_sorted_rows_plain(acc, window, cap=cap, live_groups=live_groups)
+    ncols = len(acc)
+    rows = torch.empty((ncols, cap), dtype=torch.int32, device=dev).unbind(0)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch_len = 2 * -(-(a_cap + b_cap) // _MERGE_MIN_TILE) + 1
+    scratch = torch.empty(scratch_len, dtype=torch.int64, device=dev)
+    cols = ctypes.c_void_p * ncols
+    _launch("merge_rows", cols(*(a.data_ptr() for a in acc)), a_cap,
+            cols(*(w.data_ptr() for w in window)), b_cap, ncols, live_groups,
+            acc_count.data_ptr(), win_count.data_ptr(),
+            cols(*(r.data_ptr() for r in rows)), cap, count.data_ptr(),
+            scratch.data_ptr(), scratch_len, *_stream_args(acc[0]))
+    merge_sorted_rows.launches += 1
+    return rows, count
+
+
+merge_sorted_rows.launches = 0
+
+
 def reset_launch_counts() -> None:
     unique_mask_count.launches = 0
     bucket_histogram.launches = 0
+    merge_sorted_rows.launches = 0

@@ -22,6 +22,7 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.corpus
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
     device_streaming as TDS,
     device_tokenizer as TDT,
+    kernels as TK,
 )
 
 INT32_MAX = 2**31 - 1
@@ -124,6 +125,86 @@ def test_merge_unique_rows_matches_jax_with_an_exact_count(live_groups):
     truth = {tuple(int(c[i]) for c in rows) for rows in (acc, win)
              for i in range(len(rows[0])) if rows[0][i] != INT32_MAX}
     assert int(t_count) == int(j_count) == len(truth)
+
+
+def _merge_operands(live_groups, acc_cap):
+    """A sorted-unique accumulator of ``acc_cap`` rows and a window that
+    shares some of its rows, as CPU tensors, with their valid counts."""
+    width, sc = 48, 3 * live_groups
+    first = _rows_pair(1, width, sc)
+    win = _rows_pair(2, width, sc)
+    acc, _ = TDS._merge_unique_rows(tuple(torch.from_numpy(c) for c in first),
+                                    tuple(torch.from_numpy(c[:5]) for c in win),
+                                    cap=acc_cap, live_groups=live_groups)
+    counts = [int((c[0] != INT32_MAX).sum()) for c in (acc, win)]
+    return acc, tuple(torch.from_numpy(c) for c in win), counts
+
+
+@pytest.mark.parametrize("acc_cap,cap", [(1024, 1024), (600, 2048)])
+@pytest.mark.parametrize("live_groups", [1, 2, 4])
+def test_merge_sorted_rows_takes_the_plain_version_on_the_cpu(live_groups, acc_cap, cap):
+    """On CPU tensors the wrapper is the sort-based merge, launches no
+    kernel, and gives the same rows when the output capacity is larger
+    than the accumulator's."""
+    acc, win, (na, nb) = _merge_operands(live_groups, acc_cap)
+    before = TK.merge_sorted_rows.launches
+    rows, count = TK.merge_sorted_rows(acc, win, torch.tensor(na, dtype=torch.int32),
+                                       torch.tensor(nb, dtype=torch.int32), cap=cap,
+                                       live_groups=live_groups)
+    assert TK.merge_sorted_rows.launches == before
+    want, want_count = TDS._merge_unique_rows(acc, win, cap=cap, live_groups=live_groups)
+    assert int(count) == int(want_count)
+    _assert_cols_equal([r.numpy() for r in rows], [w.numpy() for w in want])
+    assert all(r.shape == (cap,) for r in rows)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("column_counts", "odd column count"),
+    ("even_columns", "odd column count"),
+    ("live_groups", "live_groups"),
+    ("dtype", "int32 columns"),
+    ("ragged", "int32 columns"),
+    ("count_dtype", "int32 scalars"),
+    ("negative_cap", "negative"),
+])
+def test_merge_sorted_rows_refuses_what_the_kernel_does_not_take(fault, match):
+    acc, win, (na, nb) = _merge_operands(1, 1024)
+    a_n, b_n = torch.tensor(na, dtype=torch.int32), torch.tensor(nb, dtype=torch.int32)
+    kw = dict(cap=1024, live_groups=1)
+    if fault == "column_counts":
+        win = win[:-2]
+    elif fault == "even_columns":
+        acc, win = acc[:-1], win[:-1]
+    elif fault == "live_groups":
+        kw["live_groups"] = 5
+    elif fault == "dtype":
+        acc = (acc[0].to(torch.int64),) + acc[1:]
+    elif fault == "ragged":
+        win = win[:-1] + (win[-1][:-1],)
+    elif fault == "count_dtype":
+        a_n = a_n.to(torch.int64)
+    else:
+        kw["cap"] = -1
+    with pytest.raises(ValueError, match=match):
+        TK.merge_sorted_rows(acc, win, a_n, b_n, **kw)
+
+
+@pytest.mark.parametrize("second", ["repeat", "disjoint"])
+def test_engine_counts_the_window_rows_already_merged(second):
+    """A window fed twice adds no row, and its pairs count as duplicate
+    rows; a window of other documents adds all of its rows."""
+    buf, ends, ids = _window(6)
+    windows = [(buf, ends, ids), (buf, ends, ids if second == "repeat" else ids + 1000)]
+    eng = TDS.DeviceStreamEngine(width=48, device="cpu", window_pad=256)
+    for b, e, i in windows:
+        count, max_len = _stats(b, e)
+        eng.feed(b.copy(), e.copy(), i.copy(), tok_count=count, max_len=max_len)
+    eng.snapshot()  # resolves both merges
+    first = eng.rows_curve[0]
+    if second == "repeat":
+        assert eng.rows_curve == [first, first] and eng.merge_dup_rows == first
+    else:
+        assert eng.rows_curve == [first, 2 * first] and eng.merge_dup_rows == 0
 
 
 @pytest.mark.parametrize("width", [8, 48])

@@ -101,6 +101,10 @@ def test_any_window_size_matches_the_oracle(chunk, tmp_path):
     assert stats["documents"] == 33 and stats["tokens"] == 33 * 55
     curve = stats.get("unique_rows_curve", [])
     assert len(curve) == max(stats["stream_windows"] - 2, 0) and curve == sorted(curve)
+    # the CPU merges with the kernel's plain version; windows of distinct
+    # documents share no row
+    assert stats["stream_merge_kernel_launches"] == 0
+    assert stats["stream_merge_dup_rows"] == 0
 
 
 class _Tiny(TDS.DeviceStreamEngine):

@@ -26,6 +26,7 @@ from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.models
 )
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
     device_tokenizer as TDT,
+    kernels as tkernels,
 )
 from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.parallel import (
     dist_device_streaming as tdds,
@@ -152,6 +153,29 @@ def test_dist_device_stream_engine_matches_jax(n, initial_capacity):
     want = jeng.finalize(sort_cols=sort_cols, max_doc_id=max_doc, stats=jstats)
     assert tstats == jstats
     _assert_owners_equal(got, want)
+
+
+def test_dist_device_stream_engine_keeps_the_sort_merge(monkeypatch):
+    """The mesh engine folds exchanged rows, which come in no order, so
+    it merges with the sort-based ``_merge_unique_rows`` and never with
+    the single-card engine's merge kernel."""
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(kw["cap"])
+        return merge(*a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the mesh engine called merge_sorted_rows")
+
+    merge = tdds._merge_unique_rows
+    monkeypatch.setattr(tdds, "_merge_unique_rows", spy)
+    monkeypatch.setattr(tkernels, "merge_sorted_rows", refuse)
+    windows, _ = _stream_windows(2, seed=9)
+    eng = tdds.DistDeviceStreamEngine(width=48, mesh=M.make_mesh(2, "cpu"), window_pad=256)
+    bufs, ends, ids, tok_count, max_len = windows[0]
+    eng.feed(bufs, ends, ids, tok_count=tok_count, max_len=max_len)
+    assert calls == [eng.capacity] * 2  # one fold per owner
 
 
 def test_dist_device_stream_engine_refuses_finalize_before_feed():
