@@ -152,6 +152,40 @@ def _pack_window(contents, ids, shard_len: int, docs_cap: int | None = None):
     return buf, ends, idv
 
 
+def _byte_windows(timer: PhaseTimer, windows, pack, *, width: int, read_ms: list,
+                  scan_ms: list, skip: int = 0):
+    """The streaming all-device plans' window loop, on one card or a
+    mesh: per window of ``windows`` (``(contents, ids)``), the steps
+    ``read``, then (past the first ``skip`` windows) ``pack``, which
+    ``pack(contents, ids)`` does into fresh ``(buf, ends, ids)`` arrays,
+    one triple per shard, and ``scan``, the host's exact token count and
+    longest cleaned word of each.  Appends each window's read ms and
+    pack + scan ms, raises :class:`WidthOverflow` before a too-wide
+    window is fed, and yields ``(window number from 1, shard triples,
+    max shard tokens, longest word)``; the caller feeds it as its
+    ``feed`` step."""
+    for win_i in itertools.count(1):
+        try:
+            with timer.step("read") as read:
+                contents, ids = next(windows)
+        except StopIteration:
+            return
+        read_ms.append(round(read.ms, 3))
+        if win_i <= skip:
+            continue
+        with timer.step("pack") as packed:
+            parts = pack(contents, ids)
+        with timer.step("scan") as scan:
+            counts = [DT.host_token_stats(buf, ends) for buf, ends, _ in parts]
+        scan_ms.append(round(packed.ms + scan.ms, 3))
+        max_len = max(ml for _, ml in counts)
+        if max_len > width:
+            raise DT.WidthOverflow(
+                f"cleaned token of {max_len} letters exceeds "
+                f"device_tokenize_width={width}")
+        yield win_i, parts, max(cnt for cnt, _ in counts), max_len
+
+
 class InvertedIndexModel:
     """Reusable pipeline object; ``self.timer`` holds the latest run's."""
 
@@ -948,35 +982,22 @@ class InvertedIndexModel:
         ckpt_stretch = envknobs.get("MRI_TPU_CKPT_STRETCH")
         ckpt_consec_skips = 0
 
+        def pack(contents, ids):
+            # a fresh host array per window: no buffer the card may
+            # still read is ever refilled
+            total = sum(len(c) for c in contents)
+            return [_pack_window(contents, ids, _round_up(total, cfg.pad_multiple))]
+
         # per window: ms of its read, and of its pack and token scan
         read_ms: list[float] = []
         scan_ms: list[float] = []
         windows = iter_document_chunks(manifest, cfg.stream_chunk_docs, report)
         with _profile_ctx(cfg.profile_dir, device), timer.phase("stream_feed"):
-            for win_i in itertools.count(1):
-                try:
-                    with timer.step("read") as read:
-                        contents, ids = next(windows)
-                except StopIteration:
-                    break
-                read_ms.append(round(read.ms, 3))
-                if win_i <= resume_from:
-                    continue
-                total = sum(len(c) for c in contents)
-                # a fresh host array per window: no buffer the card may
-                # still read is ever refilled
-                with timer.step("pack") as pack:
-                    buf, ends, idv = _pack_window(contents, ids,
-                                                  _round_up(total, cfg.pad_multiple))
-                with timer.step("scan") as scan:
-                    cnt, ml = DT.host_token_stats(buf, ends)
-                scan_ms.append(round(pack.ms + scan.ms, 3))
-                if ml > width:
-                    raise DT.WidthOverflow(
-                        f"cleaned token of {ml} letters exceeds "
-                        f"device_tokenize_width={width}")
+            for win_i, parts, cnt, ml in _byte_windows(timer, windows, pack, width=width,
+                                                       read_ms=read_ms, scan_ms=scan_ms,
+                                                       skip=resume_from):
                 with timer.step("feed"):
-                    eng.feed(buf, ends, idv, tok_count=cnt, max_len=ml)
+                    eng.feed(*parts[0], tok_count=cnt, max_len=ml)
                 fed_tokens += cnt
                 # no checkpoint on the last window: the finalize deletes
                 # it moments later
@@ -1300,32 +1321,31 @@ class InvertedIndexModel:
         timer.count("device_shards", n)
         timer.count("documents", len(manifest))
         eng = DistDeviceStreamEngine(width=width, mesh=mesh)
+
+        def pack(contents, ids):
+            # byte-balanced contiguous doc split of this window — the
+            # scheduler's one greedy-cut policy — each shard's packed
+            # into fresh arrays of one shape
+            parts = [(contents[lo:hi], ids[lo:hi])
+                     for lo, hi in plan_contiguous_ranges([len(c) for c in contents], n)]
+            shard_len = _round_up(
+                max(max((sum(len(c) for c in cs) for cs, _ in parts), default=1), 1),
+                cfg.pad_multiple)
+            docs_cap = max(max(len(c) for c, _ in parts), 1)
+            return [_pack_window(cs, ids_s, shard_len, docs_cap) for cs, ids_s in parts]
+
+        read_ms: list[float] = []
+        scan_ms: list[float] = []
+        windows = iter_document_chunks(manifest, cfg.stream_chunk_docs, report)
         with _profile_ctx(cfg.profile_dir, cfg.device), timer.phase("stream_feed"):
-            for contents, ids in iter_document_chunks(manifest, cfg.stream_chunk_docs, report):
-                # byte-balanced contiguous doc split of this window — the
-                # scheduler's one greedy-cut policy
-                parts = [(contents[lo:hi], ids[lo:hi])
-                         for lo, hi in plan_contiguous_ranges([len(c) for c in contents], n)]
-                shard_len = _round_up(
-                    max(max((sum(len(c) for c in cs) for cs, _ in parts), default=1), 1),
-                    cfg.pad_multiple)
-                docs_cap = max(max(len(c) for c, _ in parts), 1)
-                bufs, ends_l, ids_l = [], [], []
-                tok_count = max_len = 0
-                for contents_s, ids_s in parts:
-                    buf, ends, idv = _pack_window(contents_s, ids_s, shard_len, docs_cap)
-                    cnt, ml = DT.host_token_stats(buf, ends)
-                    tok_count = max(tok_count, cnt)
-                    max_len = max(max_len, ml)
-                    bufs.append(buf)
-                    ends_l.append(ends)
-                    ids_l.append(idv)
-                if max_len > width:
-                    raise DT.WidthOverflow(
-                        f"cleaned token of {max_len} letters exceeds "
-                        f"device_tokenize_width={width}")
-                eng.feed(bufs, ends_l, ids_l, tok_count=tok_count, max_len=max_len)
+            for _, parts, cnt, ml in _byte_windows(timer, windows, pack, width=width,
+                                                   read_ms=read_ms, scan_ms=scan_ms):
+                bufs, ends_l, ids_l = map(list, zip(*parts))
+                with timer.step("feed"):
+                    eng.feed(bufs, ends_l, ids_l, tok_count=cnt, max_len=ml)
         timer.count("stream_windows", eng.windows_fed)
+        timer.count("window_read_ms", read_ms)
+        timer.count("window_scan_ms", scan_ms)
         if eng.windows_fed == 0:
             with timer.phase("emit"):
                 formatter.emit_grouped(out_dir, {}, artifact_path=self._artifact_path(out_dir))
@@ -1337,6 +1357,15 @@ class InvertedIndexModel:
             owners = eng.finalize(sort_cols=sort_cols, max_doc_id=max_doc_id, stats=dist_stats)
         for k, v in dist_stats.items():
             timer.count(k, v)
+        timer.count("exchange_bytes", eng.exchange_bytes)
+        timer.count("exchange_valid_rows", eng.exchange_valid_rows)
+        timer.count("exchange_valid_bytes", eng.exchange_valid_bytes)
+        timer.count("owner_rows", eng.owner_rows)
+        cards = sorted({d.index for d in mesh.devices if d.type == "cuda"})
+        if cards:
+            # each card's peak since the process started (no reset: a
+            # caller's own reading of it is left whole)
+            timer.count("card_peak_bytes", [torch.cuda.max_memory_allocated(i) for i in cards])
         return self._merge_emit_owner_blocks(owners, max_doc_id=max_doc_id, out_dir=out_dir,
                                              timer=timer)
 

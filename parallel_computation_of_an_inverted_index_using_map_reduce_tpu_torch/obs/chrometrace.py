@@ -3,8 +3,9 @@
 A build with ``--trace-out FILE`` writes its timeline as a trace
 loadable in ``chrome://tracing`` / Perfetto: one complete ("X"-phase)
 span per event.  Every plan's phases are spans (``obs.timing.PhaseTimer``),
-the streaming all-device plan adds one ``read``, ``pack``, ``scan`` and
-``feed`` span per window, every wait of the host on the card is a
+the streaming all-device plans add one ``read``, ``pack``, ``scan`` and
+``feed`` span per window (on a mesh ``tokenize``, ``exchange`` and
+``merge`` inside each ``feed``), every wait of the host on the card is a
 ``card_wait`` span, and the CLI adds ``manifest`` and ``build``.  The
 host backend records its reads, window scans, emit ranges, merge and
 artifact pack under the JAX package's span names.

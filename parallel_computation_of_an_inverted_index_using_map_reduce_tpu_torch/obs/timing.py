@@ -11,7 +11,8 @@ pipelined ``tokenize_feed``, ``finalize_vocab``; one-shot ``load``,
 ``aborted_device_tokenize`` after a ``WidthOverflow`` one).  The port
 adds ``card_wait_ms`` on the card: the host's time blocked on the card
 (:func:`wait_on_card`), reached through the running build's timer
-(:func:`current`) the way ``faults.current_report()`` reaches its report.
+(:func:`current`) the way ``faults.current_report()`` reaches its report;
+:func:`step` reaches it the same way for steps below the plans.
 
 Given a span collector (``obs.chrometrace.TraceEvents``, ``--trace-out``)
 every phase, :meth:`PhaseTimer.step` and wait on the card is also a span;
@@ -128,16 +129,25 @@ def make_current(timer: PhaseTimer | None) -> None:
         _current = timer
 
 
-def wait_on_card(sync) -> None:
+def step(name: str) -> Step:
+    """A :class:`Step` of the running build (a span with its CPU ms), or
+    a bare timed step outside one: for code below the plans, which
+    reaches the timer the way :func:`wait_on_card` does."""
+    timer = current()
+    return Step(name) if timer is None else timer.step(name)
+
+
+def wait_on_card(sync):
     """Call ``sync``, a blocking wait of the host on the card, and add
-    its time to the running build's ``card_wait_ms`` (and its span)."""
+    its time to the running build's ``card_wait_ms`` (and its span);
+    returns what ``sync`` returns."""
     timer = current()
     if timer is None:
-        sync()
-        return
+        return sync()
     t0 = time.perf_counter()
-    sync()
+    out = sync()
     timer.card_waited(t0, time.perf_counter())
+    return out
 
 
 class OpTimer:

@@ -71,25 +71,40 @@ def _local_mesh_positions(mesh: Mesh) -> dict:
     return dict(zip(mesh.local_positions, mesh.devices))
 
 
-def exchange_rows(send_rows, owner, *, mesh: Mesh, capacity: int):
-    """Bucket each local shard's word rows by ``owner`` (``num_shards``
-    = padding) and run the exchange.  ``send_rows[s]`` is local shard
-    ``s``'s list of equal-length int32 columns.  Returns the per-shard received
-    columns (each ``n * capacity`` long) and the per-shard overflow
-    flags (tensors)."""
+def bucket_rows(owner: torch.Tensor, n: int):
+    """One shard's rows in a stable bucket order by ``owner`` (``n`` =
+    padding): ``(perm, counts, offsets)``, ``counts`` the int32 rows it
+    has for each owner, its own included."""
+    b_s, perm = torch.sort(owner, stable=True)
+    counts, offsets = bucket_edges(b_s, n)
+    return perm, counts, offsets
+
+
+def exchange_buckets(send_rows, buckets, *, mesh: Mesh, capacity: int):
+    """Lay each local shard's bucketed rows (:func:`bucket_rows`) out at
+    ``capacity`` a (source, destination) and run the exchange.
+    ``send_rows[s]`` is local shard ``s``'s list of equal-length int32
+    columns.  Returns the per-shard received columns, each ``n *
+    capacity`` long (source-major, INT32_MAX past each source's rows)."""
     n = mesh.size
-    sends, overflows = [], []
-    for rows, own in zip(send_rows, owner):
-        b_s, perm = torch.sort(own, stable=True)
-        counts, offsets = bucket_edges(b_s, n)
-        overflows.append((counts > capacity).any())
-        sends.append(send_buffer(rows, perm, counts, offsets, capacity=capacity))
+    sends = [send_buffer(rows, perm, counts, offsets, capacity=capacity)
+             for rows, (perm, counts, offsets) in zip(send_rows, buckets)]
     nrows = len(send_rows[0])
     recv = []
     for r in all_to_all(sends, mesh):
         r = r.reshape(n, nrows, capacity)
         recv.append([r[:, i, :].reshape(-1) for i in range(nrows)])
-    return recv, overflows
+    return recv
+
+
+def exchange_rows(send_rows, owner, *, mesh: Mesh, capacity: int):
+    """Bucket each local shard's word rows by ``owner`` (``num_shards``
+    = padding) and run the exchange.  Returns the per-shard received
+    columns (each ``n * capacity`` long) and the per-shard overflow
+    flags (tensors)."""
+    buckets = [bucket_rows(own, mesh.size) for own in owner]
+    overflows = [(counts > capacity).any() for _, counts, _ in buckets]
+    return exchange_buckets(send_rows, buckets, mesh=mesh, capacity=capacity), overflows
 
 
 def _shard_rows(data, ends, ids, *, width: int, tok_cap: int, num_docs: int,
@@ -179,7 +194,7 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
             "count diverged from the device classifier (bug)")
     mx = g[:, 3:].max(axis=0)
     owners = fetch_owner_blocks(
-        blocks, counts=g[:, 3:], local_len=n * capacity, width=width, sort_cols=sort_cols,
+        blocks, counts=g[:, 3:], width=width, sort_cols=sort_cols,
         max_doc_id=max_doc_id, max_words=int(mx[0]), max_pairs=int(mx[1]),
         max_long=int(mx[2]), stats=stats, positions=mesh.local_positions)
     if stats is not None:
@@ -188,7 +203,7 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
     return owners, (max_len, retries)
 
 
-def fetch_owner_blocks(blocks, *, counts: np.ndarray, local_len: int, width: int,
+def fetch_owner_blocks(blocks, *, counts: np.ndarray, width: int,
                        sort_cols: int | None, max_doc_id: int | None, max_words: int,
                        max_pairs: int, max_long: int, stats: dict | None = None,
                        positions=None) -> dict:
@@ -199,7 +214,7 @@ def fetch_owner_blocks(blocks, *, counts: np.ndarray, local_len: int, width: int
     tensors of owner ``positions[i]`` (default: ``i``); ``counts[o]``
     owner o's (words, pairs, long words), for every owner of the mesh;
     ``max_*`` the maxima over every owner, which size one prefix slice
-    for every owner in every process.  Transfer trimming is the single-device
+    for every owner in every process, cut to each block's own length.  Transfer trimming is the single-device
     tail's (``device_tokenizer.fetch_pack``): postings pack 3 doc ids
     per int32 when they fit 10 bits (16 bits under 2^16, int32 above),
     and tail groups travel sparsely.
@@ -207,13 +222,15 @@ def fetch_owner_blocks(blocks, *, counts: np.ndarray, local_len: int, width: int
     ngroups_fetch = min(len(blocks[0]["unique_groups"]), live_groups_for(sort_cols, width))
     narrow = max_doc_id is not None and max_doc_id < (1 << 16)
     k = doc_pack_width(max_doc_id) if max_doc_id else 1
-    # 1k granule: fetched bytes track the largest owner's unique counts
-    nu = min(local_len, round_up(max(max_words, 1), 1 << 10))
-    npairs = min(local_len, round_up(max(max_pairs, 1), 1 << 10))
-    nlong = (min(nu, round_up(max_long, 1 << 10))
-             if ngroups_fetch > 1 and max_long else 0)
     pending = []
     for b in blocks:  # every copy starts before any is read
+        # 1k granule: fetched bytes track the largest owner's unique
+        # counts, within the block's own length
+        local_len = b["df"].shape[0]
+        nu = min(local_len, round_up(max(max_words, 1), 1 << 10))
+        npairs = min(local_len, round_up(max(max_pairs, 1), 1 << 10))
+        nlong = (min(nu, round_up(max_long, 1 << 10))
+                 if ngroups_fetch > 1 and max_long else 0)
         packed = fetch_pack(b, nu=nu, npairs=npairs, nlong=nlong, k=k, live=ngroups_fetch,
                             narrow=narrow)
         pending.append({name: [PendingFetch(t) for t in leaves(v)]

@@ -24,10 +24,12 @@ each of them would see in a ``shard_map`` body:
 - :func:`gather_host` — every position's tensor on the host, the same
   array in every process (an ``all_gather`` inside a group).
 
-Nothing here waits for a card without a group: copies between cards are
-queued like any other work, so shards on different cards overlap.  A
-gloo group moves host tensors, so its collectives stage through pinned
-host memory; the compute stays on the card.
+Nothing here waits for a card without a group but :func:`gather_host`,
+the host's one read, which counts as a wait on the card
+(``obs.timing.wait_on_card``): copies between cards are queued like any
+other work, so shards on different cards overlap.  A gloo group moves
+host tensors, so its collectives stage through pinned host memory; the
+compute stays on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import functools
 import numpy as np
 import torch
 
+from ..obs import timing
 from ..ops.engine import upload
 from . import distributed
 
@@ -50,13 +53,16 @@ class Mesh:
     process's positions' devices, in position order from ``first``.
     ``backend`` is the process group's, or None when one process holds
     every position.  ``sent_bytes`` counts what this process sent to
-    others through ``all_to_all_single``."""
+    others through ``all_to_all_single``; ``exchanged_bytes`` what
+    :func:`all_to_all` moved from this process's positions to other
+    positions, as sent (padding included), with a group or without."""
 
     devices: tuple[torch.device, ...]
     size: int | None = None
     first: int = 0
     backend: str | None = None
     sent_bytes: int = 0
+    exchanged_bytes: int = 0
 
     def __post_init__(self):
         if self.size is None:
@@ -181,6 +187,7 @@ def all_to_all(sends: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
     ``cat([sends[s][d] for s in range(n)])`` (source-major), on its own
     device."""
     n = mesh.size
+    mesh.exchanged_bytes += len(sends) * (n - 1) * sends[0][0].numel() * sends[0].element_size()
     if mesh.backend is None:
         return [torch.cat([sends[s][d].to(mesh.devices[d], non_blocking=True)
                            for s in range(n)]) for d in range(n)]
@@ -252,17 +259,21 @@ def pmax(parts: list[torch.Tensor], mesh: Mesh) -> torch.Tensor:
 def gather_host(parts: list[torch.Tensor], mesh: Mesh) -> np.ndarray:
     """Stack every position's tensor (one shape) and read them on the
     host, the same array in every process: one wait for the cards,
-    however many positions."""
+    however many positions, counted as the running build's wait on the
+    card (``card_wait``)."""
     dev = mesh.devices[0]
     local = torch.stack([p.to(dev, non_blocking=True) for p in parts])
     if mesh.backend is None:
-        return local.cpu().numpy()
+        return timing.wait_on_card(lambda: local.cpu().numpy())
     import torch.distributed as dist
 
-    t = _to_group(local, mesh)
-    got = [torch.empty_like(t) for _ in range(mesh.size // len(mesh.devices))]
-    dist.all_gather(got, t)
-    return torch.cat(got).cpu().numpy()
+    def gather() -> np.ndarray:
+        t = _to_group(local, mesh)
+        got = [torch.empty_like(t) for _ in range(mesh.size // len(mesh.devices))]
+        dist.all_gather(got, t)
+        return torch.cat(got).cpu().numpy()
+
+    return timing.wait_on_card(gather)
 
 
 def agree_max(values: list[int], mesh: Mesh) -> list[int]:

@@ -136,22 +136,40 @@ def _stream_windows(n: int, seed: int):
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("initial_capacity", [16, 1 << 15])
 def test_dist_device_stream_engine_matches_jax(n, initial_capacity):
+    """The same owner blocks as the JAX engine.  The port dedups each
+    shard's window before the exchange and sizes the exchange and every
+    merge from the window's read, so it never retries: an owner's
+    accumulator holds at least ``initial_capacity`` rows, and more only
+    as its rows need, where the JAX engine doubles a capacity and
+    retries.  ``capacity`` is the longest owner's."""
     windows, max_doc = _stream_windows(n, seed=20 + n)
     port = tdds.DistDeviceStreamEngine(width=48, mesh=M.make_mesh(n, "cpu"),
                                        window_pad=256, initial_capacity=initial_capacity)
     jeng = jdds.DistDeviceStreamEngine(width=48, mesh=jax_mesh(n), window_pad=256,
                                        initial_capacity=initial_capacity)
+    caps = []
     for bufs, ends, ids, tok_count, max_len in windows:
         port.feed(bufs, ends, ids, tok_count=tok_count, max_len=max_len)
         jeng.feed(_fresh(bufs), _fresh(ends), _fresh(ids), tok_count=tok_count, max_len=max_len)
-        assert (port.capacity, port.merge_retries) == (jeng.capacity, jeng.merge_retries)
+        assert port.merge_retries == 0 and port.capacity >= initial_capacity
+        caps.append(port.capacity)
     if initial_capacity == 16:
-        assert port.merge_retries >= 1
+        assert jeng.merge_retries >= 1 and caps[-1] > caps[0] > 16
+    else:
+        assert caps == [initial_capacity] * len(windows)
     sort_cols = -(-port.max_word_len // 4)
     tstats, jstats = {}, {}
     got = port.finalize(sort_cols=sort_cols, max_doc_id=max_doc, stats=tstats)
     want = jeng.finalize(sort_cols=sort_cols, max_doc_id=max_doc, stats=jstats)
-    assert tstats == jstats
+    if initial_capacity == 16:
+        # the fetch trims to the port's tighter accumulators
+        assert tstats.keys() == jstats.keys()
+        assert tstats["dist_fetched_bytes"] <= jstats["dist_fetched_bytes"]
+        assert tstats["merge_retries"] == 0
+        assert tstats["accumulator_capacity_per_owner"] == caps[-1]
+    else:
+        assert tstats == jstats
+    assert caps[-1] >= max(ow["num_pairs"] for ow in got.values())
     _assert_owners_equal(got, want)
 
 
@@ -175,7 +193,7 @@ def test_dist_device_stream_engine_keeps_the_sort_merge(monkeypatch):
     eng = tdds.DistDeviceStreamEngine(width=48, mesh=M.make_mesh(2, "cpu"), window_pad=256)
     bufs, ends, ids, tok_count, max_len = windows[0]
     eng.feed(bufs, ends, ids, tok_count=tok_count, max_len=max_len)
-    assert calls == [eng.capacity] * 2  # one fold per owner
+    assert len(calls) == 2 and max(calls) == eng.capacity  # one fold per owner
 
 
 def test_dist_device_stream_engine_refuses_finalize_before_feed():
