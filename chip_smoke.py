@@ -270,7 +270,10 @@ Phases, each failing loudly (exit 1, no result line):
    merge on the benchmark's corpus (an accumulator of 16,777,216 rows
    holding 6,200,000, a window of 2,555,904 holding 880,000, 9 columns,
    group 0 live); Path F must launch it once a window with no duplicate
-   row.
+   row.  ``tokenize_window`` is checked and timed at the benchmark cell's
+   window (2,500 documents of 1,000 Zipf words, 19.9 MB, width 48, group
+   0 live) against its plain version, ``tokenize_groups``; Paths F and O6
+   must launch it once a window.
 20. Engine: the warm device time of each engine program a path runs, at
    that path's shape from this run — index_u16 (Path A's numpy leg),
    index_prededuped_u16 (Path A's deduped pairs), index_packed (Path B),
@@ -290,7 +293,8 @@ same ``--artifact`` build and Path N alone; ``--cluster-only`` the build,
 the same ``--artifact`` build and Path O alone; ``--multiprocess-only``
 the build, Path C and Path P alone; ``--sanitize-only`` the build, Path
 A's oracle, the same ``--artifact`` build and Path Q alone; ``--merge-only``
-the build and the merge kernel's check and timing alone.
+the build and the merge kernel's check and timing alone; ``--tokenize-only``
+the build and the tokenize kernel's check, timing and ptxas report alone.
 
 Every path runs through ``cli.main`` (the function behind
 ``python -m parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch``)
@@ -572,6 +576,64 @@ def phase_merge(torch, K) -> dict:
         "max_abs_err": bad, "parity": bad == 0, "ms": ms, "kernel_ms": ms, "ms_min": lo,
         "ms_max": hi, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "bound_bytes": nbytes, "library_ms": None,
+    }
+
+
+def phase_tokenize(torch, K, ptxas: str) -> dict:
+    """``tokenize_window`` at the benchmark cell's window: 2,500 documents
+    of ``portbench``'s corpus for ``zipf100k-docs20k`` (1,000 Zipf words
+    of 2-10 letters over 100,000, 19.9 MB) packed as the streaming plan
+    packs a window, width 48 with group 0 live, ``tok_cap`` the token
+    count rounded up to 16,384.  The kernel against its plain version
+    (``tokenize_groups``, the byte-scale PyTorch chain), exact, then both
+    timed as the other kernels are; the bound: the window's bytes read and
+    the 3 columns of the capacity written, at 3.35 TB/s.  ``ptxas`` is
+    nvcc's report for the source, when this run built it."""
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.models import (
+        inverted_index as MI)
+    from parallel_computation_of_an_inverted_index_using_map_reduce_tpu_torch.ops import (
+        device_tokenizer as DT)
+    from portbench import gen
+
+    params = json.loads((ROOT / "portbench/configs/zipf100k-docs20k.json").read_text())
+    corpus = gen.corpus({**params, "documents": 2500}, 20)
+    docs = [corpus.doc(i) for i in range(len(corpus))]
+    buf, ends, idv = MI._pack_window(docs, list(range(1, len(docs) + 1)),
+                                     round_up(sum(len(d) for d in docs), 256))
+    count, max_len = DT.host_token_stats(buf, ends)
+    width, sort_cols = 48, -(-max_len // 4)
+    tok_cap = round_up(count + 1, 1 << 14)
+    args = tuple(torch.from_numpy(a).cuda() for a in (buf, ends, idv))
+    kw = dict(width=width, tok_cap=tok_cap, num_docs=len(ends), sort_cols=sort_cols)
+    K.reset_launch_counts()
+    got = K.tokenize_window(*args, **kw)
+    want = DT.tokenize_groups(*args, **kw)
+    torch.cuda.synchronize()
+    check(K.tokenize_window.launches == 1, "tokenize_window did not launch")
+    flat = [(a, b) for g, w in zip(got[0], want[0]) for a, b in zip(g, w)]
+    flat += list(zip(got[1:], want[1:]))
+    bad = sum(int((a != b).sum()) for a, b in flat)
+    check(bad == 0, f"tokenize_window != plain at the cell's window: {bad} differences")
+    check((int(got[2]), int(got[3])) == (max_len, count),
+          f"tokenize_window counts {int(got[2])}, {int(got[3])} != host {max_len}, {count}")
+    live = DT.live_groups_for(sort_cols, width)
+    del got, want, flat
+    ms, lo, hi = cuda_ms(torch, lambda: K.tokenize_window(*args, **kw))
+    plain_ms = cuda_ms(torch, lambda: DT.tokenize_groups(*args, **kw), iters=5, warmup=1,
+                       repeats=3)[0]
+    nbytes = int(buf.shape[0]) + (2 * live + 1) * 4 * tok_cap
+    b_ms, b_by = bound(nbytes, 8 * int(buf.shape[0]))
+    return {
+        "name": "tokenize_window", "route": "cuda",
+        "source": f"{PKG}/csrc/tokenize_window.cu", "replaces": None,
+        "shape": {"bytes": int(buf.shape[0]), "documents": len(docs), "tokens": count,
+                  "tok_cap": tok_cap, "width": width, "live_groups": live,
+                  "max_word_len": max_len},
+        "max_abs_err": bad, "parity": bad == 0, "ms": ms, "kernel_ms": ms, "ms_min": lo,
+        "ms_max": hi, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_bytes": nbytes, "library_ms": None,
+        "ptxas": [line.strip() for line in ptxas.splitlines()
+                  if "registers" in line or "Compiling entry" in line],
     }
 
 
@@ -870,7 +932,7 @@ def print_path(name: str, stats: dict, launches: dict, **extra) -> None:
         "device_shards", "dist_fetched_bytes", "dist_valid_pairs", "emit_ownership",
         "letter_owners", "exchange_retries", "exchange_capacity", "merge_retries",
         "accumulator_capacity_per_owner", "stream_merge_kernel_launches",
-        "stream_merge_dup_rows")
+        "stream_merge_dup_rows", "stream_tokenize_kernel_launches")
         if k in stats}
     print(f"phase {name}: {json.dumps(fields)} md5={stats['md5']} launches={launches} "
           + " ".join(f"{k}={v}" for k, v in extra.items())
@@ -1734,7 +1796,7 @@ def path_k(torch, K, cli, formatter, faults, list_a: Path, list_b: Path, tmp: Pa
               and not {"load", "tokenize"} & set(s_res["phases_ms"]),
               f"path K1 resume did not resume: phases {sorted(s_res['phases_ms'])}")
         check(launches == {"unique_mask_count": 1, "bucket_histogram": 2,
-                           "merge_sorted_rows": 0},
+                           "merge_sorted_rows": 0, "tokenize_window": 0},
               f"path K1 resume launches {launches}, want Path B's 1 and 2")
         check((s_res["unique_pairs"], s_res["unique_terms"])
               == (stats_b["unique_pairs"], stats_b["unique_terms"]),
@@ -3618,6 +3680,12 @@ def path_o(torch, K, cli, manifest_mod, synthetic, build_index, IndexConfig, ora
                             tmp / f"O6_{name}", f"path O6 {name}")
         check(s["md5"] == md5_oracle, f"path O6 {name}: md5 {s['md5']} != oracle {md5_oracle}")
         check("device_tokenize_fallback" not in s, f"path O6 {name}: fell back")
+        if name == "stream_all_device":
+            check(leg["tokenize_window"] == s["stream_tokenize_kernel_launches"]
+                  == s["stream_windows"],
+                  f"path O6 {name}: tokenize kernel launches {leg['tokenize_window']} / "
+                  f"{s['stream_tokenize_kernel_launches']}, want one a window "
+                  f"({s['stream_windows']})")
         print_path(f"path_o6_{name}", s, leg, oracle_md5=md5_oracle, card=repr(card))
         out[f"o6_{name}"] = {"total_ms": s["total_ms"], "unique_terms": s["unique_terms"],
                              "max_memory_allocated": s["max_memory_allocated"],
@@ -3674,12 +3742,14 @@ def launch_counts(K) -> dict:
     ``K.reset_launch_counts()``."""
     return {"unique_mask_count": K.unique_mask_count.launches,
             "bucket_histogram": K.bucket_histogram.launches,
-            "merge_sorted_rows": K.merge_sorted_rows.launches}
+            "merge_sorted_rows": K.merge_sorted_rows.launches,
+            "tokenize_window": K.tokenize_window.launches}
 
 
 def add_launches(counts) -> dict:
     """The sum of several :func:`launch_counts`."""
-    total = {"unique_mask_count": 0, "bucket_histogram": 0, "merge_sorted_rows": 0}
+    total = {"unique_mask_count": 0, "bucket_histogram": 0, "merge_sorted_rows": 0,
+             "tokenize_window": 0}
     for c in counts:
         for name in total:
             total[name] += c[name]
@@ -3914,7 +3984,9 @@ def path_p(torch, formatter, list_b: Path, tmp: Path, md5_c: str, card: str) -> 
     in turn in one group of two processes (gloo: they share the card)
     with 2 local shards each; P4 P1's build in a one-process group (NCCL,
     4 local shards).  Returns the children's kernel launches in their
-    legs, summed (the path launches no kernel of ``csrc/``)."""
+    legs, summed: the all-device legs launch ``tokenize_window`` once a
+    shard and window (P1, P4: 4; P3: 4 a window), and no leg another
+    kernel of ``csrc/``."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -3931,7 +4003,12 @@ def path_p(torch, formatter, list_b: Path, tmp: Path, md5_c: str, card: str) -> 
     launches = add_launches(leg["launches"] for leg in legs.values())
     print(f"phase path_p_done: card={card} seconds={time.perf_counter() - t0:.1f} "
           f"legs={list(legs)} launches={launches}", flush=True)
-    check(not any(launches.values()), f"path P launched a kernel of csrc/: {launches}")
+    windows = legs["P3"]["processes"][0]["report"]["stream_windows"]
+    want = {"P1": 4, "P2": 0, "P3": 4 * windows, "P4": 4}
+    got = {leg: legs[leg]["launches"]["tokenize_window"] for leg in legs}
+    check(got == want and not any(v for k, v in launches.items() if k != "tokenize_window"),
+          f"path P launches {launches}, tokenize_window by leg {got}: want {want} and no "
+          "other kernel of csrc/")
     return launches
 
 
@@ -4276,7 +4353,7 @@ def mesh_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card: str, 
 
 
 MODES = ("--mesh-only", "--serve-only", "--segments-only", "--cluster-only",
-         "--multiprocess-only", "--sanitize-only", "--merge-only")
+         "--multiprocess-only", "--sanitize-only", "--merge-only", "--tokenize-only")
 
 
 def main() -> int:
@@ -4356,9 +4433,12 @@ def main() -> int:
         if mode == ["--sanitize-only"]:
             return sanitize_only_run(torch, K, cli, formatter, synthetic, manifest_mod, card,
                                      kind, sanitized)
-        if mode == ["--merge-only"]:
-            merge = phase_merge(torch, K)
-            print(f"phase merge: {json.dumps(merge)}", flush=True)
+        if mode in (["--merge-only"], ["--tokenize-only"]):
+            if mode == ["--merge-only"]:
+                print(f"phase merge: {json.dumps(phase_merge(torch, K))}", flush=True)
+            else:
+                tok = phase_tokenize(torch, K, built["ptxas"].get("tokenize_window", ""))
+                print(f"phase tokenize: {json.dumps(tok)}", flush=True)
             print(card)
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                      "count": torch.cuda.device_count()}}))
@@ -4548,6 +4628,12 @@ def main() -> int:
                   f"path F: merge kernel launches {launches_f['merge_sorted_rows']} / "
                   f"{stats_f['stream_merge_kernel_launches']}, duplicate rows "
                   f"{stats_f['stream_merge_dup_rows']}; want 8 / 8 and 0")
+            # every window tokenized by the kernel
+            check(launches_f["tokenize_window"] == stats_f["stream_tokenize_kernel_launches"]
+                  == stats_f["stream_windows"],
+                  f"path F: tokenize kernel launches {launches_f['tokenize_window']} / "
+                  f"{stats_f['stream_tokenize_kernel_launches']}, want one a window "
+                  f"({stats_f['stream_windows']})")
             print_path("path_f", stats_f, launches_f, path_b_md5=stats_b["md5"])
             launches_by_path["F"] = launches_f
 
@@ -4685,6 +4771,7 @@ def main() -> int:
             "F_overflow": (stats_fo["accumulator_capacity"], stats_fo["unique_pairs"],
                            stats_fo["unique_terms"], 355)})
         kernels.append(phase_merge(torch, K))
+        kernels.append(phase_tokenize(torch, K, built["ptxas"].get("tokenize_window", "")))
         for k in kernels:
             print(f"phase kernels: {k['name']} exact={k['parity']} ms={k['ms']:.4f} "
                   f"(min {k['ms_min']:.4f} max {k['ms_max']:.4f}) "

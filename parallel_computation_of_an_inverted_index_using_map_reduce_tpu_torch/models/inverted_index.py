@@ -948,6 +948,7 @@ class InvertedIndexModel:
         eng = DeviceStreamEngine(width=width, device=device)
         fed_tokens = 0
         merges_before = kernels.merge_sorted_rows.launches
+        tokenizes_before = kernels.tokenize_window.launches
 
         ckpt_path = cfg.stream_checkpoint
         resume_from = 0
@@ -1053,6 +1054,10 @@ class InvertedIndexModel:
         # already in the accumulator
         timer.count("stream_merge_kernel_launches",
                     kernels.merge_sorted_rows.launches - merges_before)
+        # the tokenize kernel's launches, one a window on the card (0 on the
+        # CPU, which tokenizes with its plain version)
+        timer.count("stream_tokenize_kernel_launches",
+                    kernels.tokenize_window.launches - tokenizes_before)
         timer.count("stream_merge_dup_rows", eng.merge_dup_rows)
         timer.count("window_read_ms", read_ms)
         timer.count("window_scan_ms", scan_ms)
@@ -1321,6 +1326,7 @@ class InvertedIndexModel:
         timer.count("device_shards", n)
         timer.count("documents", len(manifest))
         eng = DistDeviceStreamEngine(width=width, mesh=mesh)
+        tokenizes_before = kernels.tokenize_window.launches
 
         def pack(contents, ids):
             # byte-balanced contiguous doc split of this window — the
@@ -1344,6 +1350,9 @@ class InvertedIndexModel:
                 with timer.step("feed"):
                     eng.feed(bufs, ends_l, ids_l, tok_count=cnt, max_len=ml)
         timer.count("stream_windows", eng.windows_fed)
+        # one launch a shard-window on the cards, 0 on the CPU
+        timer.count("stream_tokenize_kernel_launches",
+                    kernels.tokenize_window.launches - tokenizes_before)
         timer.count("window_read_ms", read_ms)
         timer.count("window_scan_ms", scan_ms)
         if eng.windows_fed == 0:

@@ -10,11 +10,13 @@ the output's unique-pair count, not the stream length.  The
 accumulator discipline of the integer-pair streaming engine
 (ops/streaming.py), lifted from packed ints to word rows:
 
-    per window:  rows  <- tokenize_groups ► sort ► dedup
+    per window:  rows  <- tokenize ► sort ► dedup
                  acc   <- merge(acc, rows)
 
-as torch calls and one hand-written merge kernel (``kernels.merge_sorted_rows``:
-both operands are sorted and unique, so the merge needs no sort), with
+as torch calls and two hand-written kernels (``kernels.tokenize_window``,
+which tokenizes the window in one read of its bytes, and
+``kernels.merge_sorted_rows``: both operands are sorted and unique, so
+the merge needs no sort), with
 sizes fixed by the host and no wait on the card in the stream loop: the
 host bounds the unique rows by the tokens fed (``host_token_stats``,
 already computed per window for ``tok_cap``) and doubles the capacity
@@ -41,8 +43,7 @@ import torch
 from .. import faults
 from ..utils.rounding import round_up
 from . import engine, kernels
-from .device_tokenizer import (INT32_MAX, groups_sort_perm, live_groups_for, num_groups_for,
-                               tokenize_groups)
+from .device_tokenizer import INT32_MAX, groups_sort_perm, live_groups_for, num_groups_for
 from .segment import _rank_slots, first_occurrence_mask, set_bit_positions
 
 
@@ -82,7 +83,7 @@ def window_rows(data, doc_ends, doc_id_values, *, width: int, tok_cap: int, num_
     max_word_len, num_tokens]`` for the caller's divergence checks (read
     later, never inside the stream loop).
     """
-    groups, doc_col, max_word_len, num_tokens = tokenize_groups(
+    groups, doc_col, max_word_len, num_tokens = kernels.tokenize_window(
         data, doc_ends, doc_id_values, width=width, tok_cap=tok_cap,
         num_docs=num_docs, sort_cols=sort_cols)
     live = live_groups_for(sort_cols, width)

@@ -46,7 +46,7 @@ import functools
 import numpy as np
 import torch
 
-from . import segment
+from . import kernels, segment
 
 INT32_MAX = 2**31 - 1
 
@@ -389,7 +389,9 @@ def sort_dedup_groups(groups, doc_col, cap: int, live: int):
 
 def index_bytes_device(data, doc_ends, doc_id_values, *, width: int, tok_cap: int,
                        num_docs: int, sort_cols: int | None = None) -> dict:
-    """bytes -> sorted, deduped index, entirely on ``data``'s device.
+    """bytes -> sorted, deduped index, entirely on ``data``'s device
+    (tokenized by ``kernels.tokenize_window``, whose plain version is
+    :func:`tokenize_groups`).
 
     ``data``: uint8 (N,) — concatenated documents, padded with spaces
     (0x20).  ``doc_ends``: int32 (num_docs,) exclusive end offsets.
@@ -407,7 +409,7 @@ def index_bytes_device(data, doc_ends, doc_id_values, *, width: int, tok_cap: in
     5-bit ``unique_groups`` pairs; the host decodes them at vocab scale
     (:func:`decode_word_groups`).
     """
-    groups, doc_col, max_word_len, num_tokens = tokenize_groups(
+    groups, doc_col, max_word_len, num_tokens = kernels.tokenize_window(
         data, doc_ends, doc_id_values, width=width, tok_cap=tok_cap,
         num_docs=num_docs, sort_cols=sort_cols)
     num_words, num_pairs, df, postings, unique_groups = sort_dedup_groups(

@@ -1,4 +1,4 @@
-"""The engine's three hand-written CUDA kernels, their plain versions and
+"""The engine's four hand-written CUDA kernels, their plain versions and
 their build.
 
 - :func:`unique_mask_count` (``csrc/unique_mask_count.cu``) — the reduce
@@ -9,9 +9,13 @@ their build.
 - :func:`merge_sorted_rows` (``csrc/merge_rows.cu``) — the streaming
   all-device engine's fold of a sorted-unique window of word rows into
   its sorted-unique accumulator, a merge path with no sort.
+- :func:`tokenize_window` (``csrc/tokenize_window.cu``) — the all-device
+  plans' tokenizer: a byte window to its token rows in one read of the
+  bytes.
 
 Each wrapper runs the kernel for a CUDA tensor and the plain PyTorch
-version (``*_plain``) for a CPU tensor; any other device raises.  There
+version (``*_plain``; for the tokenizer ``device_tokenizer.tokenize_groups``)
+for a CPU tensor; any other device raises.  There
 is no fallback from one to the other.  ``wrapper.launches`` counts the
 kernel launches, so a run can show that it went through the kernel.
 
@@ -49,6 +53,8 @@ _SPECS = {
     "bucket_histogram": ("mri_bucket_histogram", [_VP, _LL, _I, _VP, _I, _VP]),
     "merge_rows": ("mri_merge_sorted_rows", [_PP, _LL, _PP, _LL, _I, _I, _VP, _VP, _PP, _LL,
                                              _VP, _VP, _LL, _I, _VP]),
+    "tokenize_window": ("mri_tokenize_window", [_VP, _LL, _VP, _LL, _VP, _I, _I, _I, _PP, _LL,
+                                                _VP, _VP, _VP, _LL, _I, _VP]),
 }
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -296,7 +302,81 @@ def merge_sorted_rows(acc, window, acc_count: torch.Tensor, win_count: torch.Ten
 merge_sorted_rows.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# tokenize_window
+# ---------------------------------------------------------------------------
+
+# bytes a block of csrc/tokenize_window.cu takes, which sizes its scratch
+_TOKENIZE_TILE = 8192
+# the widest row the kernel packs: device_tokenize_width's bound (config.py)
+_TOKENIZE_MAX_WIDTH = 296
+
+
+def tokenize_window(data, doc_ends, doc_id_values, *, width: int, tok_cap: int,
+                    num_docs: int, sort_cols: int | None = None) -> tuple:
+    """A byte window's token rows: ``(groups, doc_col, max_word_len,
+    num_tokens)``, exactly what its plain version,
+    ``device_tokenizer.tokenize_groups`` (the byte-scale PyTorch chain),
+    returns.
+
+    ``data``: uint8 bytes; ``doc_ends``: ascending int32 document ends
+    (ends equal to the byte count are padding); ``doc_id_values``: int32
+    ids, the first ``num_docs`` used; each 1-D and contiguous, all on one
+    device.  ``groups`` holds ``num_groups_for(width)`` (hi, lo) pairs of
+    ``tok_cap`` int32 rows, the pairs past ``live_groups_for(sort_cols,
+    width)`` one zero column; ``max_word_len`` and ``num_tokens`` are
+    int32 scalars on the card, so the host never waits.
+    """
+    from .device_tokenizer import live_groups_for, num_groups_for, tokenize_groups
+
+    tensors = (("data", data, torch.uint8), ("doc_ends", doc_ends, torch.int32),
+               ("doc_id_values", doc_id_values, torch.int32))
+    for name, t, dtype in tensors:
+        if t.device != data.device:
+            raise ValueError(f"tokenize_window: tensors on {t.device} and {data.device}")
+        _check_device(t, "tokenize_window")
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"tokenize_window: {name} needs a contiguous 1-D {dtype} tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    n = data.shape[0]
+    if width % 4 or not 4 <= width <= _TOKENIZE_MAX_WIDTH:
+        raise ValueError(f"tokenize_window: width {width} is not a multiple of 4 in "
+                         f"[4, {_TOKENIZE_MAX_WIDTH}]")
+    if not 0 <= tok_cap < 2**31 or n >= 2**31:
+        raise ValueError(f"tokenize_window: tok_cap {tok_cap} or {n} bytes out of int32 range")
+    if not 1 <= num_docs <= doc_id_values.shape[0]:
+        raise ValueError(f"tokenize_window: num_docs {num_docs} not in "
+                         f"[1, {doc_id_values.shape[0]}]")
+    if n == 0 and tok_cap:
+        raise ValueError("tokenize_window: an empty window has no token slots: tok_cap must be 0")
+    if data.device.type == "cpu":
+        return tokenize_groups(data, doc_ends, doc_id_values, width=width, tok_cap=tok_cap,
+                               num_docs=num_docs, sort_cols=sort_cols)
+    dev = data.device
+    live = live_groups_for(sort_cols, width)
+    ncols = 2 * live + 1
+    cols = torch.empty((ncols, tok_cap), dtype=torch.int32, device=dev).unbind(0)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    scratch_len = max(-(-n // _TOKENIZE_TILE), 1)
+    scratch = torch.empty(scratch_len, dtype=torch.int64, device=dev)
+    ptrs = ctypes.c_void_p * ncols
+    _launch("tokenize_window", data.data_ptr(), n, doc_ends.data_ptr(), doc_ends.shape[0],
+            doc_id_values.data_ptr(), num_docs, width, live, ptrs(*(c.data_ptr() for c in cols)),
+            tok_cap, counts[0].data_ptr(), counts[1].data_ptr(), scratch.data_ptr(), scratch_len,
+            *_stream_args(data))
+    tokenize_window.launches += 1
+    groups = [(cols[2 * g], cols[2 * g + 1]) for g in range(live)]
+    if live < num_groups_for(width):
+        zero = torch.zeros(tok_cap, dtype=torch.int32, device=dev)
+        groups.extend((zero, zero) for _ in range(num_groups_for(width) - live))
+    return tuple(groups), cols[-1], counts[0], counts[1]
+
+
+tokenize_window.launches = 0
+
+
 def reset_launch_counts() -> None:
     unique_mask_count.launches = 0
     bucket_histogram.launches = 0
     merge_sorted_rows.launches = 0
+    tokenize_window.launches = 0

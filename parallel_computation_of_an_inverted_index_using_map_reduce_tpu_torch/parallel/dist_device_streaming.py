@@ -14,7 +14,7 @@ The last cell of {device scan} x {mesh} x {streaming}:
 
 Per window, for every shard:
 
-    rows   <- unique(sort(tokenize_groups(local byte shard)))
+    rows   <- unique(sort(tokenize_window(local byte shard)))
     counts <- bucket(rows, mix32 % n)        read on the host
     recv   <- all_to_all(rows, capacity = the largest bucket)
     acc_o  <- compact(unique(sort(acc_o[:count_o] ++ recv[valid])))

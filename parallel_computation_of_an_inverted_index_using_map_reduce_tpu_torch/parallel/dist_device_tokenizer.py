@@ -13,7 +13,7 @@ whole letters (the per-owner letter emit).
 
 Per shard:
 
-    rows   <- tokenize_groups(bytes_shard)
+    rows   <- tokenize_window(bytes_shard)
     owner  <- mix32(word columns) % n
     recv   <- all_to_all(bucket(rows, owner))
     index  <- sort_dedup_groups(recv)
@@ -33,9 +33,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import kernels
 from ..ops.device_tokenizer import (INT32_MAX, doc_pack_width, fetch_pack, live_groups_for,
                                     num_groups_for, rebuild_tail_groups, sort_dedup_groups,
-                                    tokenize_groups, unpack_postings)
+                                    unpack_postings)
 from ..ops.engine import PendingFetch, host_view, leaves
 from ..ops.segment import bucket_edges
 from ..utils.rounding import round_up
@@ -111,7 +112,7 @@ def _shard_rows(data, ends, ids, *, width: int, tok_cap: int, num_docs: int,
                 sort_cols: int | None, num_shards: int, owner_of_letter):
     """One shard's tokenize and owner assignment: ``(send_rows, owner,
     max_len, num_tokens)``."""
-    groups, doc_col, max_len, num_tokens = tokenize_groups(
+    groups, doc_col, max_len, num_tokens = kernels.tokenize_window(
         data, ends, ids, width=width, tok_cap=tok_cap, num_docs=num_docs, sort_cols=sort_cols)
     live = live_groups_for(sort_cols, width)
     # group pairs past the host-exact sort_cols bound are zero in every

@@ -104,6 +104,8 @@ def test_any_window_size_matches_the_oracle(chunk, tmp_path):
     # the CPU merges with the kernel's plain version; windows of distinct
     # documents share no row
     assert stats["stream_merge_kernel_launches"] == 0
+    # and tokenizes with the tokenize kernel's plain version
+    assert stats["stream_tokenize_kernel_launches"] == 0
     assert stats["stream_merge_dup_rows"] == 0
 
 

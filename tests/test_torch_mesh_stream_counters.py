@@ -163,6 +163,8 @@ def test_spans_nest_per_window(mesh_build):
     n, docs, st, spans, _, _ = mesh_build
     windows = -(-len(docs) // CHUNK)
     assert st["stream_windows"] == windows and st["merge_retries"] == 0
+    # the CPU positions tokenize with the tokenize kernel's plain version
+    assert st["stream_tokenize_kernel_launches"] == 0
     assert st["device_shards"] == n
     for name, parent in (("read", "stream_feed"), ("pack", "stream_feed"),
                          ("scan", "stream_feed"), ("feed", "stream_feed"),
