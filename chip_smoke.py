@@ -815,10 +815,10 @@ def engine_device_stream(torch, m, stats_f: dict, chunk_docs: int, pad_multiple:
            "device_stream_feed_peak_bytes": torch.cuda.max_memory_allocated()}
     check(eng.capacity == stats_f["accumulator_capacity"],
           f"engine: capacity {eng.capacity} != path F's {stats_f['accumulator_capacity']}")
-    acc, groups = eng._acc, eng._num_groups
+    acc, groups, live = eng._acc, eng._num_groups, eng._live_groups
     out["device_stream_finalize_ms"] = cuda_ms(
-        torch, lambda: DS.finalize_rows_body(acc, num_groups=groups), iters=5, warmup=1,
-        repeats=3)
+        torch, lambda: DS.finalize_rows_body(acc, num_groups=groups, live_groups=live),
+        iters=5, warmup=1, repeats=3)
     res = eng.finalize()
     counts = res["counts"].cpu().tolist()
     check(counts[:2] == [stats_f["unique_terms"], stats_f["unique_pairs"]],

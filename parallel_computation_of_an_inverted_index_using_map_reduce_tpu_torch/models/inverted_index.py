@@ -848,15 +848,8 @@ class InvertedIndexModel:
                 # the one sync: all five counts in one tensor
                 num_words, num_pairs, max_len, num_tokens, num_long = (
                     int(v) for v in out["counts"].cpu().numpy())
-                if num_tokens + 1 > tok_cap:
-                    raise AssertionError(
-                        f"device token count {num_tokens} exceeded "
-                        f"tok_cap {tok_cap}: host mask count diverged "
-                        "from the device classifier (bug)")
-                if max_len != host_max_len:
-                    raise AssertionError(
-                        f"device max word len {max_len} != host "
-                        f"{host_max_len}: classifier divergence (bug)")
+                DT.check_token_count(num_tokens, tok_cap)
+                DT.check_max_word_len(max_len, host_max_len)
         del staged
         timer.count("unique_terms", num_words)
         timer.count("unique_pairs", num_pairs)
@@ -1223,10 +1216,7 @@ class InvertedIndexModel:
                 bufs, ends_l, ids_l, width=width, tok_cap=tok_cap, mesh=mesh,
                 stats=dist_stats, sort_cols=sort_cols, max_doc_id=max_doc_id,
                 owner_of_letter=owner_of_letter)
-            if max_len != host_max_len:
-                raise AssertionError(
-                    f"device max word len {max_len} != host {host_max_len}: "
-                    "classifier divergence (bug)")
+            DT.check_max_word_len(max_len, host_max_len)
         for k, v in dist_stats.items():
             timer.count(k, v)
 

@@ -10,14 +10,17 @@ the output's unique-pair count, not the stream length.  The
 accumulator discipline of the integer-pair streaming engine
 (ops/streaming.py), lifted from packed ints to word rows:
 
-    per window:  rows  <- tokenize ► sort ► dedup
+    per window:  rows  <- sort_unique_rows(tokenize_window(bytes))
                  acc   <- merge(acc, rows)
+    at the end:  index <- finalize_rows_body(acc)
 
-as torch calls and two hand-written kernels (``kernels.tokenize_window``,
-which tokenizes the window in one read of its bytes, and
-``kernels.merge_sorted_rows``: both operands are sorted and unique, so
-the merge needs no sort), with
-sizes fixed by the host and no wait on the card in the stream loop: the
+``sort_unique_rows`` and ``finalize_rows_body`` are the word-row
+reduction of ``ops/device_tokenizer.py``, the one every all-device plan
+runs (one-shot or streaming, one card or the mesh); the two kernels are
+hand-written (``kernels.tokenize_window``, which tokenizes the window in
+one read of its bytes, and ``kernels.merge_sorted_rows``: both operands
+are sorted and unique, so the merge needs no sort).  Sizes are fixed by
+the host and no wait on the card in the stream loop: the
 host bounds the unique rows by the tokens fed (``host_token_stats``,
 already computed per window for ``tok_cap``) and doubles the capacity
 *before* a window that could overflow it; the merge writes straight
@@ -43,39 +46,16 @@ import torch
 from .. import faults
 from ..utils.rounding import round_up
 from . import engine, kernels
-from .device_tokenizer import INT32_MAX, groups_sort_perm, live_groups_for, num_groups_for
-from .segment import _rank_slots, first_occurrence_mask, set_bit_positions
-
-
-def _row_first_mask(rows) -> torch.Tensor:
-    """First-occurrence mask over sorted (group halves…, doc) rows;
-    ``rows[0]`` (group 0's hi) is INT32_MAX on padding rows, which never
-    count."""
-    neq = first_occurrence_mask(rows[0])
-    for r in rows[1:]:
-        neq = neq | first_occurrence_mask(r)
-    return neq & (rows[0] != INT32_MAX)
-
-
-def _compact_rows(rows: list, mask: torch.Tensor, out_cap: int) -> tuple:
-    """Stable compaction of every column of a row list into ``out_cap``
-    slots: the rank slots are computed once per mask and each column is
-    scattered with them; dropped slots become padding rows (INT32_MAX in
-    every column, so later sorts push them last).  The list's entries
-    are released one by one as they are consumed."""
-    slots = _rank_slots(mask, out_cap)
-    out = []
-    for i in range(len(rows)):
-        col = torch.full((out_cap + 1,), INT32_MAX, dtype=torch.int32, device=mask.device)
-        col.scatter_(0, slots, rows[i])
-        out.append(col[:out_cap])
-        rows[i] = None
-    return tuple(out)
+from .device_tokenizer import (INT32_MAX, check_max_word_len, check_token_count,
+                               finalize_rows_body, live_groups_for, num_groups_for,
+                               sort_unique_rows)
 
 
 def window_rows(data, doc_ends, doc_id_values, *, width: int, tok_cap: int, num_docs: int,
                 sort_cols: int, num_groups: int, out_cap: int):
-    """One byte window -> its deduped (group rows…, doc) rows.
+    """One byte window -> its deduped (group rows…, doc) rows:
+    ``kernels.tokenize_window``, then the one reduction,
+    :func:`device_tokenizer.sort_unique_rows`, over its live pairs.
 
     Returns ``(rows, counts)``: ``rows`` is ``2 * num_groups + 1`` int32
     tensors of length ``out_cap`` (the unique rows first, in sorted
@@ -86,53 +66,29 @@ def window_rows(data, doc_ends, doc_id_values, *, width: int, tok_cap: int, num_
     groups, doc_col, max_word_len, num_tokens = kernels.tokenize_window(
         data, doc_ends, doc_id_values, width=width, tok_cap=tok_cap,
         num_docs=num_docs, sort_cols=sort_cols)
-    live = live_groups_for(sort_cols, width)
-    perm = groups_sort_perm(groups[:live], doc_col)
-    zero = torch.zeros(tok_cap, dtype=torch.int32, device=data.device)
-    s_rows = ([g[perm] for pair in groups[:live] for g in pair]
-              + [zero] * (2 * (num_groups - live)) + [doc_col[perm]])
-    del groups, doc_col, perm
-    first = _row_first_mask(s_rows)
-    count = first.sum(dtype=torch.int32)
-    rows = _compact_rows(s_rows, first, out_cap)
+    cols = [h for pair in groups[:live_groups_for(sort_cols, width)] for h in pair] + [doc_col]
+    del groups, doc_col
+    rows, count = sort_unique_rows(cols, num_groups=num_groups, out_cap=out_cap)
     return rows, torch.stack([count, max_word_len.to(torch.int32), num_tokens])
 
 
 def _merge_unique_rows(acc, window, *, cap: int, live_groups: int):
-    """Fold a window's row tuple into the sorted-unique accumulator;
-    also returns the accumulator's exact unique-row count (padding rows
-    never count).  It takes the window's rows in any order (the mesh
-    engine's exchanged rows); the single-card engine, whose windows come
-    sorted and unique, merges with ``kernels.merge_sorted_rows``, whose
-    plain version this is.  Only the ``live_groups`` group pairs (the ones the
-    stream has produced a nonzero char for so far) are sort passes; the
-    later groups are zero in both operands except on padding rows, where
-    every column is INT32_MAX, so a pass over them is the identity.  The
-    dedup still compares every column.  The concatenation is released
-    column by column as its sorted copy is made, so the merge holds about
-    the old accumulator, the concatenation and one column more."""
-    cat = [torch.cat([a, w]) for a, w in zip(acc, window)]
-    doc = cat[-1]
-    perm = groups_sort_perm([(cat[2 * g], cat[2 * g + 1]) for g in range(live_groups)], doc)
-    del doc
-    s_rows = []
-    for i in range(len(cat)):
-        s_rows.append(cat[i][perm])
-        cat[i] = None
-    del perm
-    first = _row_first_mask(s_rows)
-    count = first.sum(dtype=torch.int32)
-    return _compact_rows(s_rows, first, cap), count
+    """Fold a window's rows into the sorted-unique accumulator ``acc``
+    (``2 * num_groups + 1`` columns): the operands' first
+    ``live_groups`` pairs and their doc columns, concatenated, through
+    :func:`device_tokenizer.sort_unique_rows` into ``cap`` rows.
+    Returns ``(rows, count)``, the count exact (padding rows never
+    count).
 
-
-def _regrow_rows(acc, *, cap: int) -> tuple:
-    """Copy row columns into larger INT32_MAX-padded buffers."""
-    out = []
-    for a in acc:
-        col = torch.full((cap,), INT32_MAX, dtype=torch.int32, device=a.device)
-        col[: a.shape[0]] = a
-        out.append(col)
-    return tuple(out)
+    ``window`` comes in any order, with the later pairs or without
+    them: the mesh engine passes its exchanged live columns as they
+    arrive.  The later pairs are zero on every valid row of both
+    operands (the stream's running ``live_groups`` covers every nonzero
+    char), so they are never read.  The single-card engine, whose
+    windows come sorted and unique, merges with
+    ``kernels.merge_sorted_rows``, whose plain version this is."""
+    cols = [torch.cat([acc[i], window[i]]) for i in [*range(2 * live_groups), -1]]
+    return sort_unique_rows(cols, num_groups=len(acc) // 2, out_cap=cap)
 
 
 def _head_rows(acc, *, pad: int) -> tuple:
@@ -140,54 +96,6 @@ def _head_rows(acc, *, pad: int) -> tuple:
     fetches only these instead of the whole capacity, which can sit at
     ~2x the live count right after a doubling."""
     return tuple(a[:pad] for a in acc)
-
-
-def finalize_rows_body(acc, *, num_groups: int) -> dict:
-    """The one-shot all-device program's output contract from the
-    accumulator.
-
-    Every valid row is one unique (word, doc) pair and the rows are
-    already in emit-ready lexicographic order, so: postings are the doc
-    column's valid prefix verbatim; df falls out of the word-run edges;
-    the unique word rows come back as the 5-bit group pairs gathered at
-    each run's first row, which the host decodes at vocab scale
-    (``device_tokenizer.decode_word_groups``).  Returns ``counts =
-    [num_words, num_pairs, num_long]``, ``df``, ``postings`` and
-    ``unique_groups``, each ``cap`` long with a valid prefix.
-    """
-    cap = acc[0].shape[0]
-    dev = acc[0].device
-    doc = acc[-1]
-    valid = acc[0] != INT32_MAX
-    neq = first_occurrence_mask(acc[0])
-    for r in acc[1:-1]:
-        neq = neq | first_occurrence_mask(r)
-    first_word = neq & valid
-    num_words = first_word.sum(dtype=torch.int32)
-    num_pairs = valid.sum(dtype=torch.int32)
-
-    slots = torch.arange(cap, device=dev)
-    # word-start positions by the shared set-bit compaction; W[cap] ==
-    # cap keeps the df difference below in range
-    W = torch.cat([torch.clamp(set_bit_positions(first_word, cap), max=cap),
-                   torch.full((1,), cap, dtype=torch.int32, device=dev)])
-    word_live = slots < num_words
-    Wg = torch.clamp(W[:-1], 0, cap - 1).to(torch.int64)
-    df = torch.where(word_live, torch.minimum(W[1:], num_pairs) - W[:-1], 0)
-    postings = torch.where(slots < num_pairs, doc, 0)
-    groups = [(torch.where(word_live, acc[2 * g][Wg], 0),
-               torch.where(word_live, acc[2 * g + 1][Wg], 0))
-              for g in range(num_groups)]
-    # >12-char word count, so the sparse tail-group fetch can size its
-    # transfer (device_tokenizer.fetch_pack)
-    num_long = ((word_live & (groups[1][0] != 0)).sum(dtype=torch.int32) if num_groups > 1
-                else torch.zeros((), dtype=torch.int32, device=dev))
-    return {
-        "counts": torch.stack([num_words, num_pairs, num_long]),
-        "df": df,
-        "postings": postings,
-        "unique_groups": tuple(groups),
-    }
 
 
 class DeviceStreamEngine:
@@ -340,15 +248,8 @@ class DeviceStreamEngine:
         not persist an unverified prefix)."""
         for fetch, tok_cap, host_max_len in self._window_checks:
             _pairs, dev_max_len, dev_tokens = (int(v) for v in fetch.wait())
-            if dev_tokens + 1 > tok_cap:
-                raise AssertionError(
-                    f"device token count {dev_tokens} exceeded tok_cap "
-                    f"{tok_cap}: host mask count diverged from the "
-                    "device classifier (bug)")
-            if dev_max_len != host_max_len:
-                raise AssertionError(
-                    f"device max word len {dev_max_len} != host "
-                    f"{host_max_len}: classifier divergence (bug)")
+            check_token_count(dev_tokens, tok_cap)
+            check_max_word_len(dev_max_len, host_max_len)
         self._window_checks = []
 
     def snapshot(self) -> dict | None:
@@ -438,7 +339,8 @@ class DeviceStreamEngine:
         if self._acc is None:
             raise ValueError("no windows fed")
         self._verify_window_checks()
-        out = finalize_rows_body(self._acc, num_groups=self._num_groups)
+        out = finalize_rows_body(self._acc, num_groups=self._num_groups,
+                                 live_groups=self._live_groups)
         self._acc = self._acc_count = None
         self._pending = []
         return out

@@ -17,9 +17,13 @@ bytes go up, the finished index comes down.
         ──► word rows: windowed gathers off the compacted letter stream
             pack 5-bit letter codes, 12 per (hi, lo) int32 pair
             (order-preserving, so int order == strcmp order)
-        ──► LSD radix passes of stable ``torch.sort`` over (word groups…,
-            doc), each pass one int64 key
-        ──► boundary-diff word/pair dedup ► df ► postings ► unique rows
+        ──► sort_unique_rows, the word-row reduction of every
+            all-device plan: LSD radix passes of stable ``torch.sort``
+            over (live word groups…, doc), each pass one int64 key, then
+            first-occurrence mask ► count ► compaction, all over the
+            live groups and the doc alone (later groups are zero)
+        ──► finalize_rows_body: word-run edges ► df ► postings ► unique
+            word rows, over the live groups alone
 
 Exactness without strings on the host: rows are the *actual cleaned
 bytes* (no hashing, no collisions); sorted-row order IS strcmp order
@@ -333,65 +337,120 @@ def groups_sort_perm(groups, doc_col) -> torch.Tensor:
     return perm
 
 
-def _neq_prev(a: torch.Tensor) -> torch.Tensor:
-    return torch.cat([torch.ones(1, dtype=torch.bool, device=a.device), a[1:] != a[:-1]])
+def _row_first_mask(rows) -> torch.Tensor:
+    """First-occurrence mask over sorted (group halves…, doc) rows;
+    ``rows[0]`` (group 0's hi) is INT32_MAX on padding rows, which never
+    count."""
+    neq = segment.first_occurrence_mask(rows[0])
+    for r in rows[1:]:
+        neq = neq | segment.first_occurrence_mask(r)
+    return neq & (rows[0] != INT32_MAX)
 
 
-def sort_dedup_groups(groups, doc_col, cap: int, live: int):
-    """Sorted, deduped index from 5-bit group pairs.
+def _compact_rows(rows: list, mask: torch.Tensor, out_cap: int) -> tuple:
+    """Stable compaction of every column of a row list into ``out_cap``
+    slots: the rank slots are computed once per mask and each column is
+    scattered with them; dropped slots become padding rows (INT32_MAX in
+    every column, so later sorts push them last).  The list's entries
+    are released one by one as they are consumed."""
+    slots = segment._rank_slots(mask, out_cap)
+    out = []
+    for i in range(len(rows)):
+        col = torch.full((out_cap + 1,), INT32_MAX, dtype=torch.int32, device=mask.device)
+        col.scatter_(0, slots, rows[i])
+        out.append(col[:out_cap])
+        rows[i] = None
+    return tuple(out)
 
-    Lexicographic ((group pairs…), doc) order via the radix passes of
-    :func:`groups_sort_perm`; INT32_MAX rows (padding / empty) sort
-    last and are dropped by the validity mask.  ``live``: group pairs
-    that can be non-constant (:func:`live_groups_for`); constant-zero
-    tail pairs are left out of the radix passes (a stable pass over a
-    constant key is the identity) and returned as zeros.
 
-    Returns ``(num_words, num_pairs, df, postings, unique_groups)`` with
-    ``unique_groups`` shaped like ``groups``; every array is ``cap``
-    long with a valid prefix of ``num_words`` / ``num_pairs``.
+def sort_unique_rows(cols: list, *, num_groups: int, out_cap: int):
+    """The word-row reduction every all-device plan runs: word rows in
+    any order, with duplicates and padding, to their sorted unique rows.
+
+    ``cols``: the live group pairs' halves (``hi, lo`` of each of the
+    first :func:`live_groups_for` pairs), then the doc column, all of
+    one length; a row whose group 0 hi is INT32_MAX is padding.  The
+    later pairs are zero on every valid row, so the rows are sorted
+    (:func:`groups_sort_perm`), deduplicated and compacted over these
+    columns alone, and the list is emptied as its columns are consumed.
+    Returns ``(rows, count)``: ``rows`` the ``2 * num_groups + 1``
+    columns (group halves, then the doc) of ``out_cap`` rows, the unique
+    rows first in sorted order and INT32_MAX after, every dead half one
+    shared column; ``count`` their number, an int32 scalar on the
+    device."""
+    perm = groups_sort_perm(list(zip(cols[:-1:2], cols[1:-1:2])), cols[-1])
+    for i in range(len(cols)):
+        cols[i] = cols[i][perm]
+    del perm
+    first = _row_first_mask(cols)
+    count = first.sum(dtype=torch.int32)
+    live = _compact_rows(cols, first, out_cap)
+    del first
+    ndead = 2 * num_groups + 1 - len(live)
+    dead = (torch.where(live[0] == INT32_MAX, live[0], 0),) * ndead if ndead else ()
+    return live[:-1] + dead + live[-1:], count
+
+
+def finalize_rows_body(acc, *, num_groups: int, live_groups: int) -> dict:
+    """Sorted unique word rows (:func:`sort_unique_rows`, or the
+    streaming engines' accumulators) to the index.
+
+    Every valid row is one unique (word, doc) pair and the rows are
+    already in emit-ready lexicographic order, so: postings are the doc
+    column's valid prefix verbatim; df falls out of the word-run edges;
+    the unique word rows come back as the 5-bit group pairs gathered at
+    each run's first row, which the host decodes at vocab scale
+    (:func:`decode_word_groups`).  Only the first ``live_groups`` pairs
+    are read: the later ones are zero on every valid row and come back
+    as one shared zero column.  Returns ``counts = [num_words,
+    num_pairs, num_long]``, ``df``, ``postings`` and ``unique_groups``,
+    each ``cap`` long with a valid prefix and zeros after.
     """
-    dev = doc_col.device
-    live_pairs = list(groups[:max(1, live)])
-    perm = groups_sort_perm(live_pairs, doc_col)
-    s_groups = [(hi[perm], lo[perm]) for hi, lo in live_pairs]
-    s_docs = doc_col[perm]
-
-    word_valid = s_groups[0][0] != INT32_MAX
-    first_word = word_valid & functools.reduce(
-        torch.logical_or, (_neq_prev(h) for pair in s_groups for h in pair))
-    first_pair = word_valid & (first_word | _neq_prev(s_docs))
+    cap = acc[0].shape[0]
+    dev = acc[0].device
+    doc = acc[-1]
+    valid = acc[0] != INT32_MAX
+    neq = segment.first_occurrence_mask(acc[0])
+    for r in acc[1:2 * live_groups]:
+        neq = neq | segment.first_occurrence_mask(r)
+    first_word = neq & valid
     num_words = first_word.sum(dtype=torch.int32)
-    num_pairs = first_pair.sum(dtype=torch.int32)
+    num_pairs = valid.sum(dtype=torch.int32)
 
-    # W: first row of each unique word (then cap), P: first row of each
-    # unique pair; df is the pair-rank difference across a word's rows
-    pair_rank = torch.cumsum(first_pair, 0, dtype=torch.int32) - 1
-    slots = torch.arange(cap, device=dev)
-    W = torch.cat([torch.clamp(segment.set_bit_positions(first_word, cap), max=cap),
-                   torch.full((1,), cap, dtype=torch.int32, device=dev)]).to(torch.int64)
-    P = torch.clamp(segment.set_bit_positions(first_pair, cap), max=cap).to(torch.int64)
-    word_live = slots < num_words
-    pair_live = slots < num_pairs
-    Wg = torch.clamp(W[:-1], 0, cap - 1)
-    Pg = torch.clamp(P, 0, cap - 1)
-
-    pair_excl = torch.cat([pair_rank + 1 - first_pair.to(torch.int32), num_pairs.reshape(1)])
-    df = torch.where(word_live, pair_excl[W[1:]] - pair_excl[Wg], 0)
-    postings = torch.where(pair_live, s_docs[Pg], 0)
+    # word-start positions by the shared set-bit compaction, padded with
+    # cap: W[cap] == cap (there are at most cap words) keeps the df
+    # difference below in range
+    W = torch.clamp(segment.set_bit_positions(first_word, cap + 1), max=cap)
+    word_live = torch.arange(cap, dtype=torch.int32, device=dev) < num_words
+    Wg = torch.clamp(W[:-1], 0, cap - 1).to(torch.int64)
+    df = torch.where(word_live, torch.minimum(W[1:], num_pairs) - W[:-1], 0)
+    # the valid rows are the first num_pairs
+    postings = torch.where(valid, doc, 0)
     zero = torch.zeros(cap, dtype=torch.int32, device=dev)
-    unique_groups = tuple(
-        [(torch.where(word_live, hi[Wg], 0), torch.where(word_live, lo[Wg], 0))
-         for hi, lo in s_groups]
-        + [(zero, zero)] * (len(groups) - len(live_pairs)))
-    return num_words, num_pairs, df, postings, unique_groups
+    groups = ([(torch.where(word_live, acc[2 * g][Wg], 0),
+                torch.where(word_live, acc[2 * g + 1][Wg], 0))
+               for g in range(live_groups)]
+              + [(zero, zero)] * (num_groups - live_groups))
+    # words needing any tail group (cleaned length > 12): group 1's hi
+    # is nonzero iff char 13 exists.  The count rides with the other
+    # counts so the fetch can size a sparse tail-group transfer
+    # (:func:`fetch_pack`)
+    num_long = ((word_live & (groups[1][0] != 0)).sum(dtype=torch.int32) if live_groups > 1
+                else torch.zeros((), dtype=torch.int32, device=dev))
+    return {
+        "counts": torch.stack([num_words, num_pairs, num_long]),
+        "df": df,
+        "postings": postings,
+        "unique_groups": tuple(groups),
+    }
 
 
 def index_bytes_device(data, doc_ends, doc_id_values, *, width: int, tok_cap: int,
                        num_docs: int, sort_cols: int | None = None) -> dict:
-    """bytes -> sorted, deduped index, entirely on ``data``'s device
-    (tokenized by ``kernels.tokenize_window``, whose plain version is
-    :func:`tokenize_groups`).
+    """bytes -> sorted, deduped index, entirely on ``data``'s device:
+    ``kernels.tokenize_window`` (whose plain version is
+    :func:`tokenize_groups`), :func:`sort_unique_rows` and
+    :func:`finalize_rows_body`.
 
     ``data``: uint8 (N,) — concatenated documents, padded with spaces
     (0x20).  ``doc_ends``: int32 (num_docs,) exclusive end offsets.
@@ -402,8 +461,9 @@ def index_bytes_device(data, doc_ends, doc_id_values, *, width: int, tok_cap: in
     token per byte can exist).  ``sort_cols``: optional radix-pass bound
     from the host-exact max cleaned length.
 
-    Returns a dict of fixed-size tensors; valid prefixes are bounded by
-    ``num_words`` / ``num_pairs`` of the 5-int ``counts``.
+    Returns a dict of fixed-size tensors (``tok_cap`` long, zero past
+    their valid prefixes); valid prefixes are bounded by ``num_words`` /
+    ``num_pairs`` of the 5-int ``counts``.
     ``max_word_len`` must be checked against ``width`` on the host
     (the :class:`WidthOverflow` contract).  Word rows return as the
     5-bit ``unique_groups`` pairs; the host decodes them at vocab scale
@@ -412,27 +472,18 @@ def index_bytes_device(data, doc_ends, doc_id_values, *, width: int, tok_cap: in
     groups, doc_col, max_word_len, num_tokens = kernels.tokenize_window(
         data, doc_ends, doc_id_values, width=width, tok_cap=tok_cap,
         num_docs=num_docs, sort_cols=sort_cols)
-    num_words, num_pairs, df, postings, unique_groups = sort_dedup_groups(
-        groups, doc_col, tok_cap, live_groups_for(sort_cols, width))
-    # words needing any tail group (cleaned length > 12): group 1's hi
-    # is nonzero iff char 13 exists.  The count rides with the other
-    # counts so the fetch can size a sparse tail-group transfer
-    if len(unique_groups) > 1:
-        slots = torch.arange(tok_cap, device=data.device)
-        long_mask = (slots < num_words) & (unique_groups[1][0] != 0)
-        num_long = long_mask.sum(dtype=torch.int32)
-    else:
-        num_long = torch.zeros((), dtype=torch.int32, device=data.device)
-    return {
-        # one 5-int tensor: ONE host sync reads every count; num_tokens
-        # lets the caller verify its tok_cap bound held
-        "counts": torch.stack([num_words, num_pairs, max_word_len.to(torch.int32),
-                               num_tokens, num_long]),
-        "df": df,                    # (tok_cap,) valid prefix num_words
-        "postings": postings,        # (tok_cap,) valid prefix num_pairs
-        # num_groups_for(width) x (hi, lo), valid prefix num_words
-        "unique_groups": unique_groups,
-    }
+    live, ngroups = live_groups_for(sort_cols, width), len(groups)
+    cols = [h for pair in groups[:live] for h in pair] + [doc_col]
+    del groups, doc_col
+    rows, _ = sort_unique_rows(cols, num_groups=ngroups, out_cap=tok_cap)
+    out = finalize_rows_body(rows, num_groups=ngroups, live_groups=live)
+    del rows
+    num_words, num_pairs, num_long = out["counts"]
+    # one 5-int tensor: ONE host sync reads every count; num_tokens lets
+    # the caller verify its tok_cap bound held
+    out["counts"] = torch.stack([num_words, num_pairs, max_word_len.to(torch.int32),
+                                 num_tokens, num_long])
+    return out
 
 
 def doc_pack_width(max_doc_id: int) -> int:
@@ -568,6 +619,26 @@ def host_token_stats(buf: np.ndarray, ends: np.ndarray) -> tuple[int, int]:
     if res is not None:
         return res
     return _host_token_stats_numpy(buf, ends)
+
+
+def check_token_count(dev_tokens: int, tok_cap: int) -> None:
+    """Raise when the device counted more tokens than ``tok_cap`` holds:
+    the host's count (:func:`host_token_stats`) that sized it diverged
+    from the device classifier."""
+    if dev_tokens + 1 > tok_cap:
+        raise AssertionError(
+            f"device token count {dev_tokens} exceeded tok_cap {tok_cap}: host mask "
+            "count diverged from the device classifier (bug)")
+
+
+def check_max_word_len(dev_max_len: int, host_max_len: int) -> None:
+    """Raise when the device's max cleaned length differs from the
+    host's (:func:`host_token_stats`), which vetted the width and the
+    ``sort_cols`` bound."""
+    if dev_max_len != host_max_len:
+        raise AssertionError(
+            f"device max word len {dev_max_len} != host {host_max_len}: "
+            "classifier divergence (bug)")
 
 
 def _host_token_stats_numpy(buf: np.ndarray, ends: np.ndarray) -> tuple[int, int]:

@@ -32,7 +32,7 @@ def _rank_slots(mask: torch.Tensor, out_len: int) -> torch.Tensor:
     ``out_len``."""
     rank = torch.cumsum(mask, 0, dtype=torch.int64) - 1
     keep = mask & (rank < out_len)
-    return torch.where(keep, rank, torch.full_like(rank, out_len))
+    return torch.where(keep, rank, out_len)
 
 
 def set_bit_positions(mask: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -53,8 +53,8 @@ def first_occurrence_mask(sorted_keys: torch.Tensor) -> torch.Tensor:
     On a sorted pair array this is exactly the reference's per-(word, doc)
     dedup (main.c:176-184): one True per unique pair.
     """
-    prev = torch.cat([sorted_keys[:1] - 1, sorted_keys[:-1]])
-    return sorted_keys != prev
+    head = torch.ones(sorted_keys[:1].shape, dtype=torch.bool, device=sorted_keys.device)
+    return torch.cat([head, sorted_keys[1:] != sorted_keys[:-1]])
 
 
 def sorted_segment_counts(segment_ids: torch.Tensor, weights: torch.Tensor,

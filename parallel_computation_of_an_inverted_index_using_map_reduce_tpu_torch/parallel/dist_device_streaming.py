@@ -14,10 +14,16 @@ The last cell of {device scan} x {mesh} x {streaming}:
 
 Per window, for every shard:
 
-    rows   <- unique(sort(tokenize_window(local byte shard)))
+    rows   <- sort_unique_rows(tokenize_window(local byte shard))
     counts <- bucket(rows, mix32 % n)        read on the host
-    recv   <- all_to_all(rows, capacity = the largest bucket)
-    acc_o  <- compact(unique(sort(acc_o[:count_o] ++ recv[valid])))
+    recv   <- all_to_all(live columns of rows, capacity = the largest bucket)
+    acc_o  <- sort_unique_rows(acc_o[:count_o] ++ recv[valid])
+    at the end: finalize_rows_body(acc_o)
+
+``sort_unique_rows`` and ``finalize_rows_body`` are the word-row
+reduction of ``ops/device_tokenizer.py``, which every all-device plan
+runs; the owners' fold, ``_merge_unique_rows``, calls it on the live
+pairs and the doc alone, so exchanged columns merge as they arrive.
 
 Each shard dedups its window before the exchange, so a word crosses at
 most once per (shard, document), and the Zipf head, which would fill
@@ -54,8 +60,9 @@ import numpy as np
 import torch
 
 from ..obs import timing
-from ..ops.device_streaming import _merge_unique_rows, finalize_rows_body, window_rows
-from ..ops.device_tokenizer import INT32_MAX, live_groups_for, num_groups_for
+from ..ops.device_streaming import _merge_unique_rows, window_rows
+from ..ops.device_tokenizer import (INT32_MAX, check_max_word_len, check_token_count,
+                                    finalize_rows_body, live_groups_for, num_groups_for)
 from ..utils.rounding import round_up
 from .dist_device_tokenizer import _mix32, bucket_rows, exchange_buckets, fetch_owner_blocks
 from .mesh import Mesh, agree_max, gather_host, shard_parts
@@ -168,10 +175,7 @@ class DistDeviceStreamEngine:
             for acc, rows, o in zip(self._acc, recv, self._mesh.local_positions):
                 got = [torch.cat([c[s * capacity:s * capacity + int(sent[s, o])]
                                   for s in range(n)]) for c in rows]
-                # the un-exchanged group pairs are the zeros they provably are
-                zero = torch.zeros(got[0].shape[0], dtype=torch.int32, device=got[0].device)
-                full = got[:-1] + [zero] * (2 * (self._num_groups - lg)) + [got[-1]]
-                folded, count = _merge_unique_rows(tuple(a[:int(held[o])] for a in acc), full,
+                folded, count = _merge_unique_rows(tuple(a[:int(held[o])] for a in acc), got,
                                                    cap=int(lens[o]), live_groups=lg)
                 new_acc.append(folded)
                 counts.append(count)
@@ -185,15 +189,10 @@ class DistDeviceStreamEngine:
         if self._acc is None:
             raise ValueError("no windows fed")
         for dev_max_len, tok_cap, dev_tokens, host_max_len in self._window_checks:
-            if dev_tokens + 1 > tok_cap:
-                raise AssertionError(
-                    f"device token count {dev_tokens} exceeded tok_cap {tok_cap}: host mask "
-                    "count diverged from the device classifier (bug)")
-            if dev_max_len != host_max_len:
-                raise AssertionError(
-                    f"device max word len {dev_max_len} != host {host_max_len}: "
-                    "classifier divergence (bug)")
-        blocks = [finalize_rows_body(acc, num_groups=self._num_groups) for acc in self._acc]
+            check_token_count(dev_tokens, tok_cap)
+            check_max_word_len(dev_max_len, host_max_len)
+        blocks = [finalize_rows_body(acc, num_groups=self._num_groups,
+                                     live_groups=self._live_groups) for acc in self._acc]
         self._acc = self._counts = None
         self._window_checks = []
         counts = gather_host([b["counts"] for b in blocks], self._mesh)

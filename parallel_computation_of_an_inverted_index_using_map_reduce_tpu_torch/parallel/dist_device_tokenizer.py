@@ -16,7 +16,7 @@ Per shard:
     rows   <- tokenize_window(bytes_shard)
     owner  <- mix32(word columns) % n
     recv   <- all_to_all(bucket(rows, owner))
-    index  <- sort_dedup_groups(recv)
+    index  <- finalize_rows_body(sort_unique_rows(recv))
 
 with a fixed exchange capacity and one retry at the safe capacity when
 a bucket overflows.  The host then fetches each owner's valid prefix
@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from ..ops.device_tokenizer import (INT32_MAX, doc_pack_width, fetch_pack, live_groups_for,
-                                    num_groups_for, rebuild_tail_groups, sort_dedup_groups,
-                                    unpack_postings)
+from ..ops.device_tokenizer import (INT32_MAX, check_token_count, doc_pack_width, fetch_pack,
+                                    finalize_rows_body, live_groups_for, num_groups_for,
+                                    rebuild_tail_groups, sort_unique_rows, unpack_postings)
 from ..ops.engine import PendingFetch, host_view, leaves
 from ..ops.segment import bucket_edges
 from ..utils.rounding import round_up
@@ -153,6 +153,7 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
     ids = shard_parts(shard_ids, mesh, keep)
     owner_dev = (None if owner_of_letter is None else
                  replicate(np.asarray(owner_of_letter, np.int32), mesh, keep))
+    live, ngroups = live_groups_for(sort_cols, width), num_groups_for(width)
     capacity = default_capacity(tok_cap, n)
     retries = 0
     while True:
@@ -162,22 +163,12 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
                      for s in range(len(mesh.devices))]
         recv, overflows = exchange_rows([p[0] for p in per_shard], [p[1] for p in per_shard],
                                         mesh=mesh, capacity=capacity)
-        live = live_groups_for(sort_cols, width)
-        ngroups = num_groups_for(width)
         blocks = []
-        for rows in recv:
-            zero = torch.zeros(n * capacity, dtype=torch.int32, device=rows[0].device)
-            groups = ([(rows[2 * g], rows[2 * g + 1]) for g in range(live)]
-                      + [(zero, zero)] * (ngroups - live))
-            num_words, num_pairs, df, postings, unique_groups = sort_dedup_groups(
-                groups, rows[-1], n * capacity, live)
-            # unique_groups are zero past num_words, so the nonzero count
-            # of group 1's hi IS the >12-char word count
-            num_long = ((unique_groups[1][0] != 0).sum(dtype=torch.int32)
-                        if len(unique_groups) > 1
-                        else torch.zeros((), dtype=torch.int32, device=df.device))
-            blocks.append({"counts": torch.stack([num_words, num_pairs, num_long]),
-                           "df": df, "postings": postings, "unique_groups": unique_groups})
+        for o in range(len(recv)):  # each owner's received live pairs and doc
+            cols, recv[o] = list(recv[o]), None
+            unique, _ = sort_unique_rows(cols, num_groups=ngroups, out_cap=n * capacity)
+            blocks.append(finalize_rows_body(unique, num_groups=ngroups, live_groups=live))
+            del unique
         # [max word len, overflow, max shard tokens, max owner words,
         #  pairs, long words]: one read
         g = gather_host([torch.cat([torch.stack([p[2], o.to(torch.int32), p[3]]), b["counts"]])
@@ -189,10 +180,7 @@ def index_bytes_dist(shard_bufs, shard_ends, shard_ids, *, width: int, tok_cap: 
         break
     max_len = int(g[:, 0].max())
     max_shard_tokens = int(g[:, 2].max())
-    if max_shard_tokens + 1 > tok_cap:
-        raise AssertionError(
-            f"device token count {max_shard_tokens} exceeded tok_cap {tok_cap}: host mask "
-            "count diverged from the device classifier (bug)")
+    check_token_count(max_shard_tokens, tok_cap)
     mx = g[:, 3:].max(axis=0)
     owners = fetch_owner_blocks(
         blocks, counts=g[:, 3:], width=width, sort_cols=sort_cols,

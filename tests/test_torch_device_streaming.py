@@ -107,7 +107,7 @@ def _rows_pair(seed, width, live_cols):
 def test_merge_unique_rows_matches_jax_with_an_exact_count(live_groups):
     """The merge count is the true unique-row count (padding never
     counts), equal to JAX's, with ``live_groups`` below ``num_groups``
-    as well as at it."""
+    as well as at it; a window without its dead pairs merges the same."""
     width, cap = 48, 1024
     sc = 3 * live_groups
     acc = [np.concatenate([c, np.full(cap - len(c), INT32_MAX, np.int32)])
@@ -125,6 +125,13 @@ def test_merge_unique_rows_matches_jax_with_an_exact_count(live_groups):
     truth = {tuple(int(c[i]) for c in rows) for rows in (acc, win)
              for i in range(len(rows[0])) if rows[0][i] != INT32_MAX}
     assert int(t_count) == int(j_count) == len(truth)
+    # the mesh's call: a window of its live pairs and its doc alone
+    live_rows, live_count = TDS._merge_unique_rows(
+        tuple(torch.from_numpy(a.copy()) for a in acc),
+        tuple(torch.from_numpy(w.copy()) for w in win[:2 * live_groups] + win[-1:]),
+        cap=cap, live_groups=live_groups)
+    _assert_cols_equal([r.numpy() for r in live_rows], [r.numpy() for r in t_rows])
+    assert int(live_count) == int(t_count)
 
 
 def _merge_operands(live_groups, acc_cap):
@@ -217,13 +224,32 @@ def test_finalize_rows_body_matches_jax(width):
         cap=cap, live_groups=TDT.num_groups_for(width))
     acc = [r.numpy() for r in rows]
     t = TDS.finalize_rows_body(tuple(torch.from_numpy(a.copy()) for a in acc),
-                               num_groups=TDT.num_groups_for(width))
+                               num_groups=TDT.num_groups_for(width),
+                               live_groups=TDT.num_groups_for(width))
     import jax
 
     j = JDS._finalize_rows(tuple(jax.device_put(a.copy()) for a in acc),
                            num_groups=TDT.num_groups_for(width))
     _assert_finalize_equal(t, j)
     assert int(t["counts"][1]) == int((acc[0] != INT32_MAX).sum())
+
+
+@pytest.mark.parametrize("sort_cols", [3, 6])
+def test_finalize_rows_body_of_the_live_pairs_matches_jax(sort_cols):
+    """Reading only the live pairs gives JAX's index over every pair:
+    the later pairs of a window's rows are zero on every valid row."""
+    width = 48
+    live = TDT.live_groups_for(sort_cols, width)
+    rows = _rows_pair(3, width, sort_cols)
+    valid = rows[0] != INT32_MAX
+    assert valid.any() and all((r[valid] == 0).all() for r in rows[2 * live:-1])
+    t = TDS.finalize_rows_body(tuple(torch.from_numpy(r.copy()) for r in rows),
+                               num_groups=TDT.num_groups_for(width), live_groups=live)
+    import jax
+
+    j = JDS._finalize_rows(tuple(jax.device_put(r.copy()) for r in rows),
+                           num_groups=TDT.num_groups_for(width))
+    _assert_finalize_equal(t, j)
 
 
 def _assert_finalize_equal(t, j):
